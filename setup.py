@@ -78,7 +78,9 @@ setuptools.setup(
             "_native/*.h",
             "_native/Makefile",
             "_native/*.supp",
-        ]
+        ],
+        # the PyTorch port's CUDA sources, built with nvcc at first use
+        "euler_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
     },
     include_package_data=True,
     python_requires=">=3.10",
