@@ -8,19 +8,34 @@ Phases, each of which raises on failure (nonzero exit, no result line):
 1. Environment: torch, CUDA, nvcc, triton, the card's name and power
    limit. TF32 is switched off for matmuls and cuDNN.
 2. Build: the port's CUDA kernels from ``euler_tpu_torch/csrc/``.
-3. Kernel vs plain, on the full synthetic PPI graph (56,944 nodes):
-   (a) ``sample_fanout2`` at the ppi shape (512 roots, [10, 10]) equals
+3. Kernels vs plain, on the full synthetic PPI graph (56,944 nodes), for
+   the chained two-hop draw ``sample_fanout2`` (B1) and the single-hop
+   draw ``sample_neighbor`` (B2):
+   (a) B1 at the ppi shape (512 roots, [10, 10]) equals
    ``sample_fanout2_reference`` exactly, with injected uniforms and with
    Philox, on roots that include a negative id, an id past the slab, the
    default row and zero-weight rows; (b) Philox hop-1 pick frequencies of
    four fixed rows over 10^5 draws each match the ``cum`` probabilities
    within a total variation distance of 0.03, and every pick is a real
-   neighbor of its row or the default; (c) kernel, plain version and a
-   ``torch.multinomial`` yardstick, timed with CUDA events.
-4. Train: a small model agrees between CPU (plain draws) and CUDA
-   (kernel) step for step; then ``SupervisedGraphSage`` at full ppi width
-   (dim 256, batch 512, fanouts [10, 10], Adam 0.01) trains through
-   ``train.make_scan_train``, with the kernel launched once per step.
+   neighbor of its row or the default; (c) B1, its plain version and a
+   ``torch.multinomial`` yardstick, timed with CUDA events;
+   (d) B2 equals ``sample_neighbor_reference`` exactly at [512, 1] (the
+   unsupervised positives) and at [5,120, 10] (a hop-2 shape), with
+   injected and Philox uniforms, on the same kinds of odd roots;
+   (e) B1 equals two chained B2 launches (hop 0 on the roots, hop 1 on the
+   hop-1 picks) bit for bit, so the shared draw routine is shared;
+   (f) B2's pick frequencies as in (b); (g) B2, its plain version and a
+   ``torch.multinomial`` yardstick at both shapes.
+4. Train, each path with the launch counts set to 0 just before it and
+   read just after: a small model agrees between CPU (plain draws) and
+   CUDA (kernels) step for step; then ``SupervisedGraphSage`` at full ppi
+   width (dim 256, batch 512, fanouts [10, 10], Adam 0.01) trains through
+   ``train.make_scan_train`` with B1 launched once per step. The same for
+   the unsupervised ``GraphSage`` (the JAX package's ``run_loop --model
+   graphsage`` defaults: dim 256, fanouts [10, 10], batch 512, 5
+   negatives, concat, sigmoid cross-entropy, Adam 0.01): B2 once per step
+   (the positives) and B1 three times (the fanouts of roots, positives
+   and negatives).
 5. The ``kernels`` line; then the final ``ok`` line.
 """
 
@@ -40,9 +55,13 @@ PPI_BATCH = 512
 PPI_FANOUTS = (10, 10)
 PPI_DIM = 256
 PPI_LR = 0.01
+SAGE_NEGS = 5
 CHUNK_STEPS = 20
 TIMED_CHUNKS = 4
 TVD_BOUND = 0.03
+# the single-hop draw's shapes: the unsupervised positives, and a hop-2
+# shape of the ppi fanout (512 * 10 rows, 10 draws each)
+B2_SHAPES = ((PPI_BATCH, 1), (PPI_BATCH * PPI_FANOUTS[0], PPI_FANOUTS[1]))
 # NVIDIA H100 SXM data-sheet peaks (700 W): HBM bytes/s and
 # float32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -121,7 +140,8 @@ def phase_build() -> None:
     log(f"built {_build.library_path()} in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_build.build_seconds:.2f} s)")
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if any(w in line for w in ("Compiling entry", "registers", "spill",
+                                   "error")):
             log(f"  ptxas: {line.strip()}")
 
 
@@ -274,35 +294,156 @@ def phase_kernel(seed: int):
         f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.multinomial "
         f"{library_ms:.4f} ms, bound {bound_ms * 1e3:.3f} us ({bound_by}: "
         f"{bytes_moved} B over {uniq1}+{uniq2} distinct rows, {ops} compares)")
-    return graph, dict(
+    b1 = dict(
         max_abs_err=max_err, exact_vs_plain=max_err == 0, ms=kernel_ms,
         plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
         bound_by=bound_by,
     )
+    b2 = check_single_hop(adj, adj_w, roots, roots_c, zero_rows, seed)
+    return graph, {"sample_fanout2": b1, "sample_neighbor": b2}
 
 
-def phase_train(graph, seed: int, smi: str) -> int:
-    log("== phase 4: train")
+def odd_nodes(m: int, max_id: int, zero_rows, gen) -> torch.Tensor:
+    """[m] int32 ids on the card: random real ids, led by a negative id,
+    one past the slab, the default row and the zero-weight rows."""
+    n_rows = max_id + 2
+    nodes = torch.randint(0, max_id + 1, (m,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    odd = [-7, n_rows + 100, n_rows - 1, *zero_rows]
+    nodes[:len(odd)] = torch.tensor(odd, dtype=torch.int32, device="cuda")
+    return nodes
+
+
+def bound_of(m: int, count: int, uniq_rows: int, width: int):
+    """(bound_ms, bound_by, bytes, compares) of m x count single-hop draws
+    touching uniq_rows distinct slab rows: ids read, rows read once, picks
+    written; one u >= cum compare per slot and draw."""
+    row_bytes = width * 8 + 1  # nbr + cum + sampleable
+    bytes_moved = 4 * m + uniq_rows * row_bytes + 4 * m * count
+    ops = m * count * width
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops
+            else "operations", bytes_moved, ops)
+
+
+def check_single_hop(adj, adj_w, roots, roots_c, zero_rows, seed):
+    """Phase 3 (d)-(g): the single-hop kernel against its plain version,
+    against the chained kernel, against the cum probabilities, and timed.
+    Returns the kernel's numbers at the unsupervised positives' shape."""
+    from euler_tpu_torch.graph import sampling_kernels
+    from euler_tpu_torch.graph import device as device_graph
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    max_id = adj["nbr"].shape[0] - 2
+    default = max_id + 1
+    words = device_graph.stream_words(seed + 555, 1)
+
+    # (d) exactness at both shapes, injected and Philox uniforms
+    max_err = 0
+    for hop, (m, count) in enumerate(B2_SHAPES):
+        nodes = odd_nodes(m, max_id, zero_rows, gen)
+        u = torch.rand((m, count), generator=gen, device="cuda")
+        for mode, uu in (("injected", u), ("philox", None)):
+            k = sampling_kernels.sample_neighbor(adj_w, nodes, words, count,
+                                                 hop=hop, u=uu)
+            p = sampling_kernels.sample_neighbor_reference(
+                adj_w, nodes, words, count, hop=hop, u=uu)
+            torch.cuda.synchronize()
+            err = int((k - p).abs().max())
+            max_err = max(max_err, err)
+            if not torch.equal(k, p):
+                raise AssertionError(f"sample_neighbor != plain at [{m}, "
+                                     f"{count}] ({mode}): max |diff| {err}")
+            if not bool((k[:3 + len(zero_rows)] == default).all()):
+                raise AssertionError("unknown, default and zero-weight rows "
+                                     "must draw the default id")
+            check_members(adj_w, nodes, k)
+            log(f"(d) {mode} uniforms: sample_neighbor == plain at [{m}, "
+                f"{count}], hop {hop}, max |diff| {err}")
+
+    # (e) the chained kernel is two single-hop launches
+    f1, f2 = PPI_FANOUTS
+    h1, h2 = sampling_kernels.sample_fanout2(adj_w, adj_w, roots, words, f1,
+                                             f2)
+    s1 = sampling_kernels.sample_neighbor(adj_w, roots, words, f1, hop=0)
+    s2 = sampling_kernels.sample_neighbor(adj_w, s1.reshape(-1), words, f2,
+                                          hop=1)
+    if not (torch.equal(h1, s1) and torch.equal(h2, s2)):
+        raise AssertionError("sample_fanout2 != two chained sample_neighbor "
+                             "launches (Philox)")
+    log(f"(e) sample_fanout2 == sample_neighbor at hop 0 then hop 1: "
+        f"[{roots.shape[0]}, {f1}] + [{h2.shape[0]}, {f2}] bit for bit")
+
+    # (f) Philox pick distribution of four fixed rows, 10^5 draws each
+    deg = adj_w["deg"]
+    fixed = [int(deg.argmax()), 11, 1234, 40000]
+    per_row, count = 10_000, 10
+    nodes = torch.tensor(fixed, dtype=torch.int32,
+                         device="cuda").repeat_interleave(per_row)
+    picks = sampling_kernels.sample_neighbor(
+        adj_w, nodes, device_graph.stream_words(seed + 99, 2), count)
+    check_members(adj_w, nodes, picks)
+    picks = picks.reshape(len(fixed), -1)
+    for i, r in enumerate(fixed):
+        d = int(deg[r])
+        cum = adj_w["cum"][r, :d].double()
+        p = torch.diff(cum, prepend=cum.new_zeros(1))
+        freq = (picks[i][:, None] == adj_w["nbr"][r, :d][None, :]).double()
+        tvd = 0.5 * float((freq.mean(0) - p).abs().sum())
+        log(f"(f) row {r}: degree {d}, {picks.shape[1]} draws, TVD "
+            f"{tvd:.5f} (bound {TVD_BOUND})")
+        if not tvd < TVD_BOUND:
+            raise AssertionError(f"row {r}: TVD {tvd} >= {TVD_BOUND}")
+
+    # (g) timing at both shapes on the main path's slab: the positives'
+    # roots, and the hop-1 picks of those roots
+    n_rows, width = adj["nbr"].shape
+    probs = torch.diff(adj["cum"], dim=1,
+                       prepend=adj["cum"].new_zeros(n_rows, 1))
+    hop1 = sampling_kernels.sample_neighbor(adj, roots_c, words, f1)
+    timed = []
+    for hop, ((m, count), nodes) in enumerate(zip(
+            B2_SHAPES, (roots_c, hop1.reshape(-1)))):
+        kern = lambda: sampling_kernels.sample_neighbor(  # noqa: E731
+            adj, nodes, words, count, hop=hop)
+        plain = lambda: sampling_kernels.sample_neighbor_reference(  # noqa: E731
+            adj, nodes, words, count, hop=hop)
+        rows = nodes.long()
+
+        def library():  # one torch.multinomial over the gathered rows
+            idx = torch.multinomial(probs[rows], count, replacement=True)
+            return adj["nbr"][rows].gather(1, idx)
+
+        kernel_ms = cuda_ms(kern)
+        plain_ms = cuda_ms(plain, batch=1)  # some 300 launches per run
+        library_ms = cuda_ms(library)
+        uniq = int(torch.unique(nodes).numel())
+        bound_ms, bound_by, bytes_moved, ops = bound_of(m, count, uniq, width)
+        log(f"(g) sample_neighbor at [{m}, {count}], W={width}: kernel "
+            f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.multinomial "
+            f"{library_ms:.4f} ms, bound {bound_ms * 1e3:.3f} us ({bound_by}:"
+            f" {bytes_moved} B over {uniq} distinct rows, {ops} compares)")
+        timed.append(dict(shape=[m, count], ms=kernel_ms, plain_ms=plain_ms,
+                          library_ms=library_ms, bound_ms=bound_ms,
+                          bound_by=bound_by))
+    return dict(max_abs_err=max_err, exact_vs_plain=max_err == 0,
+                **{k: v for k, v in timed[0].items() if k != "shape"},
+                shapes=timed)
+
+
+def agree_cpu_cuda(model, graph, seed: int, name: str) -> None:
+    """Three steps of ``model`` from the same init on the CPU (plain
+    draws) and on the card (kernels), on the same roots and seeds: first
+    loss rtol 1e-5, all losses rtol 1e-3, step-1 gradients within 1e-5 of
+    their scale (max |diff| / max(1, max |grad|): the unsupervised loss is
+    a sum over the batch, so its gradients run to tens)."""
     from euler_tpu_torch import train
-    from euler_tpu_torch.datasets import build_synthetic
-    from euler_tpu_torch.graph import Graph, sampling_kernels
-    from euler_tpu_torch.models import SupervisedGraphSage
 
-    def sage(max_id, dim):
-        return SupervisedGraphSage(
-            label_idx=0, label_dim=121, metapath=[[0], [0]],
-            fanouts=list(PPI_FANOUTS), dim=dim, feature_idx=1,
-            feature_dim=50, max_id=max_id, device_features=True,
-            device_sampling=True)
-
-    # small model: CPU (plain draws) and CUDA (kernel) agree step by step
-    small = Graph(**build_synthetic(2000, 15, 50, 121, seed=seed + 1))
-    model = sage(small.max_node_id, 32)
     opt = train.get_optimizer("adam", PPI_LR)
-    st = {d: model.init_state(small, opt, device=d, seed=seed)
+    st = {d: model.init_state(graph, opt, device=d, seed=seed)
           for d in ("cpu", "cuda")}
     step = model.make_train_step()
-    roots = np.random.default_rng(seed).integers(0, 2000, 64)
+    roots = np.random.default_rng(seed).integers(0, graph.num_nodes, 64)
     losses = {"cpu": [], "cuda": []}
     grads0 = {}
     for i in range(3):
@@ -315,21 +456,33 @@ def phase_train(graph, seed: int, smi: str) -> int:
                              for p in st[d]["module"].parameters()]
     g_err = max(float((a - b).abs().max()) for a, b in
                 zip(grads0["cpu"], grads0["cuda"]))
-    log(f"small model losses cpu {losses['cpu']} cuda {losses['cuda']}, "
-        f"step-1 max |grad diff| {g_err:.3g}")
+    g_scale = max(1.0, max(float(g.abs().max()) for g in grads0["cpu"]))
+    log(f"small {name} losses cpu {losses['cpu']} cuda {losses['cuda']}, "
+        f"step-1 max |grad diff| {g_err:.3g} (max |grad| {g_scale:.3g})")
     np.testing.assert_allclose(losses["cuda"][0], losses["cpu"][0], rtol=1e-5)
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-3)
-    if not g_err < 1e-5:
-        raise AssertionError(f"step-1 gradients differ by {g_err}")
+    if not g_err / g_scale < 1e-5:
+        raise AssertionError(f"step-1 gradients differ by {g_err} at a "
+                             f"scale of {g_scale}")
 
-    # full ppi width through the kernel
-    model = sage(graph.max_node_id, PPI_DIM)
+
+def train_full(model, graph, seed: int, smi: str, name: str,
+               edges_per_step: int, edges_note: str) -> dict:
+    """Train ``model`` at full width through ``train.make_scan_train``: a
+    warmup chunk, then TIMED_CHUNKS timed chunks. The launch counts are
+    set to 0 just before and read just after; returns them. Raises unless
+    the losses are finite and fall from the first chunk to the last."""
+    from euler_tpu_torch import train
+    from euler_tpu_torch.graph import sampling_kernels
+
     t0 = time.perf_counter()
-    state = model.init_state(graph, opt, device="cuda", seed=seed)
+    state = model.init_state(graph, train.get_optimizer("adam", PPI_LR),
+                             device="cuda", seed=seed)
     torch.cuda.synchronize()
-    log(f"ppi state on card in {time.perf_counter() - t0:.2f} s")
+    log(f"{name} state on card in {time.perf_counter() - t0:.2f} s")
     scan = train.make_scan_train(model, CHUNK_STEPS, PPI_BATCH)
-    sampling_kernels.launches = 0
+    for k in sampling_kernels.launches:
+        sampling_kernels.launches[k] = 0
     state, first = scan(state, 0)  # warmup chunk
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -339,23 +492,72 @@ def phase_train(graph, seed: int, smi: str) -> int:
         chunk_losses.append(losses_c)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = sampling_kernels.launches
+    launches = dict(sampling_kernels.launches)
     steps = CHUNK_STEPS * (TIMED_CHUNKS + 1)
     all_losses = torch.stack(chunk_losses).cpu()
-    log(f"chunk mean losses {[round(float(x), 5) for x in all_losses.mean(1)]}")
+    log(f"{name} chunk mean losses "
+        f"{[round(float(x), 5) for x in all_losses.mean(1)]}")
     if not bool(torch.isfinite(all_losses).all()):
-        raise AssertionError("non-finite training loss")
+        raise AssertionError(f"{name}: non-finite training loss")
     if not float(all_losses[-1].mean()) < float(all_losses[0].mean()):
-        raise AssertionError("loss did not fall from the first chunk to the last")
-    if launches != steps:
-        raise AssertionError(f"kernel launched {launches} times in {steps} steps")
+        raise AssertionError(
+            f"{name}: loss did not fall from the first chunk to the last")
     step_ms = dt / (CHUNK_STEPS * TIMED_CHUNKS) * 1e3
-    edges = PPI_BATCH * (PPI_FANOUTS[0] + PPI_FANOUTS[0] * PPI_FANOUTS[1])
-    log(f"ppi train: {steps} steps, sample_fanout2 launches {launches}, "
-        f"step {step_ms:.4f} ms, {edges / step_ms * 1e3:.1f} edges/s "
-        f"(timed {CHUNK_STEPS * TIMED_CHUNKS} steps after a warmup chunk; "
-        f"card: {smi})")
-    return launches
+    log(f"{name} train: {steps} steps, launches {launches}, step "
+        f"{step_ms:.4f} ms, {edges_per_step / step_ms * 1e3:.1f} edges/s "
+        f"({edges_note}; timed {CHUNK_STEPS * TIMED_CHUNKS} steps after a "
+        f"warmup chunk; card: {smi})")
+    return {"steps": steps, "launches": launches}
+
+
+def phase_train(graph, seed: int, smi: str) -> dict:
+    """Both main paths; returns {path: {"steps", "launches"}}."""
+    log("== phase 4: train")
+    from euler_tpu_torch.datasets import build_synthetic
+    from euler_tpu_torch.graph import Graph
+    from euler_tpu_torch.models import GraphSage, SupervisedGraphSage
+
+    def sage(max_id, dim):
+        return SupervisedGraphSage(
+            label_idx=0, label_dim=121, metapath=[[0], [0]],
+            fanouts=list(PPI_FANOUTS), dim=dim, feature_idx=1,
+            feature_dim=50, max_id=max_id, device_features=True,
+            device_sampling=True)
+
+    def unsup(max_id, dim):  # run_loop --model graphsage's defaults
+        return GraphSage(
+            node_type=0, edge_type=[0], max_id=max_id, metapath=[[0], [0]],
+            fanouts=list(PPI_FANOUTS), dim=dim, num_negs=SAGE_NEGS,
+            feature_idx=1, feature_dim=50, aggregator="mean", concat=True,
+            xent_loss=True, device_features=True, device_sampling=True)
+
+    small = Graph(**build_synthetic(2000, 15, 50, 121, seed=seed + 1))
+    f1, f2 = PPI_FANOUTS
+    runs = {}
+    agree_cpu_cuda(sage(small.max_node_id, 32), small, seed, "ppi")
+    runs["ppi"] = train_full(
+        sage(graph.max_node_id, PPI_DIM), graph, seed, smi, "ppi",
+        PPI_BATCH * (f1 + f1 * f2), "512 * (10 + 10*10) sampled edges/step")
+    expect = {"sample_fanout2": runs["ppi"]["steps"], "sample_neighbor": 0}
+    if runs["ppi"]["launches"] != expect:
+        raise AssertionError(f"ppi launches {runs['ppi']['launches']}, "
+                             f"expected {expect}")
+
+    agree_cpu_cuda(unsup(small.max_node_id, 32), small, seed, "graphsage")
+    # positives (one edge per root) plus the [10, 10] fanouts of roots,
+    # positives and negatives: 512 + (512 + 512 + 2,560) * 110
+    towers = PPI_BATCH * (2 + SAGE_NEGS)
+    runs["graphsage"] = train_full(
+        unsup(graph.max_node_id, PPI_DIM), graph, seed, smi, "graphsage",
+        PPI_BATCH + towers * (f1 + f1 * f2),
+        f"{PPI_BATCH} + {towers} * {f1 + f1 * f2} sampled edges/step")
+    steps = runs["graphsage"]["steps"]
+    expect = {"sample_fanout2": 3 * steps, "sample_neighbor": steps}
+    if runs["graphsage"]["launches"] != expect:
+        raise AssertionError(
+            f"graphsage launches {runs['graphsage']['launches']}, expected "
+            f"{expect}")
+    return runs
 
 
 def main() -> int:
@@ -365,26 +567,27 @@ def main() -> int:
     smi = phase_env()
     phase_build()
     graph, k = phase_kernel(args.seed)
-    launches = phase_train(graph, args.seed, smi)
+    runs = phase_train(graph, args.seed, smi)
     log("== phase 5: kernels")
+    meta = {
+        "sample_fanout2": dict(
+            source="euler_tpu_torch/csrc/sample_fanout2.cu",
+            replaces="euler_tpu/graph/pallas_sampling.py:481",
+            tpu_kernel="_fanout2_kernel"),
+        "sample_neighbor": dict(
+            source="euler_tpu_torch/csrc/sample_neighbor.cu",
+            replaces="euler_tpu/graph/pallas_sampling.py:370",
+            tpu_kernel="_kernel"),
+    }
+    kernels = []
+    for name, m in meta.items():
+        by_path = {p: r["launches"][name] for p, r in runs.items()}
+        kernels.append(dict(
+            name=name, route="cuda", **m,
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            **k[name]))
     log(smi)  # the card's name and power limit, as nvidia-smi gives them
-    print(json.dumps({"kernels": [dict(
-        name="sample_fanout2",
-        route="cuda",
-        source="euler_tpu_torch/csrc/sample_fanout2.cu",
-        replaces="euler_tpu/graph/pallas_sampling.py:481",
-        tpu_kernel="_fanout2_kernel",
-        launches=launches,
-        max_abs_err=k["max_abs_err"],
-        exact_vs_plain=k["exact_vs_plain"],
-        ms=k["ms"],
-        kernel_ms=k["ms"],
-        plain_ms=k["plain_ms"],
-        bound_ms=k["bound_ms"],
-        bound_us=k["bound_ms"] * 1e3,
-        bound_by=k["bound_by"],
-        library_ms=k["library_ms"],
-    )]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

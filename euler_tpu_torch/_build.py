@@ -1,16 +1,19 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``csrc/`` have a plain C interface and include no
-PyTorch header, so ``nvcc`` compiles them in seconds:
+PyTorch header, so ``nvcc`` compiles them in seconds. Each ``*.cu`` is
+compiled by its own ``nvcc`` process, all started together, then the
+objects are linked into one library:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o libeuler_tpu_torch_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas -v -c csrc/<name>.cu -o <name>.o
+    nvcc -shared -o libeuler_tpu_torch_<hash>.so *.o
 
 The library is built at first use into ``build/euler_tpu_torch/`` beside
-the package, named by a hash of the sources and flags (a changed source
-builds anew), and loaded with ``ctypes``. Pointers and the stream pass as
-``c_void_p``; each C entry returns ``cudaGetLastError()`` after its
-launch, which the wrapper raises on.
+the package, named by a hash of the sources (headers included) and flags
+(a changed source builds anew), and loaded with ``ctypes``. Pointers and
+the stream pass as ``c_void_p``; each C entry returns
+``cudaGetLastError()`` after its launch, which the wrapper raises on.
 """
 
 from __future__ import annotations
@@ -29,8 +32,9 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "euler_tpu_torch")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+LINK_FLAGS = ["-shared"]
 
 _lib = None
 build_log = ""  # nvcc's output (ptxas register/spill report) of this process
@@ -56,7 +60,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
@@ -79,38 +83,71 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         p,               # stream
     ]
     lib.etpu_sample_fanout2.restype = ctypes.c_int
-    lib.etpu_fanout2_max_width.argtypes = []
-    lib.etpu_fanout2_max_width.restype = ctypes.c_int
+    lib.etpu_sample_neighbor.argtypes = [
+        p, i,            # nodes, m
+        p, p, p,         # nbr, cum, sampleable
+        i, i, i, i,      # R, W, count, hop
+        u32, u32,        # seed words
+        p,               # u (null: Philox)
+        p,               # out
+        p,               # stream
+    ]
+    lib.etpu_sample_neighbor.restype = ctypes.c_int
+    lib.etpu_draw_max_width.argtypes = []
+    lib.etpu_draw_max_width.restype = ctypes.c_int
     return lib
+
+
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands concurrently; append their output to build_log
+    and raise if any failed."""
+    global build_log
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+        for c in cmds
+    ]
+    failed = []
+    for c, proc in zip(cmds, procs):
+        text, _ = proc.communicate()
+        build_log += text
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(c)} (exit {proc.returncode})")
+    if failed:
+        raise RuntimeError(
+            "nvcc failed: " + "; ".join(failed) + f"\n{build_log}"
+        )
+
+
+def _compile_and_link(out: str) -> None:
+    """One nvcc per source, started together, then one link. The build
+    goes to a scratch directory beside the target and is renamed into
+    place: a concurrent process sees either no library or a whole one."""
+    nvcc = _nvcc()
+    srcs = [s for s in _sources() if s.endswith(".cu")]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [
+            os.path.join(tmp, os.path.basename(s) + ".o") for s in srcs
+        ]
+        _run_all([
+            [nvcc, *NVCC_FLAGS, "-c", s, "-o", o] for s, o in zip(srcs, objs)
+        ])
+        lib = os.path.join(tmp, "lib.so")
+        _run_all([[nvcc, *LINK_FLAGS, "-o", lib, *objs]])
+        os.replace(lib, out)
 
 
 def load_library() -> ctypes.CDLL:
     """The kernels' shared library, built from ``csrc/`` if this source
     hash has no build yet. Raises when ``nvcc`` is missing or fails."""
-    global _lib, build_log, build_seconds
+    global _lib, build_seconds
     if _lib is not None:
         return _lib
     out = library_path()
     if not os.path.exists(out):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        # build beside the target, then rename: a concurrent process sees
-        # either no library or a whole one
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[
-                s for s in _sources() if s.endswith(".cu")
-            ]],
-            capture_output=True, text=True,
-        )
+        _compile_and_link(out)
         build_seconds = time.perf_counter() - t0
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}):\n{build_log}"
-            )
-        os.replace(tmp, out)
     _lib = _declare(ctypes.CDLL(out))
     return _lib

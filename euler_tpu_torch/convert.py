@@ -11,27 +11,36 @@ def _kernel(k) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(np.asarray(k).T))
 
 
-def params_from_flax(params) -> dict:
-    """State dict of ``graphsage._SupervisedSageModule`` from the params
-    tree of the flax ``_SupervisedSageModule`` (nested dicts of arrays):
-    ``encoder/MeanAggregator_{l}/Dense_0/Dense_0/kernel`` is layer l's
-    self Dense, ``.../Dense_1/Dense_0/kernel`` its neighbor Dense, and
-    ``predict/{kernel,bias}`` the classifier."""
-    enc = params["encoder"]
+def _encoder(enc, prefix: str) -> dict:
+    """``encoder/MeanAggregator_{l}/Dense_0/Dense_0/kernel`` is layer l's
+    self Dense, ``.../Dense_1/Dense_0/kernel`` its neighbor Dense."""
     sd = {}
     layer = 0
     while f"MeanAggregator_{layer}" in enc:
         agg = enc[f"MeanAggregator_{layer}"]
-        prefix = f"encoder.aggregators.{layer}"
-        sd[f"{prefix}.self_dense.linear.weight"] = _kernel(
+        p = f"{prefix}.aggregators.{layer}"
+        sd[f"{p}.self_dense.linear.weight"] = _kernel(
             agg["Dense_0"]["Dense_0"]["kernel"]
         )
-        sd[f"{prefix}.neigh_dense.linear.weight"] = _kernel(
+        sd[f"{p}.neigh_dense.linear.weight"] = _kernel(
             agg["Dense_1"]["Dense_0"]["kernel"]
         )
         layer += 1
-    sd["predict.linear.weight"] = _kernel(params["predict"]["kernel"])
-    sd["predict.linear.bias"] = torch.from_numpy(
-        np.array(params["predict"]["bias"])
-    )
+    return sd
+
+
+def params_from_flax(params) -> dict:
+    """State dict of a port GraphSAGE module from the params tree of its
+    flax counterpart (nested dicts of arrays): the SageEncoder towers
+    ``encoder`` (and ``context_encoder`` of the unsupervised module) and,
+    for the supervised module, the classifier ``predict/{kernel,bias}``."""
+    sd = {}
+    for tower in ("encoder", "context_encoder"):
+        if tower in params:
+            sd.update(_encoder(params[tower], tower))
+    if "predict" in params:
+        sd["predict.linear.weight"] = _kernel(params["predict"]["kernel"])
+        sd["predict.linear.bias"] = torch.from_numpy(
+            np.array(params["predict"]["bias"])
+        )
     return sd

@@ -21,13 +21,13 @@
 // memory; here the unpacked nbr/cum/sampleable slabs are read directly,
 // each row with coalesced loads.
 //
-// Uniforms. Philox4x32-10 keyed by the two seed words, counter (row,
-// column, hop, 0) with row the global row index of the hop, first output
-// word, top 24 bits times 2^-24: u < 1, exact in float32, and independent
-// of the launch geometry. The plain version computes the same numbers
-// (graph/device.py philox_uniform). Optional injected u1 [m, f1] and
-// u2 [m*f1, f2] replace them, so the kernel can be held bit-exactly
-// against the plain version. Build without --use_fast_math.
+// Draw routine and uniforms: draw.cuh, shared with sample_neighbor.cu.
+// Philox counters: (r, c, 0, 0) for hop-1 draw c of root r, and
+// (r * f1 + c, c2, 1, 0) for hop-2 draw c2 of that pick, so this launch
+// draws exactly what two chained sample_neighbor launches draw at hops 0
+// and 1. Optional injected u1 [m, f1] and u2 [m*f1, f2] replace
+// the Philox uniforms, so the kernel can be held bit-exactly against the
+// plain version. Build without --use_fast_math.
 //
 // Bound. At the ppi shape (m=512, f1=f2=10, W<=60) the draw reads about
 // 5,632 slab rows x W x 8 B ~ 2.7 MB, about 0.8 us at 3.35 TB/s, and does
@@ -39,92 +39,18 @@
 // Launch discipline: runs on the caller's stream, allocates nothing,
 // does not synchronise; the C entry returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "draw.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
+using etpu::clamp_row;
+using etpu::draw;
+using etpu::draw_row_out;
+using etpu::kFull;
+using etpu::load_row;
+using etpu::philox_uniform;
+
 constexpr int kWarpsPerBlock = 4;
-
-__device__ __forceinline__ float philox_uniform(uint32_t k0, uint32_t k1,
-                                                uint32_t row, uint32_t col,
-                                                uint32_t hop) {
-  uint32_t c0 = row, c1 = col, c2 = hop, c3 = 0;
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
-    const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
-    c0 = n0;
-    c1 = lo1;
-    c2 = n2;
-    c3 = lo0;
-    k0 += 0x9E3779B9u;
-    k1 += 0xBB67AE85u;
-  }
-  return static_cast<float>(c0 >> 8) * (1.0f / 16777216.0f);
-}
-
-__device__ __forceinline__ int clamp_row(int id, int R) {
-  return id < 0 ? R - 1 : min(id, R - 1);
-}
-
-// Row `row` of a [R, W] slab into lane registers: slot lane + 32t.
-template <int T>
-__device__ __forceinline__ void load_row(const int* __restrict__ nbr,
-                                         const float* __restrict__ cum,
-                                         int row, int W, int R, int lane,
-                                         float (&c)[T], int (&n)[T]) {
-  const size_t base = static_cast<size_t>(row) * W;
-#pragma unroll
-  for (int t = 0; t < T; ++t) {
-    const int col = lane + 32 * t;
-    c[t] = col < W ? cum[base + col] : 2.0f;
-    n[t] = col < W ? nbr[base + col] : R - 1;
-  }
-}
-
-// One draw from the row in registers; u is warp-uniform, so is the pick.
-template <int T>
-__device__ __forceinline__ int draw(float u, const float (&c)[T],
-                                    const int (&n)[T], int W, int lane) {
-  int idx = 0;
-#pragma unroll
-  for (int t = 0; t < T; ++t)
-    idx += __popc(__ballot_sync(kFull, lane + 32 * t < W && u >= c[t]));
-  idx = min(idx, W - 1);
-  const int src_t = idx >> 5;
-  int v = 0;
-#pragma unroll
-  for (int t = 0; t < T; ++t) v = t == src_t ? n[t] : v;
-  return __shfl_sync(kFull, v, idx & 31);
-}
-
-// `count` draws from the row in registers for global row `grow` of hop
-// `hop`, written to out[grow * count + c]: lane j computes the uniform of
-// draw c0+j of each chunk of 32, and stores that draw's pick.
-template <int T>
-__device__ __forceinline__ void draw_row_out(
-    const float (&c)[T], const int (&n)[T], bool ok, int W, int R,
-    int lane, long long grow, int count, int hop, uint32_t k0, uint32_t k1,
-    const float* __restrict__ u, int* __restrict__ out) {
-  for (int c0 = 0; c0 < count; c0 += 32) {
-    const int cnt = min(32, count - c0);
-    float my_u = 0.0f;
-    if (lane < cnt)
-      my_u = u ? u[grow * count + c0 + lane]
-               : philox_uniform(k0, k1, static_cast<uint32_t>(grow),
-                                static_cast<uint32_t>(c0 + lane),
-                                static_cast<uint32_t>(hop));
-    int mine = R - 1;
-    for (int j = 0; j < cnt; ++j) {
-      const int p = draw<T>(__shfl_sync(kFull, my_u, j), c, n, W, lane);
-      if (lane == j) mine = ok ? p : R - 1;
-    }
-    if (lane < cnt) out[grow * count + c0 + lane] = mine;
-  }
-}
 
 template <int T>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
@@ -173,24 +99,9 @@ fanout2_kernel(const int* __restrict__ roots, int m,
   }
 }
 
-template <int T>
-cudaError_t launch(const int* roots, int m, const int* nbr1,
-                   const float* cum1, const uint8_t* ok1, const int* nbr2,
-                   const float* cum2, const uint8_t* ok2, int R, int W1,
-                   int W2, int f1, int f2, uint32_t k0, uint32_t k1,
-                   const float* u1, const float* u2, int* out1, int* out2,
-                   cudaStream_t stream) {
-  const int blocks = (m + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  fanout2_kernel<T><<<blocks, 32 * kWarpsPerBlock, 0, stream>>>(
-      roots, m, nbr1, cum1, ok1, nbr2, cum2, ok2, R, W1, W2, f1, f2, k0, k1,
-      u1, u2, out1, out2);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
-// Widest slab the register layout holds: 32 slots per lane.
-extern "C" int etpu_fanout2_max_width() { return 32 * 32; }
+extern "C" int etpu_draw_max_width() { return etpu::kMaxWidth; }
 
 extern "C" int etpu_sample_fanout2(const int* roots, int m, const int* nbr1,
                                    const float* cum1, const uint8_t* ok1,
@@ -201,19 +112,15 @@ extern "C" int etpu_sample_fanout2(const int* roots, int m, const int* nbr1,
                                    int* out1, int* out2, void* stream) {
   const int w = W1 > W2 ? W1 : W2;
   if (m <= 0 || R <= 0 || W1 <= 0 || W2 <= 0 || f1 <= 0 || f2 <= 0 ||
-      w > etpu_fanout2_max_width())
+      w > etpu::kMaxWidth)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int t = (w + 31) / 32;
+  const int blocks = (m + kWarpsPerBlock - 1) / kWarpsPerBlock;
   auto s = static_cast<cudaStream_t>(stream);
-#define ETPU_LAUNCH(TT)                                                      \
-  return static_cast<int>(launch<TT>(roots, m, nbr1, cum1, ok1, nbr2, cum2, \
-                                     ok2, R, W1, W2, f1, f2, k0, k1, u1, u2, \
-                                     out1, out2, s))
-  if (t <= 1) ETPU_LAUNCH(1);
-  if (t <= 2) ETPU_LAUNCH(2);
-  if (t <= 4) ETPU_LAUNCH(4);
-  if (t <= 8) ETPU_LAUNCH(8);
-  if (t <= 16) ETPU_LAUNCH(16);
-  ETPU_LAUNCH(32);
-#undef ETPU_LAUNCH
+  return static_cast<int>(etpu::with_slots(w, [&](auto slots) {
+    fanout2_kernel<decltype(slots)::value>
+        <<<blocks, 32 * kWarpsPerBlock, 0, s>>>(
+            roots, m, nbr1, cum1, ok1, nbr2, cum2, ok2, R, W1, W2, f1, f2,
+            k0, k1, u1, u2, out1, out2);
+    return cudaGetLastError();
+  }));
 }

@@ -1,0 +1,76 @@
+// Single-hop weighted neighbor draw for Hopper (sm_90a).
+//
+// Replaces the TPU kernel euler_tpu/graph/pallas_sampling.py _kernel
+// (entry sample_neighbor): `count` draws with replacement for each of m
+// nodes, out [m, count]. Each pick is
+//     nbr[row, min(#(u >= cum[row, :W]), W - 1)]
+// or the default id R-1 when the row is not sampleable; negative and
+// past-the-slab ids are clamped to the default row. Same function as
+// euler_tpu_torch/graph/device.py sample_neighbor, its plain version.
+//
+// Design. One warp per node, several nodes per block: the warp loads its
+// row into lane registers with coalesced loads and runs the shared draw
+// routine (draw.cuh, the same one sample_fanout2.cu runs for both of its
+// hops) `count` times. The TPU kernel's packed [2K(N+2), 128] slab and
+// its double-buffered row DMAs follow the TPU's tiling; here the unpacked
+// nbr/cum/sampleable slabs are read directly.
+//
+// Uniforms: Philox counter (r, c, hop, 0) for draw c of node r, with the
+// hop given by the caller, so a launch at hop h draws what
+// graph/device.py philox_uniform(seed_words, h, m, count) gives. Optional
+// injected u [m, count] replaces them.
+//
+// Bound. At the unsupervised GraphSAGE positives ([512, 1], W = 32) the
+// draw reads 512 rows of W x 8 B + 1 B, about 131 KB (0.04 us at
+// 3.35 TB/s), and at a hop-2 shape ([5120, 10]) about 1.5 MB (0.45 us).
+// One dependent row load per warp and the launch set its time at the
+// small shape; it is bound by the row loads at the large one.
+//
+// Launch discipline: runs on the caller's stream, allocates nothing,
+// does not synchronise; the C entry returns cudaGetLastError().
+
+#include "draw.cuh"
+
+namespace {
+
+constexpr int kWarpsPerBlock = 4;
+
+template <int T>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+sample_neighbor_kernel(const int* __restrict__ nodes, int m,
+                       const int* __restrict__ nbr,
+                       const float* __restrict__ cum,
+                       const uint8_t* __restrict__ ok, int R, int W,
+                       int count, int hop, uint32_t k0, uint32_t k1,
+                       const float* __restrict__ u, int* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (r >= m) return;  // warp-uniform: whole warps leave together
+
+  const int row = etpu::clamp_row(nodes[r], R);
+  float c[T];
+  int n[T];
+  etpu::load_row<T>(nbr, cum, row, W, R, lane, c, n);
+  etpu::draw_row_out<T>(c, n, ok[row] != 0, W, R, lane, r, count, hop, k0,
+                        k1, u, out);
+}
+
+}  // namespace
+
+extern "C" int etpu_sample_neighbor(const int* nodes, int m, const int* nbr,
+                                    const float* cum, const uint8_t* ok,
+                                    int R, int W, int count, int hop,
+                                    uint32_t k0, uint32_t k1, const float* u,
+                                    int* out, void* stream) {
+  if (m <= 0 || R <= 0 || W <= 0 || count <= 0 || hop < 0 ||
+      W > etpu::kMaxWidth)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (m + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  auto s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(etpu::with_slots(W, [&](auto slots) {
+    sample_neighbor_kernel<decltype(slots)::value>
+        <<<blocks, 32 * kWarpsPerBlock, 0, s>>>(nodes, m, nbr, cum, ok, R, W,
+                                                count, hop, k0, k1, u, out);
+    return cudaGetLastError();
+  }));
+}

@@ -16,15 +16,18 @@ PyTorch on those tensors, with the JAX package's semantics:
   proportionally through the two-level (segment, then within-segment)
   cumulative that stays exact beyond float32's resolution (see ``SEG``).
 - ``sample_fanout`` chains the hops; a two-hop fanout runs as ONE call of
-  ``sampling_kernels.sample_fanout2``, the hand-written Hopper kernel on
-  CUDA tensors.
+  ``sampling_kernels.sample_fanout2``, other fanouts one call of
+  ``sampling_kernels.sample_neighbor`` per hop: the hand-written Hopper
+  kernels on CUDA tensors.
 
 Randomness: every draw takes injected uniforms (``u=``) so tests can
 replay the JAX package's threefry uniforms bit for bit. Without them the
 neighbor draws use ``philox_uniform``, a Philox4x32-10 stream keyed by two
 32-bit seed words and countered by (row, column, hop), which the CUDA
-kernel computes identically; roots come from an explicit
-``torch.Generator``.
+kernels compute identically; ``stream_words`` gives the independent
+streams of one step. Roots come from an explicit ``torch.Generator`` or,
+for draws that must agree between CPU and CUDA (negatives), from
+``philox_uniform`` too.
 """
 
 from __future__ import annotations
@@ -209,6 +212,17 @@ def seed_words(seed: int) -> tuple[int, int]:
     return seed & _U32, (seed >> 32) & _U32
 
 
+def stream_words(seed: int, stream: int) -> tuple[int, int]:
+    """The seed words of Philox stream ``stream`` of a step's integer
+    ``seed``: ``seed_words(seed)`` for stream 0, and for stream s the high
+    word xor s * 0x9E3779B9 (odd, so a bijection of s mod 2^32). For
+    seeds below 2^32, as the trainer's step seeds are, distinct (seed,
+    stream) pairs get distinct key words, so no two streams of any steps
+    share a (key, counter) pair."""
+    k0, k1 = seed_words(seed)
+    return k0, k1 ^ ((stream * _PHILOX_W[0]) & _U32)
+
+
 def _mulhilo(a: int, b: torch.Tensor):
     """(hi, lo) 32-bit words of ``a * b`` for a 32-bit constant ``a`` and
     int64 tensors ``b`` holding 32-bit values, without int64 overflow:
@@ -262,13 +276,19 @@ def _bisect_first_ge(cum, lo, hi, u, steps: int):
     return lo.clamp(0, M - 1)
 
 
-def sample_node(sampler: dict, count: int, generator=None, u=None):
+def sample_node(sampler: dict, count: int, generator=None, u=None,
+                seed_words=None):
     """[count] int32 roots drawn weight-proportionally: u1 picks a
     SEG-node segment from seg_cum, u2 bisects that segment's cumulative.
-    ``u`` = (u1, u2), each [count] float32, replaces the generator's
-    uniforms."""
+    The uniforms are ``u`` = (u1, u2), each [count] float32, when given;
+    else columns 0 and 1 of ``philox_uniform(seed_words, 0, count, 2)``
+    when ``seed_words`` is given (the same on every device); else the
+    generator's."""
     ids = sampler["ids"]
-    if u is None:
+    if u is None and seed_words is not None:
+        u1, u2 = philox_uniform(seed_words, 0, count, 2,
+                                device=ids.device).t().contiguous()
+    elif u is None:
         u1 = torch.rand(count, generator=generator, device=ids.device)
         u2 = torch.rand(count, generator=generator, device=ids.device)
     else:
@@ -318,9 +338,10 @@ def sample_fanout(adjs, roots, counts, seed_words=None, u=None):
     per hop; ``u`` one injected [rows, count] uniform tensor per hop.
 
     Two hops over slabs of one id space run as one call of the chained
-    draw ``sampling_kernels.sample_fanout2`` (the Hopper kernel on CUDA
-    tensors). Other fanouts run hop by hop with the plain draw, on the
-    CPU only until the single-hop kernel is ported."""
+    draw ``sampling_kernels.sample_fanout2``; other fanouts run hop by hop
+    through the single-hop draw ``sampling_kernels.sample_neighbor`` at
+    hop h (both the Hopper kernels on CUDA tensors, and the same Philox
+    counters, so the two routes draw the same picks)."""
     from euler_tpu_torch.graph import sampling_kernels
 
     if len(adjs) != len(counts):
@@ -336,16 +357,11 @@ def sample_fanout(adjs, roots, counts, seed_words=None, u=None):
             u1=u[0], u2=u[1],
         )
         return [roots, h1.reshape(-1), h2.reshape(-1)]
-    if roots.is_cuda:
-        raise NotImplementedError(
-            f"a {len(counts)}-hop fanout on CUDA needs the single-hop draw "
-            "kernel, which is not ported yet; only two-hop fanouts run on "
-            "the card"
-        )
     out = [roots]
     cur = roots
     for h, (adj, c) in enumerate(zip(adjs, counts)):
-        cur = sample_neighbor(adj, cur, c, seed_words, hop=h, u=u[h])
+        cur = sampling_kernels.sample_neighbor(adj, cur, seed_words, c,
+                                               hop=h, u=u[h])
         cur = cur.reshape(-1)
         out.append(cur)
     return out

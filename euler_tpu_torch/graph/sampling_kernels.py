@@ -1,16 +1,20 @@
 """Hand-written Hopper kernels for the device draws (counterpart of
 ``euler_tpu/graph/pallas_sampling.py``).
 
-``sample_fanout2`` is the chained two-hop weighted draw: both fanout hops
-in one launch of ``csrc/sample_fanout2.cu``, which replaces the TPU kernel
-``pallas_sampling._fanout2_kernel``. Beside it, ``sample_fanout2_reference``
-is its plain PyTorch version: the two chained plain draws of
-``graph/device.py``.
+- ``sample_neighbor`` is the single-hop weighted draw, one launch of
+  ``csrc/sample_neighbor.cu``, which replaces the TPU kernel
+  ``pallas_sampling._kernel``. Its plain PyTorch version,
+  ``sample_neighbor_reference``, is ``graph/device.py``'s slab draw.
+- ``sample_fanout2`` is the chained two-hop weighted draw: both fanout
+  hops in one launch of ``csrc/sample_fanout2.cu``, which replaces the TPU
+  kernel ``pallas_sampling._fanout2_kernel``. Its plain version,
+  ``sample_fanout2_reference``, is two chained plain draws.
 
-Routing is by where the tensors lie, and nothing else: CPU tensors run
-the plain version, CUDA tensors launch the kernel or raise. ``launches``
-counts kernel launches, so a run can show that its path went through the
-kernel.
+Both kernels run one draw routine (``csrc/draw.cuh``), as the TPU kernels
+share ``_stage_draw``. Routing is by where the tensors lie, and nothing
+else: CPU tensors run the plain version, CUDA tensors launch the kernel
+or raise. ``launches`` counts each kernel's launches, so a run can show
+that its path went through the kernels.
 """
 
 from __future__ import annotations
@@ -21,7 +25,16 @@ import torch
 
 from euler_tpu_torch.graph import device as device_graph
 
-launches = 0  # kernel launches of sample_fanout2 in this process
+# kernel launches in this process, by kernel
+launches = {"sample_fanout2": 0, "sample_neighbor": 0}
+
+
+def sample_neighbor_reference(adj: dict, nodes, seed_words, count: int,
+                              hop: int = 0, u=None):
+    """[*nodes.shape, count] int32: the plain version of
+    ``sample_neighbor``, ``device.sample_neighbor``."""
+    return device_graph.sample_neighbor(adj, nodes, count, seed_words,
+                                        hop=hop, u=u)
 
 
 def sample_fanout2_reference(adj1: dict, adj2: dict, roots, seed_words,
@@ -61,6 +74,83 @@ def _injected(u, shape, dev):
     return u.reshape(shape).contiguous()
 
 
+def _device_of(t, name: str):
+    """``t.device`` when it is a CUDA device, None for the CPU (the plain
+    version runs), and an error for any other device."""
+    if t.device.type == "cpu":
+        return None
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} runs on CPU or CUDA tensors, not {t.device}")
+    return t.device
+
+
+def _library_for(widths):
+    """The kernels' library, after checking that every slab width fits
+    the draw routine's register layout."""
+    from euler_tpu_torch import _build
+
+    lib = _build.load_library()
+    if max(widths) > lib.etpu_draw_max_width():
+        raise ValueError(
+            f"slab width {max(widths)} exceeds the kernels' register layout "
+            f"({lib.etpu_draw_max_width()}); cap it with "
+            "build_adjacency(max_degree=...)"
+        )
+    return lib
+
+
+def sample_neighbor(adj: dict, nodes, seed_words, count: int, hop: int = 0,
+                    u=None):
+    """[*nodes.shape, count] int32 weighted draws with replacement, one
+    kernel launch on CUDA tensors.
+
+    ``adj`` is a slab dict (``nbr`` int32 [R, W], ``cum`` float32 [R, W],
+    ``sampleable`` bool [R]); the default id is R-1. ``seed_words`` is two
+    32-bit ints keying the Philox uniforms at counter (node index, draw,
+    ``hop``, 0); ``u`` [len(nodes), count] float32 replaces them."""
+    shape = tuple(nodes.shape)
+    m = nodes.numel()
+    if u is not None:
+        u_shape = tuple(torch.as_tensor(u).shape)
+        if u_shape not in ((m, count), (*shape, count)):
+            raise ValueError(
+                f"u must be [{m}, {count}] for {m} nodes and count {count}; "
+                f"got {u_shape}"
+            )
+    dev = _device_of(nodes, "sample_neighbor")
+    if dev is None:
+        return sample_neighbor_reference(adj, nodes, seed_words, count,
+                                         hop, u)
+    n_rows = adj["nbr"].shape[0]
+    _check_slab(adj, n_rows, dev, "adj")
+    if nodes.dtype != torch.int32:
+        raise ValueError(f"nodes must be int32, got {nodes.dtype}")
+    if count <= 0 or hop < 0:
+        raise ValueError(f"need count > 0 and hop >= 0, got {count}, {hop}")
+    out = torch.empty((m, count), dtype=torch.int32, device=dev)
+    if m == 0:
+        return out.reshape(*shape, count)
+    width = adj["nbr"].shape[1]
+    lib = _library_for([width])
+    flat = nodes.reshape(-1).contiguous()
+    u = _injected(u, (m, count), dev)
+    k0, k1 = seed_words
+    rc = lib.etpu_sample_neighbor(
+        flat.data_ptr(), m,
+        adj["nbr"].data_ptr(), adj["cum"].data_ptr(),
+        adj["sampleable"].data_ptr(),
+        n_rows, width, count, hop, ctypes.c_uint32(k0), ctypes.c_uint32(k1),
+        None if u is None else u.data_ptr(),
+        out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            f"sample_neighbor kernel launch failed: CUDA error {rc}")
+    launches["sample_neighbor"] += 1
+    return out.reshape(*shape, count)
+
+
 def sample_fanout2(adj1: dict, adj2: dict, roots, seed_words, f1: int,
                    f2: int, u1=None, u2=None):
     """(hop1 [m, f1], hop2 [m*f1, f2]) int32 weighted draws with
@@ -71,18 +161,13 @@ def sample_fanout2(adj1: dict, adj2: dict, roots, seed_words, f1: int,
     the default id is R-1. ``seed_words`` is two 32-bit ints keying the
     Philox uniforms; ``u1`` [m, f1] and ``u2`` [m*f1, f2] float32 replace
     them (inject both or neither)."""
-    global launches
     if (u1 is None) != (u2 is None):
         raise ValueError("inject both u1 and u2 or neither")
     roots = roots.reshape(-1)
-    if roots.device.type == "cpu":
+    dev = _device_of(roots, "sample_fanout2")
+    if dev is None:
         return sample_fanout2_reference(adj1, adj2, roots, seed_words, f1,
                                         f2, u1, u2)
-    if roots.device.type != "cuda":
-        raise ValueError(
-            f"sample_fanout2 runs on CPU or CUDA tensors, not {roots.device}"
-        )
-    dev = roots.device
     n_rows = adj1["nbr"].shape[0]
     _check_slab(adj1, n_rows, dev, "adj1")
     _check_slab(adj2, n_rows, dev, "adj2")
@@ -95,16 +180,8 @@ def sample_fanout2(adj1: dict, adj2: dict, roots, seed_words, f1: int,
     out2 = torch.empty((m * f1, f2), dtype=torch.int32, device=dev)
     if m == 0:
         return out1, out2
-    from euler_tpu_torch import _build
-
-    lib = _build.load_library()
     w1, w2 = adj1["nbr"].shape[1], adj2["nbr"].shape[1]
-    if max(w1, w2) > lib.etpu_fanout2_max_width():
-        raise ValueError(
-            f"slab width {max(w1, w2)} exceeds the kernel's register layout "
-            f"({lib.etpu_fanout2_max_width()}); cap it with "
-            "build_adjacency(max_degree=...)"
-        )
+    lib = _library_for([w1, w2])
     roots = roots.contiguous()
     u1 = _injected(u1, (m, f1), dev)
     u2 = _injected(u2, (m * f1, f2), dev)
@@ -123,5 +200,5 @@ def sample_fanout2(adj1: dict, adj2: dict, roots, seed_words, f1: int,
     )
     if rc != 0:
         raise RuntimeError(f"sample_fanout2 kernel launch failed: CUDA error {rc}")
-    launches += 1
+    launches["sample_fanout2"] += 1
     return out1, out2

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from euler_tpu_torch.device import resolve_device
 from euler_tpu_torch.graph import device as device_graph
+from euler_tpu_torch.nn import metrics
 
 
 @dataclasses.dataclass
@@ -31,7 +32,7 @@ class ModelOutput:
     embedding: Any
     loss: Any
     metric_name: str
-    metric: Any  # f1 counts [tp, fp, fn]
+    metric: Any  # f1 counts [tp, fp, fn], or a scalar (mrr)
 
 
 def supervised_decoder(logits, labels, sigmoid_loss: bool):
@@ -47,6 +48,26 @@ def supervised_decoder(logits, labels, sigmoid_loss: bool):
             logits.argmax(-1), logits.shape[-1]
         ).to(logits.dtype)
     return loss, predictions
+
+
+def unsupervised_decoder(emb, emb_pos, emb_negs, xent_loss: bool):
+    """Negative-sampling loss and mrr. ``emb``/``emb_pos`` [B, 1, d],
+    ``emb_negs`` [B, num_negs, d]. With ``xent_loss`` the summed sigmoid
+    cross-entropy of the positive logit against 1 and the negative logits
+    against 0; else ``-sum(logit - logsumexp(neg_logits))``."""
+    logits = torch.einsum("bid,bjd->bij", emb, emb_pos)  # [B, 1, 1]
+    neg_logits = torch.einsum("bid,bjd->bij", emb, emb_negs)  # [B, 1, n]
+    mrr = metrics.mrr(logits, neg_logits)
+    if xent_loss:
+        loss = F.binary_cross_entropy_with_logits(
+            logits, torch.ones_like(logits), reduction="sum"
+        ) + F.binary_cross_entropy_with_logits(
+            neg_logits, torch.zeros_like(neg_logits), reduction="sum"
+        )
+    else:
+        neg_cost = torch.logsumexp(neg_logits, dim=2, keepdim=True)
+        loss = -torch.sum(logits - neg_cost)
+    return loss, mrr
 
 
 def gather_consts(feats: dict, consts: dict) -> dict:
@@ -97,12 +118,14 @@ class Model:
         graph,
         edge_type_sets,
         device,
+        negs_type: Optional[int] = None,
         roots_type: Optional[int] = None,
     ) -> dict:
         """Upload the device-sampling tables: one adjacency slab per
         distinct edge-type set (unpacked ``nbr``/``cum``/``sampleable``,
-        which the CUDA kernel reads directly) and, when ``roots_type`` is
-        given, the root sampler."""
+        which the CUDA kernels read directly) and the typed node samplers
+        for negatives (``negs_type``) and roots (``roots_type``), one
+        shared table when the types match."""
         adj = consts.setdefault("adj", {})
         for et in edge_type_sets:
             k = self.adj_key(et)
@@ -111,13 +134,22 @@ class Model:
                     device_graph.build_adjacency(graph, et, self.max_id),
                     device,
                 )
-        if roots_type is not None:
-            consts["roots"] = device_graph.tensors(
-                device_graph.build_node_sampler(
-                    graph, roots_type, self.max_id
-                ),
+        if negs_type is not None:
+            consts["negs"] = device_graph.tensors(
+                device_graph.build_node_sampler(graph, negs_type,
+                                                self.max_id),
                 device,
             )
+        if roots_type is not None:
+            if negs_type == roots_type:
+                consts["roots"] = consts["negs"]
+            else:
+                consts["roots"] = device_graph.tensors(
+                    device_graph.build_node_sampler(
+                        graph, roots_type, self.max_id
+                    ),
+                    device,
+                )
         return consts
 
     def device_sample_batch(self, inputs, seed: int, device=None) -> dict:

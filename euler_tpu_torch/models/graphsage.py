@@ -1,11 +1,14 @@
-"""Supervised GraphSAGE (counterpart of ``euler_tpu/models/graphsage.py``).
+"""GraphSAGE, supervised and unsupervised (counterpart of
+``euler_tpu/models/graphsage.py``).
 
 Device-sampling mode is the main path: the batch is root ids and a seed,
-the [f1, f2] fanout is drawn on the device (the chained two-hop kernel on
-CUDA), and features and labels are gathered from device tables. The
-module also takes a ``{"hops": [{"gids": ...}, ...]}`` batch, so it can be
-held against the flax module without any sampling. Host-sampling mode
-needs the engine client, which is not ported yet.
+the fanouts are drawn on the device (the chained two-hop kernel on CUDA,
+the single-hop kernel for the unsupervised model's positives), and
+features and labels are gathered from device tables. The modules also
+take host-given node sets (``{"hops": ...}``, ``{"src_hops": ...,
+"pos_hops": ..., "neg_hops": ...}``), so they can be held against the flax
+modules without any sampling. Host-sampling mode needs the engine client,
+which is not ported yet.
 """
 
 from __future__ import annotations
@@ -15,10 +18,40 @@ from typing import Optional, Sequence
 from torch import nn
 
 from euler_tpu_torch.graph import device as device_graph
+from euler_tpu_torch.graph import sampling_kernels
 from euler_tpu_torch.models import base
 from euler_tpu_torch.nn import metrics
 from euler_tpu_torch.nn.encoders import SageEncoder, ShallowEncoder
 from euler_tpu_torch.nn.layers import Dense
+
+
+def _check_device_mode(name, device_features, device_sampling, feature_idx,
+                       max_id, metapath, fanouts) -> None:
+    """The configuration the port runs: device features and device
+    sampling, a feature table of max_id+2 rows, one edge-type set a hop."""
+    if not (device_features and device_sampling):
+        raise NotImplementedError(
+            f"euler_tpu_torch runs {name} with device_features=True and "
+            "device_sampling=True; host sampling needs the graph engine "
+            "client, not ported yet"
+        )
+    if feature_idx < 0 or max_id < 0:
+        raise ValueError(
+            "device features need feature_idx >= 0 and max_id >= 0 (the "
+            "feature/label tables are sized max_id+2)"
+        )
+    if len(metapath) != len(fanouts):
+        raise ValueError("metapath needs one edge-type set per fanout")
+
+
+def _sampled_hops(consts, adj_keys, roots, fanouts, words, u):
+    """The fanout of ``roots`` drawn on the device from the slabs
+    ``consts["adj"][k]`` of ``adj_keys`` with the Philox stream ``words``
+    (or the injected per-hop uniforms ``u``), as ``{"gids": ids}`` node
+    sets, one a hop."""
+    adjs = [consts["adj"][k] for k in adj_keys]
+    ids = device_graph.sample_fanout(adjs, roots, fanouts, words, u=u)
+    return [{"gids": i} for i in ids]
 
 
 class _SupervisedSageModule(nn.Module):
@@ -53,12 +86,10 @@ class _SupervisedSageModule(nn.Module):
         optionally injected per-hop uniforms ``"u"``)."""
         if "hops" in batch:
             return batch["hops"]
-        adjs = [consts["adj"][k] for k in self.hop_adj_keys]
-        ids = device_graph.sample_fanout(
-            adjs, batch["roots"], self.fanouts,
-            device_graph.seed_words(batch["seed"]), u=batch.get("u"),
-        )
-        return [{"gids": i} for i in ids]
+        return _sampled_hops(consts, self.hop_adj_keys, batch["roots"],
+                             self.fanouts,
+                             device_graph.seed_words(batch["seed"]),
+                             batch.get("u"))
 
     def _embed_hops(self, hops, consts):
         hidden = [
@@ -105,19 +136,9 @@ class SupervisedGraphSage(base.Model):
         device_sampling: bool = False,
         train_node_type: int = -1,
     ):
-        if not (device_features and device_sampling):
-            raise NotImplementedError(
-                "euler_tpu_torch runs SupervisedGraphSage with "
-                "device_features=True and device_sampling=True; host "
-                "sampling needs the graph engine client, not ported yet"
-            )
-        if feature_idx < 0 or max_id < 0:
-            raise ValueError(
-                "device features need feature_idx >= 0 and max_id >= 0 (the "
-                "feature/label tables are sized max_id+2)"
-            )
-        if len(metapath) != len(fanouts):
-            raise ValueError("metapath needs one edge-type set per fanout")
+        _check_device_mode("SupervisedGraphSage", device_features,
+                           device_sampling, feature_idx, max_id, metapath,
+                           fanouts)
         self.label_idx = label_idx
         self.label_dim = label_dim
         self.metapath = [list(m) for m in metapath]
@@ -146,4 +167,166 @@ class SupervisedGraphSage(base.Model):
         return self.add_sampling_consts(
             consts, graph, self.metapath, device,
             roots_type=self.train_node_type,
+        )
+
+
+# The Philox streams of one unsupervised step, in the order of the JAX
+# module's split(PRNGKey(seed), 5): stream i is device.stream_words(seed, i)
+UNSUP_STREAMS = ("pos", "neg", "src_hops", "pos_hops", "neg_hops")
+
+
+class _UnsupervisedSageModule(nn.Module):
+    """Target and context towers (ShallowEncoder, SageEncoder) over the
+    same input layout, and the negative-sampling decoder."""
+
+    def __init__(
+        self,
+        fanouts: Sequence[int],
+        dim: int,
+        feature_dim: int,
+        aggregator: str = "mean",
+        concat: bool = False,
+        xent_loss: bool = False,
+        hop_adj_keys: Sequence[str] = (),
+        pos_adj_key: str = "",
+        num_negs: int = 5,
+        generator=None,
+    ):
+        super().__init__()
+        self.fanouts = list(fanouts)
+        self.xent_loss = xent_loss
+        self.hop_adj_keys = list(hop_adj_keys)
+        self.pos_adj_key = pos_adj_key
+        self.num_negs = num_negs
+        self.node_encoder = ShallowEncoder(feature_dim)
+        self.encoder = SageEncoder(
+            self.node_encoder.output_dim, fanouts, dim, aggregator, concat
+        )
+        self.context_node_encoder = ShallowEncoder(feature_dim)
+        self.context_encoder = SageEncoder(
+            self.context_node_encoder.output_dim, fanouts, dim, aggregator,
+            concat,
+        )
+        for m in self.modules():
+            if isinstance(m, Dense):
+                m.reset_parameters(generator)
+
+    def _encode(self, hops, context: bool, consts):
+        node_encoder, encoder = (
+            (self.context_node_encoder, self.context_encoder) if context
+            else (self.node_encoder, self.encoder)
+        )
+        return encoder([node_encoder(base.gather_consts(f, consts))
+                        for f in hops])
+
+    def _all_hops(self, batch, consts):
+        """(src_hops, pos_hops, neg_hops): given, or drawn here on the
+        device from ``"roots"`` + ``"seed"``: the positives one draw from
+        each root's neighbors (the single-hop kernel on CUDA), the
+        negatives ``num_negs`` typed draws per root from
+        ``consts["negs"]``, and the fanout of each set, each draw on its
+        own Philox stream (``UNSUP_STREAMS``). ``batch["u"]``, a dict
+        keyed by stream name, injects uniforms in place of a stream's:
+        [B, 1] for ``"pos"``, (u1, u2) for ``"neg"``, one [rows, count]
+        array per hop for the fanouts."""
+        if "src_hops" in batch:
+            return batch["src_hops"], batch["pos_hops"], batch["neg_hops"]
+        roots = batch["roots"]
+        words = {
+            name: device_graph.stream_words(batch["seed"], i)
+            for i, name in enumerate(UNSUP_STREAMS)
+        }
+        u = batch.get("u") or {}
+        pos = sampling_kernels.sample_neighbor(
+            consts["adj"][self.pos_adj_key], roots, words["pos"], 1,
+            u=u.get("pos"),
+        ).reshape(-1)
+        negs = device_graph.sample_node(
+            consts["negs"], roots.shape[0] * self.num_negs,
+            u=u.get("neg"), seed_words=words["neg"],
+        )
+        return tuple(
+            _sampled_hops(consts, self.hop_adj_keys, ids, self.fanouts,
+                          words[name], u.get(name))
+            for name, ids in (("src_hops", roots), ("pos_hops", pos),
+                              ("neg_hops", negs))
+        )
+
+    def embed(self, batch, consts=None):
+        """Target-tower embeddings of the batch's roots."""
+        src_hops, _, _ = self._all_hops(batch, consts)
+        return self._encode(src_hops, False, consts)
+
+    def forward(self, batch, consts=None):
+        src_hops, pos_hops, neg_hops = self._all_hops(batch, consts)
+        emb = self._encode(src_hops, False, consts)
+        emb_pos = self._encode(pos_hops, True, consts)
+        emb_negs = self._encode(neg_hops, True, consts)
+        b, d = emb.shape
+        loss, mrr = base.unsupervised_decoder(
+            emb.reshape(b, 1, d), emb_pos.reshape(b, 1, d),
+            emb_negs.reshape(b, -1, d), self.xent_loss,
+        )
+        return base.ModelOutput(
+            embedding=emb, loss=loss, metric_name="mrr", metric=mrr
+        )
+
+
+class GraphSage(base.Model):
+    """Unsupervised GraphSAGE over device-resident features and adjacency
+    (``device_features=True, device_sampling=True``): positives are one
+    neighbor of each root (edge types ``edge_type``), negatives are
+    ``num_negs`` typed draws (``node_type``) per root."""
+
+    metric_name = "mrr"
+
+    def __init__(
+        self,
+        node_type: int,
+        edge_type: Sequence[int],
+        max_id: int,
+        metapath: Sequence[Sequence[int]],
+        fanouts: Sequence[int],
+        dim: int,
+        num_negs: int = 5,
+        feature_idx: int = -1,
+        feature_dim: int = 0,
+        aggregator: str = "mean",
+        concat: bool = False,
+        xent_loss: bool = False,
+        device_features: bool = False,
+        device_sampling: bool = False,
+    ):
+        _check_device_mode("GraphSage", device_features, device_sampling,
+                           feature_idx, max_id, metapath, fanouts)
+        self.node_type = node_type
+        self.edge_type = list(edge_type)
+        self.metapath = [list(m) for m in metapath]
+        self.fanouts = list(fanouts)
+        self.num_negs = num_negs
+        self.feature_idx = feature_idx
+        self.feature_dim = feature_dim
+        self.max_id = max_id
+        self._module_kwargs = dict(
+            fanouts=tuple(fanouts),
+            dim=dim,
+            feature_dim=feature_dim,
+            aggregator=aggregator,
+            concat=concat,
+            xent_loss=xent_loss,
+            hop_adj_keys=tuple(self.adj_key(m) for m in self.metapath),
+            pos_adj_key=self.adj_key(self.edge_type),
+            num_negs=num_negs,
+        )
+
+    def make_module(self, generator=None) -> _UnsupervisedSageModule:
+        return _UnsupervisedSageModule(**self._module_kwargs,
+                                       generator=generator)
+
+    def build_consts(self, graph, device) -> dict:
+        consts = super().build_consts(graph, device)
+        # typed negatives; the scan loop's roots share the same table
+        return self.add_sampling_consts(
+            consts, graph, self.metapath + [self.edge_type], device,
+            negs_type=self.node_type, roots_type=self.node_type,
         )

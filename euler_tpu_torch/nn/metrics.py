@@ -26,3 +26,11 @@ def f1_from_counts(counts) -> float:
     precision = tp / (eps + tp + fp)
     recall = tp / (eps + tp + fn)
     return float(2.0 * precision * recall / (precision + recall + eps))
+
+
+def mrr(logits, neg_logits) -> torch.Tensor:
+    """Mean reciprocal rank of the positive among its negatives.
+    ``logits`` [..., 1, 1], ``neg_logits`` [..., 1, k]; a tie counts
+    against the positive (``neg >= pos``), as in the JAX package."""
+    rank = 1.0 + (neg_logits >= logits).sum(-1).to(logits.dtype)
+    return (1.0 / rank).mean()

@@ -1,15 +1,21 @@
 #!/usr/bin/env python3
-"""Where the time of the port's ppi train step goes, on one NVIDIA GPU.
+"""Where the time of the port's train step goes, on one NVIDIA GPU.
 
-    python3 scripts/torch_step_profile.py [--steps 20] [--top 15]
+    python3 scripts/torch_step_profile.py [--model graphsage_supervised]
+        [--steps 20] [--top 15]
 
-Builds the full synthetic PPI graph and SupervisedGraphSage at the flagship
-width (dim 256, batch 512, fanouts [10, 10], Adam 0.01), runs one warmup
-chunk of ``train.make_scan_train``, times one chunk, then profiles one
-chunk with ``torch.profiler`` (CPU + CUDA activities). Prints the card,
-the wall time per step with and without the profiler, the device time per
-step summed over kernels, the kernel launches per step, the device busy
-share (device time / profiled wall time) and the kernels by device time.
+Builds the full synthetic PPI graph and, at full width (dim 256, batch
+512, fanouts [10, 10], Adam 0.01), either ``SupervisedGraphSage`` (the
+ppi recipe, the default) or ``--model graphsage``, the unsupervised
+``GraphSage`` with ``run_loop --model graphsage``'s defaults (5 negatives,
+concat, sigmoid cross-entropy). Runs one warmup chunk of
+``train.make_scan_train``, times one chunk, then profiles one chunk with
+``torch.profiler`` (CPU + CUDA activities). Prints the card, the wall
+time per step with and without the profiler, the device time per step
+summed over kernels, the kernel launches per step, the device busy share
+(device time / profiled wall time) and the kernels by device time; then
+the launches and device time of one node-sampler draw alone, for the
+roots and (graphsage) the Philox negatives.
 """
 
 from __future__ import annotations
@@ -28,30 +34,37 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--model", default="graphsage_supervised",
+                    choices=["graphsage_supervised", "graphsage"])
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_step_profile: no CUDA device")
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from euler_tpu_torch import train
     from euler_tpu_torch.datasets import PPI, build_synthetic
     from euler_tpu_torch.graph import Graph
-    from euler_tpu_torch.models import SupervisedGraphSage
+    from euler_tpu_torch.graph import device as device_graph
+    from euler_tpu_torch.models import GraphSage, SupervisedGraphSage
 
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
     ).stdout.strip()
-    print(f"card: {smi}; torch {torch.__version__}", flush=True)
+    print(f"card: {smi}; torch {torch.__version__}; model {args.model}",
+          flush=True)
     graph = Graph(**build_synthetic(**PPI))
-    model = SupervisedGraphSage(
-        label_idx=0, label_dim=121, metapath=[[0], [0]], fanouts=[10, 10],
-        dim=256, feature_idx=1, feature_dim=50, max_id=graph.max_node_id,
-        device_features=True, device_sampling=True)
+    common = dict(metapath=[[0], [0]], fanouts=[10, 10], dim=256,
+                  feature_idx=1, feature_dim=50, max_id=graph.max_node_id,
+                  device_features=True, device_sampling=True)
+    if args.model == "graphsage":
+        model = GraphSage(node_type=0, edge_type=[0], num_negs=5,
+                          concat=True, xent_loss=True, **common)
+    else:
+        model = SupervisedGraphSage(label_idx=0, label_dim=121, **common)
     state = model.init_state(graph, train.get_optimizer("adam", 0.01))
     scan = train.make_scan_train(model, args.steps, 512)
     state, _ = scan(state, 0)
@@ -67,14 +80,7 @@ def main() -> int:
         state, losses = scan(state, 2)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # device-side events only (a CPU op carries its kernels' device time
-    # too), and no user annotations (the optimizer's range spans its
-    # kernels and the gaps between them)
-    per_kernel = collections.defaultdict(lambda: [0.0, 0])
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
-            per_kernel[e.name][0] += e.time_range.elapsed_us()
-            per_kernel[e.name][1] += 1
+    per_kernel = _per_kernel(prof)
     device_us = sum(us for us, _ in per_kernel.values())
     launches = sum(n for _, n in per_kernel.values())
     print(f"wall {wall / args.steps * 1e3:.4f} ms/step (profiled), device "
@@ -85,7 +91,40 @@ def main() -> int:
     top = sorted(per_kernel.items(), key=lambda kv: kv[1][0], reverse=True)
     for name, (us, n) in top[:args.top]:
         print(f"{us / args.steps:15.3f} {n / args.steps:10.1f}  {name[:100]}")
+    # the node samplers alone, at the step's shapes: 512 roots from the
+    # generator, and (graphsage) 2,560 negatives from Philox uniforms
+    sampler = state["consts"]["roots"]
+    draws = {"roots": lambda: device_graph.sample_node(
+        sampler, 512, generator=torch.Generator(device="cuda"))}
+    if args.model == "graphsage":
+        draws["negatives"] = lambda: device_graph.sample_node(
+            sampler, 2560, seed_words=device_graph.stream_words(1, 1))
+    for name, draw in draws.items():
+        draw()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            draw()
+            torch.cuda.synchronize()
+        per = _per_kernel(prof)
+        print(f"sample_node ({name}): {sum(n for _, n in per.values())} "
+              f"launches, {sum(us for us, _ in per.values()):.3f} device us")
     return 0
+
+
+def _per_kernel(prof) -> dict:
+    """{kernel name: [device us, launches]} of a profile: device-side
+    events only (a CPU op carries its kernels' device time too), and no
+    user annotations (the optimizer's range spans its kernels and the
+    gaps between them)."""
+    from torch.autograd import DeviceType
+
+    per_kernel = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            per_kernel[e.name][0] += e.time_range.elapsed_us()
+            per_kernel[e.name][1] += 1
+    return per_kernel
 
 
 if __name__ == "__main__":

@@ -109,7 +109,7 @@ def test_kernel_wrapper_routes_by_device():
         "sampleable": torch.ones(3, dtype=torch.bool),
     }
     roots = torch.tensor([0, 1], dtype=torch.int32)
-    before = sampling_kernels.launches
+    before = dict(sampling_kernels.launches)
     h1, h2 = sampling_kernels.sample_fanout2(
         adj, adj, roots, device_graph.seed_words(3), 2, 3
     )
@@ -124,3 +124,65 @@ def test_kernel_wrapper_routes_by_device():
         sampling_kernels.sample_fanout2(
             adj, adj, roots, (0, 0), 2, 3, u1=torch.zeros(2, 2)
         )
+
+
+def _tiny_adj():
+    return {
+        "nbr": torch.tensor([[1, 2], [0, 2], [2, 2]], dtype=torch.int32),
+        "cum": torch.tensor([[0.5, 1.0], [0.25, 1.0], [1.0, 1.0]]),
+        "sampleable": torch.ones(3, dtype=torch.bool),
+    }
+
+
+def test_single_hop_kernel_wrapper_routes_by_device():
+    """sample_neighbor: CPU tensors take the plain version (and leave
+    the launch counts alone), other devices and misshapen injected
+    uniforms are refused."""
+    from euler_tpu_torch.graph import sampling_kernels
+    from euler_tpu_torch.graph import device as device_graph
+
+    adj = _tiny_adj()
+    nodes = torch.tensor([[0, 1, 2], [1, 0, -4]], dtype=torch.int32)
+    words = device_graph.seed_words(5)
+    before = dict(sampling_kernels.launches)
+    out = sampling_kernels.sample_neighbor(adj, nodes, words, 4, hop=2)
+    assert out.shape == (2, 3, 4) and out.dtype == torch.int32
+    assert torch.equal(out, sampling_kernels.sample_neighbor_reference(
+        adj, nodes, words, 4, hop=2))
+    assert sampling_kernels.launches == before
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        sampling_kernels.sample_neighbor(adj, nodes.to("meta"), words, 4)
+    with pytest.raises(ValueError, match="u must be"):
+        sampling_kernels.sample_neighbor(adj, nodes, words, 4,
+                                         u=torch.zeros(4, 6))
+    u = torch.rand(6, 4, generator=torch.Generator().manual_seed(0))
+    assert torch.equal(
+        sampling_kernels.sample_neighbor(adj, nodes, words, 4, u=u),
+        sampling_kernels.sample_neighbor(adj, nodes, words, 4,
+                                         u=u.reshape(2, 3, 4)),
+    )
+
+
+def test_unsupervised_entry_points_default_to_the_card(monkeypatch):
+    """GraphSage.init_state and device_sample_batch run on the card
+    unless asked for the CPU; host sampling is refused."""
+    from euler_tpu_torch import train
+    from euler_tpu_torch.datasets import build_synthetic
+    from euler_tpu_torch.graph import Graph
+    from euler_tpu_torch.models import GraphSage
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = Graph(**build_synthetic(30, 3, 4, 2, max_degree=5))
+    kw = dict(node_type=0, edge_type=[0], max_id=29, metapath=[[0], [0]],
+              fanouts=[2, 2], dim=8, num_negs=2, feature_idx=1,
+              feature_dim=4, device_features=True)
+    with pytest.raises(NotImplementedError, match="device_sampling"):
+        GraphSage(**kw)
+    m = GraphSage(**kw, device_sampling=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        m.init_state(g, train.get_optimizer("adam", 0.01))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        m.device_sample_batch([1, 2], seed=0)
+    state = m.init_state(g, train.get_optimizer("adam", 0.01), device="cpu")
+    assert next(state["module"].parameters()).device.type == "cpu"
+    assert state["consts"]["negs"]["ids"].device.type == "cpu"

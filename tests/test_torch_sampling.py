@@ -215,11 +215,13 @@ def test_sample_neighbor_key_replay(graphs, which):
     for seed, count in ((0, 1), (1, 5), (2, 13)):
         key = jax.random.PRNGKey(seed)
         want = np.asarray(jdev.sample_neighbor(adj, nodes, key, count))
-        got = tdev.sample_neighbor(
-            tadj, torch.from_numpy(nodes), count,
-            u=_uniform(key, (len(nodes), count)),
-        )
+        u = _uniform(key, (len(nodes), count))
+        got = tdev.sample_neighbor(tadj, torch.from_numpy(nodes), count, u=u)
         assert got.dtype == torch.int32 and got.shape == want.shape
+        np.testing.assert_array_equal(got.numpy(), want)
+        # the single-hop kernel's wrapper (its plain version on the CPU)
+        got = sampling_kernels.sample_neighbor(
+            tadj, torch.from_numpy(nodes), None, count, u=u)
         np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -290,3 +292,58 @@ def test_philox_fanout_is_the_reference_with_philox_uniforms(graphs):
         for i, r in enumerate(rows.tolist()):
             allowed = set(nbr[offs[i]:offs[i + 1]].tolist()) or {max_id + 1}
             assert set(picks[i].tolist()) <= allowed, r
+
+
+def test_stream_words_give_distinct_streams():
+    """Stream 0 is the plain seed's words; the five streams of a step
+    draw different uniforms at the same counters; over the trainer's
+    range of step seeds no two (seed, stream) pairs share key words."""
+    for seed in (0, 7, 2**32 - 1, 3 << 32 | 5):
+        assert tdev.stream_words(seed, 0) == tdev.seed_words(seed)
+    draws = [tdev.philox_uniform(tdev.stream_words(11, s), 0, 64, 4)
+             for s in range(5)]
+    for i in range(5):
+        for j in range(i):
+            assert not torch.equal(draws[i], draws[j])
+    words = {tdev.stream_words(seed, s)
+             for seed in range(2000) for s in range(5)}
+    assert len(words) == 2000 * 5
+
+
+def test_sample_node_philox_uniforms(graphs):
+    """seed_words= draws the roots from philox_uniform columns 0 and 1,
+    the same on every device, and leaves no generator state behind."""
+    _, tg = graphs
+    s = tdev.tensors(
+        tdev.build_node_sampler(tg, -1, SYN["num_nodes"] - 1), "cpu")
+    words = tdev.stream_words(4, 1)
+    u = tdev.philox_uniform(words, 0, 300, 2)
+    got = tdev.sample_node(s, 300, seed_words=words)
+    assert torch.equal(got, tdev.sample_node(s, 300, u=u.t().contiguous()))
+    assert torch.equal(got, tdev.sample_node(s, 300, seed_words=words))
+    assert not torch.equal(
+        got, tdev.sample_node(s, 300, seed_words=tdev.stream_words(4, 2)))
+
+
+def test_chained_draw_is_two_single_hop_draws(graphs):
+    """The counter contract the card checks rely on: with Philox, the
+    chained draw equals single-hop draws at hop 0 on the roots and at hop
+    1 on the hop-1 picks, and a three-hop fanout runs the single-hop draw
+    at hops 0, 1, 2."""
+    _, tg = graphs
+    adj = tdev.tensors(tdev.build_adjacency(tg, [0], SYN["num_nodes"] - 1),
+                       "cpu")
+    roots = torch.from_numpy(_odd_nodes(SYN["num_nodes"] + 1,
+                                        np.random.default_rng(2), 50))
+    words = tdev.stream_words(9, 3)
+    h1, h2 = sampling_kernels.sample_fanout2(adj, adj, roots, words, 4, 3)
+    s1 = sampling_kernels.sample_neighbor(adj, roots, words, 4, hop=0)
+    s2 = sampling_kernels.sample_neighbor(adj, s1.reshape(-1), words, 3,
+                                          hop=1)
+    assert torch.equal(h1, s1) and torch.equal(h2, s2)
+    hops = tdev.sample_fanout([adj] * 3, roots, [4, 3, 2], words)
+    s3 = sampling_kernels.sample_neighbor(adj, s2.reshape(-1), words, 2,
+                                          hop=2)
+    assert torch.equal(hops[1], s1.reshape(-1))
+    assert torch.equal(hops[2], s2.reshape(-1))
+    assert torch.equal(hops[3], s3.reshape(-1))
