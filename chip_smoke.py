@@ -25,7 +25,15 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    (e) B1 equals two chained B2 launches (hop 0 on the roots, hop 1 on the
    hop-1 picks) bit for bit, so the shared draw routine is shared;
    (f) B2's pick frequencies as in (b); (g) B2, its plain version and a
-   ``torch.multinomial`` yardstick at both shapes.
+   ``torch.multinomial`` yardstick at both shapes; (h) B1 equals its plain
+   version with Philox uniforms at 2,560 roots (the unsupervised
+   negatives' fanout), and is timed there as in (c); (i) both kernels
+   equal their plain versions with Philox uniforms on synthetic slabs
+   of width 128 and 1,024 (rows of random degree up to the width), each
+   timed warm. Each kernel time is
+   taken warm (``ms``), with the L2 cache flushed by a 128 MiB write
+   before each launch (``ms_cold``), and beside ``floor_ms``, an empty
+   kernel at the kernel's grid under the same timer.
 4. Train, each path with the launch counts set to 0 just before it and
    read just after: a small model agrees between CPU (plain draws) and
    CUDA (kernels) step for step; then ``SupervisedGraphSage`` at full ppi
@@ -62,6 +70,15 @@ TVD_BOUND = 0.03
 # the single-hop draw's shapes: the unsupervised positives, and a hop-2
 # shape of the ppi fanout (512 * 10 rows, 10 draws each)
 B2_SHAPES = ((PPI_BATCH, 1), (PPI_BATCH * PPI_FANOUTS[0], PPI_FANOUTS[1]))
+# the chained draw's root counts: the ppi batch, and the unsupervised
+# negatives' fanout (512 * 5)
+B1_ROOTS = (PPI_BATCH, PPI_BATCH * SAGE_NEGS)
+# slab widths past the main paths' W = 32 held exact in phase 3 (i): a
+# staged draw of 4 slots a lane, and the widest, 32 slots a lane (64 KB
+# of shared memory a block, past the default 48 KB)
+WIDE_WIDTHS = (128, 1024)
+# a write of this many bytes evicts the slab from the H100's 50 MB L2
+FLUSH_BYTES = 128 << 20
 # NVIDIA H100 SXM data-sheet peaks (700 W): HBM bytes/s and
 # float32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -80,12 +97,14 @@ def smi_line() -> str:
     ).stdout.strip()
 
 
-def cuda_ms(fn, runs: int = 100, warmup: int = 10, batch: int = 10) -> float:
+def cuda_ms(fn, runs: int = 100, warmup: int = 10, batch: int = 10,
+            before=None) -> float:
     """Median device milliseconds of ``fn()`` over ``runs`` event-timed
     runs. A spin kernel (~20 ms per run) holds the card while the host
     enqueues each batch of runs, so every event pair times the device's
     work and not the host's launch overhead. A batch must stay within
-    the card's queue of about a thousand pending launches."""
+    the card's queue of about a thousand pending launches. ``before()``,
+    if given, runs ahead of each event pair, outside it."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -94,6 +113,8 @@ def cuda_ms(fn, runs: int = 100, warmup: int = 10, batch: int = 10) -> float:
         torch.cuda._sleep(40_000_000 * batch)
         pairs = []
         for _ in range(batch):
+            if before is not None:
+                before()
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -257,50 +278,140 @@ def phase_kernel(seed: int):
         if not tvd < TVD_BOUND:
             raise AssertionError(f"row {r}: TVD {tvd} >= {TVD_BOUND}")
 
-    # (c) timing at the main path's shape on the main path's slab
-    roots_c = device_graph.sample_node(
-        device_graph.tensors(
-            device_graph.build_node_sampler(graph, -1, max_id), dev),
-        m, generator=gen)
-    kern = lambda: sampling_kernels.sample_fanout2(  # noqa: E731
-        adj, adj, roots_c, words, f1, f2)
-    plain = lambda: sampling_kernels.sample_fanout2_reference(  # noqa: E731
-        adj, adj, roots_c, words, f1, f2)
+    # (c) timing at the main path's shapes on the main path's slab, and
+    # (h) exactness at the negatives' root count
+    sampler = device_graph.tensors(
+        device_graph.build_node_sampler(graph, -1, max_id), dev)
     probs = torch.diff(adj["cum"], dim=1,
                        prepend=adj["cum"].new_zeros(n_rows, 1))
-
-    def library():  # one torch.multinomial per hop over gathered rows
-        r1 = roots_c.long()
-        i1 = torch.multinomial(probs[r1], f1, replacement=True)
-        hop1 = adj["nbr"][r1].gather(1, i1).reshape(-1).long()
-        i2 = torch.multinomial(probs[hop1], f2, replacement=True)
-        return adj["nbr"][hop1].gather(1, i2)
-
-    kernel_ms = cuda_ms(kern)
-    plain_ms = cuda_ms(plain, batch=1)  # some 600 launches per run
-    library_ms = cuda_ms(library)
-    h1, _ = kern()
-    uniq1 = int(torch.unique(roots_c).numel())
-    uniq2 = int(torch.unique(h1).numel())
+    flush = torch.empty(FLUSH_BYTES // 4, device=dev).zero_
     width = adj["nbr"].shape[1]
-    row_bytes = width * 8 + 1  # nbr + cum + sampleable
-    bytes_moved = (4 * m + (uniq1 + uniq2) * row_bytes
-                   + 4 * (m * f1 + m * f1 * f2))
-    ops = m * f1 * width + m * f1 * f2 * width  # u >= cum compares
-    bound_ms = max(bytes_moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
-    bound_by = ("bytes" if bytes_moved / HBM_BYTES_PER_S
-                >= ops / F32_OPS_PER_S else "operations")
-    log(f"(c) sample_fanout2 at [{m}, {f1}, {f2}], W={width}: kernel "
-        f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.multinomial "
-        f"{library_ms:.4f} ms, bound {bound_ms * 1e3:.3f} us ({bound_by}: "
-        f"{bytes_moved} B over {uniq1}+{uniq2} distinct rows, {ops} compares)")
-    b1 = dict(
-        max_abs_err=max_err, exact_vs_plain=max_err == 0, ms=kernel_ms,
-        plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-        bound_by=bound_by,
-    )
-    b2 = check_single_hop(adj, adj_w, roots, roots_c, zero_rows, seed)
+    timed = []
+    for mm in B1_ROOTS:
+        if mm != m:
+            odd = odd_nodes(mm, max_id, zero_rows, gen)
+            k1, k2 = sampling_kernels.sample_fanout2(adj_w, adj_w, odd,
+                                                     words, f1, f2)
+            p1, p2 = sampling_kernels.sample_fanout2_reference(
+                adj_w, adj_w, odd, words, f1, f2)
+            torch.cuda.synchronize()
+            err = max(int((k1 - p1).abs().max()), int((k2 - p2).abs().max()))
+            max_err = max(max_err, err)
+            if not (torch.equal(k1, p1) and torch.equal(k2, p2)):
+                raise AssertionError(f"kernel != plain at {mm} roots "
+                                     f"(philox): max |diff| {err}")
+            if not bool((k1[:3 + len(zero_rows)] == default).all()):
+                raise AssertionError("unknown, default and zero-weight roots "
+                                     "must draw the default id")
+            check_members(adj_w, odd, k1)
+            check_members(adj_w, k1.reshape(-1), k2)
+            log(f"(h) philox uniforms: kernel == plain at [{mm}, {f1}] + "
+                f"[{mm * f1}, {f2}], max |diff| {err}")
+        roots_t = device_graph.sample_node(sampler, mm, generator=gen)
+        if mm == m:
+            roots_c = roots_t
+        kern = lambda: sampling_kernels.sample_fanout2(  # noqa: E731
+            adj, adj, roots_t, words, f1, f2)
+        plain = lambda: sampling_kernels.sample_fanout2_reference(  # noqa: E731
+            adj, adj, roots_t, words, f1, f2)
+
+        def library():  # one torch.multinomial per hop over gathered rows
+            r1 = roots_t.long()
+            i1 = torch.multinomial(probs[r1], f1, replacement=True)
+            hop1 = adj["nbr"][r1].gather(1, i1).reshape(-1).long()
+            i2 = torch.multinomial(probs[hop1], f2, replacement=True)
+            return adj["nbr"][hop1].gather(1, i2)
+
+        t = time_draw(kern, plain, library, mm * f1, flush)
+        h1, _ = kern()
+        uniq1 = int(torch.unique(roots_t).numel())
+        uniq2 = int(torch.unique(h1).numel())
+        bound_ms, bound_by, bytes_moved, ops = fanout2_bound(
+            mm, f1, f2, uniq1, uniq2, width)
+        log(f"({'c' if mm == m else 'h'}) sample_fanout2 at [{mm}, {f1}, "
+            f"{f2}], W={width}: {describe(t)}, bound {bound_ms * 1e3:.3f} us "
+            f"({bound_by}: {bytes_moved} B over {uniq1}+{uniq2} distinct "
+            f"rows, {ops} compares)")
+        timed.append(dict(shape=[mm, f1, f2], **t, bound_ms=bound_ms,
+                          bound_by=bound_by))
+    b1 = dict(max_abs_err=max_err, exact_vs_plain=max_err == 0,
+              **{k: v for k, v in timed[0].items() if k != "shape"},
+              shapes=timed)
+    b2 = check_single_hop(adj, adj_w, roots, roots_c, zero_rows, seed, flush)
+    b1["wide"], b2["wide"] = check_wide(seed)
     return graph, {"sample_fanout2": b1, "sample_neighbor": b2}
+
+
+def wide_slab(n_rows: int, width: int, seed: int) -> dict:
+    """A [n_rows, width] slab on the card in ``build_adjacency``'s
+    layout: row r has a random degree in [1, width] (the widest rows
+    full) of random neighbors with weights in [0.1, 1); padding slots
+    hold the default id and cum 1; row 1 has zero weight (not
+    sampleable); the last row is the default."""
+    from euler_tpu_torch.graph import device as device_graph
+
+    rng = np.random.default_rng(seed)
+    default = n_rows - 1
+    deg = rng.integers(1, width + 1, n_rows)
+    deg[:n_rows // 4] = width
+    deg[default] = 0
+    live = np.arange(width)[None, :] < deg[:, None]
+    w = np.where(live, rng.uniform(0.1, 1.0, (n_rows, width)), 0.0)
+    cum = np.cumsum(w, 1) / np.maximum(w.sum(1, keepdims=True), 1e-30)
+    cum = np.where(live, cum, 1.0).astype(np.float32)
+    cum[np.arange(n_rows), np.maximum(deg - 1, 0)] = 1.0
+    nbr = np.where(live, rng.integers(0, default, (n_rows, width)), default)
+    ok = deg > 0
+    ok[1] = False
+    cum[1] = 1.0
+    return device_graph.tensors(dict(
+        nbr=nbr.astype(np.int32), cum=cum, sampleable=ok,
+        deg=deg.astype(np.int32)), torch.device("cuda"))
+
+
+def check_wide(seed: int):
+    """Phase 3 (i): the chained and the single-hop kernels equal their
+    plain versions, Philox uniforms, on slabs wider than the main paths'
+    (``WIDE_WIDTHS``), at the main paths' counts. Returns the warm times,
+    by kernel, as lists of {"width", "shape", "ms"}."""
+    from euler_tpu_torch.graph import sampling_kernels
+    from euler_tpu_torch.graph import device as device_graph
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    words = device_graph.seed_words(seed + 4321)
+    f1, f2 = PPI_FANOUTS
+    m1, (m2, count) = PPI_BATCH, B2_SHAPES[1]
+    out = ([], [])
+    for width in WIDE_WIDTHS:
+        adj = wide_slab(8192, width, seed + width)
+        max_id = adj["nbr"].shape[0] - 2
+        roots = odd_nodes(m1, max_id, [1], gen)
+        nodes = odd_nodes(m2, max_id, [1], gen)
+        runs = (
+            ("sample_fanout2", [m1, f1, f2], lambda: sampling_kernels
+             .sample_fanout2(adj, adj, roots, words, f1, f2),
+             lambda: sampling_kernels.sample_fanout2_reference(
+                 adj, adj, roots, words, f1, f2)),
+            ("sample_neighbor", [m2, count], lambda: sampling_kernels
+             .sample_neighbor(adj, nodes, words, count, hop=1),
+             lambda: sampling_kernels.sample_neighbor_reference(
+                 adj, nodes, words, count, hop=1)),
+        )
+        for (name, shape, kern, plain), times in zip(runs, out):
+            k, p = kern(), plain()
+            k, p = (k, p) if name == "sample_neighbor" else (
+                torch.cat([k[0].reshape(-1), k[1].reshape(-1)]),
+                torch.cat([p[0].reshape(-1), p[1].reshape(-1)]))
+            torch.cuda.synchronize()
+            if not torch.equal(k, p):
+                raise AssertionError(
+                    f"{name} != plain at {shape}, W={width} (philox): max "
+                    f"|diff| {int((k - p).abs().max())}")
+            ms = cuda_ms(kern)
+            log(f"(i) philox uniforms: {name} == plain at {shape}, "
+                f"W={width}; kernel {ms:.5f} ms warm")
+            times.append(dict(width=width, shape=shape, ms=ms))
+    return out
 
 
 def odd_nodes(m: int, max_id: int, zero_rows, gen) -> torch.Tensor:
@@ -326,10 +437,58 @@ def bound_of(m: int, count: int, uniq_rows: int, width: int):
             else "operations", bytes_moved, ops)
 
 
-def check_single_hop(adj, adj_w, roots, roots_c, zero_rows, seed):
+def fanout2_bound(m: int, f1: int, f2: int, uniq1: int, uniq2: int,
+                  width: int):
+    """(bound_ms, bound_by, bytes, compares) of the chained draw: roots
+    read, the uniq1 + uniq2 distinct rows of the two hops read once, both
+    hops' picks written; one u >= cum compare per slot and draw."""
+    row_bytes = width * 8 + 1  # nbr + cum + sampleable
+    bytes_moved = 4 * m + (uniq1 + uniq2) * row_bytes + 4 * (m * f1
+                                                             + m * f1 * f2)
+    ops = m * f1 * width + m * f1 * f2 * width
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops
+            else "operations", bytes_moved, ops)
+
+
+def floor_launch(warps: int):
+    """A callable that launches the empty kernel at the grid a draw
+    kernel of ``warps`` warps takes."""
+    from euler_tpu_torch import _build
+
+    lib = _build.load_library()
+
+    def launch():
+        rc = lib.etpu_launch_floor(warps,
+                                   torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"empty kernel launch failed: CUDA error {rc}")
+    return launch
+
+
+def time_draw(kern, plain, library, warps: int, flush) -> dict:
+    """A draw kernel warm (``ms``), with ``flush()`` evicting the L2 cache
+    before each launch (``ms_cold``), the empty kernel at its grid
+    (``floor_ms``), its plain version and its library yardstick."""
+    return dict(
+        ms=cuda_ms(kern), ms_cold=cuda_ms(kern, before=flush),
+        floor_ms=cuda_ms(floor_launch(warps)),
+        plain_ms=cuda_ms(plain, batch=1),  # some 300-600 launches per run
+        library_ms=cuda_ms(library))
+
+
+def describe(t: dict) -> str:
+    return (f"kernel {t['ms']:.5f} ms warm, {t['ms_cold']:.5f} ms cold, "
+            f"empty launch {t['floor_ms']:.5f} ms, plain {t['plain_ms']:.4f} "
+            f"ms, torch.multinomial {t['library_ms']:.4f} ms")
+
+
+def check_single_hop(adj, adj_w, roots, roots_c, zero_rows, seed, flush):
     """Phase 3 (d)-(g): the single-hop kernel against its plain version,
-    against the chained kernel, against the cum probabilities, and timed.
-    Returns the kernel's numbers at the unsupervised positives' shape."""
+    against the chained kernel, against the cum probabilities, and timed
+    (``flush`` evicts the L2 cache for the cold times). Returns the
+    kernel's numbers at the unsupervised positives' shape and, under
+    ``shapes``, at both."""
     from euler_tpu_torch.graph import sampling_kernels
     from euler_tpu_torch.graph import device as device_graph
 
@@ -414,17 +573,13 @@ def check_single_hop(adj, adj_w, roots, roots_c, zero_rows, seed):
             idx = torch.multinomial(probs[rows], count, replacement=True)
             return adj["nbr"][rows].gather(1, idx)
 
-        kernel_ms = cuda_ms(kern)
-        plain_ms = cuda_ms(plain, batch=1)  # some 300 launches per run
-        library_ms = cuda_ms(library)
+        t = time_draw(kern, plain, library, m, flush)
         uniq = int(torch.unique(nodes).numel())
         bound_ms, bound_by, bytes_moved, ops = bound_of(m, count, uniq, width)
-        log(f"(g) sample_neighbor at [{m}, {count}], W={width}: kernel "
-            f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.multinomial "
-            f"{library_ms:.4f} ms, bound {bound_ms * 1e3:.3f} us ({bound_by}:"
-            f" {bytes_moved} B over {uniq} distinct rows, {ops} compares)")
-        timed.append(dict(shape=[m, count], ms=kernel_ms, plain_ms=plain_ms,
-                          library_ms=library_ms, bound_ms=bound_ms,
+        log(f"(g) sample_neighbor at [{m}, {count}], W={width}: "
+            f"{describe(t)}, bound {bound_ms * 1e3:.3f} us ({bound_by}: "
+            f"{bytes_moved} B over {uniq} distinct rows, {ops} compares)")
+        timed.append(dict(shape=[m, count], **t, bound_ms=bound_ms,
                           bound_by=bound_by))
     return dict(max_abs_err=max_err, exact_vs_plain=max_err == 0,
                 **{k: v for k, v in timed[0].items() if k != "shape"},

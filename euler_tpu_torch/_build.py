@@ -95,6 +95,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.etpu_sample_neighbor.restype = ctypes.c_int
     lib.etpu_draw_max_width.argtypes = []
     lib.etpu_draw_max_width.restype = ctypes.c_int
+    lib.etpu_launch_floor.argtypes = [i, p]  # warps, stream
+    lib.etpu_launch_floor.restype = ctypes.c_int
     return lib
 
 

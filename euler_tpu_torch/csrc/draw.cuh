@@ -1,16 +1,32 @@
 // The weighted slab draw shared by the port's sampling kernels
 // (sample_fanout2.cu, sample_neighbor.cu), as the TPU kernels share
 // euler_tpu/graph/pallas_sampling.py _stage_draw: both kernels include
-// this routine, so their pick rule and their uniforms cannot drift apart.
+// this header and make their rows' draws with draw_row_out, so their pick
+// rule and their uniforms cannot drift apart.
 //
 // Pick rule: nbr[row, min(#(u >= cum[row, :W]), W - 1)], or the default
 // id R-1 when the row is not sampleable; negative and past-the-slab ids
 // are clamped to the default row. Same function as
 // euler_tpu_torch/graph/device.py sample_neighbor.
 //
-// Layout: one warp holds one row in registers, lane j slots j, j+32, ...
-// (T slots a lane), so a draw is T ballots and popcounts and the pick a
-// register select plus one shuffle: no memory access per draw.
+// Rows: one warp loads one row into lane registers, lane j slots j,
+// j+32, ... (T slots a lane), with coalesced loads (load_row).
+//
+// Two draws, one rule.
+// - draw: one warp-uniform u against the row in registers: T ballots and
+//   popcounts give the count, a register select plus one shuffle the
+//   pick. It serves a warp that makes one draw (sample_fanout2's hop 1).
+// - draw_row_out: the `count` draws of one row. The row goes to the
+//   warp's slice of shared memory and the draws of a chunk of up to 32
+//   run at once: each draw gets a group of g lanes (g = 32 / cnt rounded
+//   down to a power of two), lane s of the group counts the slots with
+//   u >= cum in the float4s s, s+g, ... of the row, and log2(g) xor
+//   shuffles sum the group's counts. Slots past W hold NaN, which no u
+//   reaches. The reads are broadcasts or g neighbouring float4s, so no
+//   bank conflicts. A single draw (count 1) takes `draw` instead:
+//   staging would only lengthen its chain. Either way the index is a
+//   count, not a search, so the pick is the same for any row,
+//   non-decreasing or not, and the same as the plain version's.
 //
 // Uniforms: Philox4x32-10 keyed by the two seed words, counter (row,
 // column, hop, 0), first output word, top 24 bits times 2^-24: u < 1,
@@ -23,6 +39,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <climits>
 #include <type_traits>
 
 namespace etpu {
@@ -30,6 +47,21 @@ namespace etpu {
 constexpr unsigned kFull = 0xffffffffu;
 // Widest slab the register layout holds: 32 slots per lane.
 constexpr int kMaxWidth = 32 * 32;
+// Warps in a block of either kernel (256 threads).
+constexpr int kWarpsPerBlock = 8;
+
+// Dynamic shared memory of a block at T slots a lane: each warp's staged
+// row, 32T cum then 32T nbr (64 KB at T = 32).
+template <int T>
+constexpr int stage_bytes() {
+  return kWarpsPerBlock * 32 * T * 8;
+}
+
+// Warp `warp`'s slice of the block's dynamic shared memory.
+template <int T>
+__device__ __forceinline__ void* warp_stage(void* smem, int warp) {
+  return static_cast<char*>(smem) + static_cast<size_t>(warp) * 32 * T * 8;
+}
 
 __device__ __forceinline__ float philox_uniform(uint32_t k0, uint32_t k1,
                                                 uint32_t row, uint32_t col,
@@ -85,30 +117,77 @@ __device__ __forceinline__ int draw(float u, const float (&c)[T],
   return __shfl_sync(kFull, v, idx & 31);
 }
 
+// The uniform at injected u[at], or Philox (row, col, hop, 0).
+__device__ __forceinline__ float uniform_at(const float* __restrict__ u,
+                                            long long at, uint32_t k0,
+                                            uint32_t k1, uint32_t row,
+                                            uint32_t col, uint32_t hop) {
+  return u ? u[at] : philox_uniform(k0, k1, row, col, hop);
+}
+
+// Lane j < min(32, count - c0): the uniform of draw c0 + j of global row
+// grow at hop `hop`, u[grow * count + c0 + j] or Philox (grow, c0 + j,
+// hop, 0); other lanes 0.
+__device__ __forceinline__ float chunk_uniform(const float* __restrict__ u,
+                                               uint32_t k0, uint32_t k1,
+                                               long long grow, int count,
+                                               int c0, int hop, int lane) {
+  return lane < min(32, count - c0)
+             ? uniform_at(u, grow * count + c0 + lane, k0, k1,
+                          static_cast<uint32_t>(grow),
+                          static_cast<uint32_t>(c0 + lane),
+                          static_cast<uint32_t>(hop))
+             : 0.0f;
+}
+
 // `count` draws from the row in registers for global row `grow` of hop
-// `hop`, written to out[grow * count + c]: lane j computes the uniform of
-// draw c0+j of each chunk of 32 (or reads it from the injected u), and
-// stores that draw's pick.
+// `hop`, written to out[grow * count + c]. Draw c's uniform is the
+// injected u[grow * count + c] or Philox (grow, c, hop, 0); u0 holds the
+// first chunk's, chunk_uniform(u, k0, k1, grow, count, 0, hop, lane),
+// which a caller computes ahead so that its Philox rounds overlap the
+// row's load. `stage` is the warp's slice of shared memory (warp_stage).
+// A single draw takes the ballot: staging would only lengthen its chain.
 template <int T>
 __device__ __forceinline__ void draw_row_out(
     const float (&c)[T], const int (&n)[T], bool ok, int W, int R,
     int lane, long long grow, int count, int hop, uint32_t k0, uint32_t k1,
-    const float* __restrict__ u, int* __restrict__ out) {
+    const float* __restrict__ u, float u0, int* __restrict__ out,
+    void* stage) {
+  if (count == 1) {
+    const int p = draw<T>(__shfl_sync(kFull, u0, 0), c, n, W, lane);
+    if (lane == 0) out[grow] = ok ? p : R - 1;
+    return;
+  }
+  float* sc = static_cast<float*>(stage);
+  int* sn = reinterpret_cast<int*>(sc + 32 * T);
+#pragma unroll
+  for (int t = 0; t < T; ++t) {
+    const int col = lane + 32 * t;
+    sc[col] = col < W ? c[t] : __int_as_float(0x7fc00000);  // NaN
+    sn[col] = n[t];
+  }
+  __syncwarp();
   for (int c0 = 0; c0 < count; c0 += 32) {
     const int cnt = min(32, count - c0);
-    float my_u = 0.0f;
-    if (lane < cnt)
-      my_u = u ? u[grow * count + c0 + lane]
-               : philox_uniform(k0, k1, static_cast<uint32_t>(grow),
-                                static_cast<uint32_t>(c0 + lane),
-                                static_cast<uint32_t>(hop));
-    int mine = R - 1;
-    for (int j = 0; j < cnt; ++j) {
-      const int p = draw<T>(__shfl_sync(kFull, my_u, j), c, n, W, lane);
-      if (lane == j) mine = ok ? p : R - 1;
+    const float my_u =
+        c0 == 0 ? u0 : chunk_uniform(u, k0, k1, grow, count, c0, hop, lane);
+    // g = 2^lg lanes a draw, g * cnt <= 32; lane = j * g + s
+    const int lg = 5 - (32 - __clz(cnt - 1));
+    const int j = lane >> lg, s = lane & ((1 << lg) - 1);
+    const float uj = __shfl_sync(kFull, my_u, j);
+    int idx = 0;
+    if (j < cnt) {
+      for (int k = 4 * s; k < W; k += 4 << lg) {
+        const float4 q = *reinterpret_cast<const float4*>(sc + k);
+        idx += (uj >= q.x) + (uj >= q.y) + (uj >= q.z) + (uj >= q.w);
+      }
     }
-    if (lane < cnt) out[grow * count + c0 + lane] = mine;
+    for (int o = 1; o < (1 << lg); o <<= 1)
+      idx += __shfl_xor_sync(kFull, idx, o);
+    if (j < cnt && s == 0)
+      out[grow * count + c0 + j] = ok ? sn[min(idx, W - 1)] : R - 1;
   }
+  __syncwarp();  // the slice may be staged again
 }
 
 // Calls launch(std::integral_constant<int, T>{}) with the fewest slots a
@@ -122,6 +201,26 @@ cudaError_t with_slots(int w, Launch&& launch) {
   if (t <= 8) return launch(std::integral_constant<int, 8>{});
   if (t <= 16) return launch(std::integral_constant<int, 16>{});
   return launch(std::integral_constant<int, 32>{});
+}
+
+// Launches `kernel` (instantiated at T) with one warp per work item,
+// kWarpsPerBlock warps a block and stage_bytes<T>() of dynamic shared
+// memory, first allowing the kernel that much where it passes the
+// default 48 KB. Returns the first error: a refused launch never runs.
+template <int T, class Kernel, class... Args>
+cudaError_t launch_warps(Kernel* kernel, long long warps, cudaStream_t s,
+                         Args... args) {
+  const long long blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  if (blocks <= 0 || blocks > INT_MAX) return cudaErrorInvalidValue;
+  constexpr int bytes = stage_bytes<T>();
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<static_cast<unsigned>(blocks), 32 * kWarpsPerBlock, bytes, s>>>(
+      args...);
+  return cudaGetLastError();
 }
 
 }  // namespace etpu

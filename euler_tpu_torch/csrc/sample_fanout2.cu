@@ -9,48 +9,52 @@
 // past-the-slab ids are clamped to the default row. Same function as
 // euler_tpu_torch/graph/sampling_kernels.py sample_fanout2_reference.
 //
-// Design. One warp per root, several roots per block. Lane j holds
-// slots j, j+32, ... of the current row's cum and nbr in registers, so a
-// draw is T ballots and popcounts (idx = number of slots with u >= cum),
-// and the pick is a register select plus one shuffle from lane idx % 32:
-// no memory access per draw. The hop-1 picks stay in registers (lane c
-// holds pick c of its chunk of 32) and feed hop 2 through shuffles, so
-// nothing but the outputs goes through device memory. The TPU kernel's
-// packed [2K(N+2), 128] slab, its double-buffered row DMAs and its
-// VMEM->SMEM pick copy exist for the TPU's (8, 128) tiling and scalar
-// memory; here the unpacked nbr/cum/sampleable slabs are read directly,
-// each row with coalesced loads.
+// Bound. At the ppi shape (m=512, f1=f2=10, W=32) the draw reads the
+// distinct rows it touches once, some 1.3 MB, 0.385 us at 3.35 TB/s, and
+// does trivial arithmetic. What sets its time is latency: every hop-2 row
+// is known only after its hop-1 draw, so the least a launch can take is
+// the launch itself plus two dependent row loads. Measured by
+// chip_smoke.py on an NVIDIA H100 80GB HBM3 (700 W): an empty kernel at
+// this grid takes 5.1 us under its event timer, this kernel 7.8 us (8.6
+// us with a cold L2). At 2,560 roots (25,600 warps) it takes 16.6 us
+// against an empty launch's 6.7 us: there the ~330 instructions a pick
+// of its hot path (from the SASS) keep the schedulers busy, and fewer
+// instructions, not fewer bytes, would make it faster.
 //
-// Draw routine and uniforms: draw.cuh, shared with sample_neighbor.cu.
+// Design. The TPU kernel issues all hop-2 row DMAs of a stage at once and
+// draws hop 2 one stage behind hop 1, so the dependent loads overlap. The
+// same here: one warp per (root, hop-1 pick) pair p = r * f1 + c, all
+// m * f1 of them launched together, eight a block. Each warp loads
+// roots[r] and row 1 into lane registers (the f1 warps of a root sit in
+// one or two blocks, so the repeated loads hit L1), makes its one hop-1
+// draw with the ballot draw (lane 0 writes out1[p]), loads row 2 and
+// makes its f2 hop-2 draws through draw_row_out, which stages the row in
+// shared memory and makes the draws at once. A warp's longest dependent
+// chain is two row loads and two rounds of draws; every hop-2 row of the
+// launch is requested together. (A warp per root would walk its f1 hop-2
+// rows one after another, 11 row loads and 110 draws in a chain, with
+// 512 warps at ppi for 132 SMs: nothing would hide the loads.) The TPU
+// kernel's packed [2K(N+2), 128] slab and VMEM->SMEM pick copy exist for
+// its (8, 128) tiling and scalar memory; here the unpacked
+// nbr/cum/sampleable slabs are read directly.
+//
 // Philox counters: (r, c, 0, 0) for hop-1 draw c of root r, and
 // (r * f1 + c, c2, 1, 0) for hop-2 draw c2 of that pick, so this launch
 // draws exactly what two chained sample_neighbor launches draw at hops 0
-// and 1. Optional injected u1 [m, f1] and u2 [m*f1, f2] replace
-// the Philox uniforms, so the kernel can be held bit-exactly against the
-// plain version. Build without --use_fast_math.
-//
-// Bound. At the ppi shape (m=512, f1=f2=10, W<=60) the draw reads about
-// 5,632 slab rows x W x 8 B ~ 2.7 MB, about 0.8 us at 3.35 TB/s, and does
-// trivial arithmetic: it is bound by the latency of its dependent row
-// loads (hop-2 rows are known only after hop 1) and by launch cost, not
-// by bytes. Each warp walks its f1 hop-2 rows in turn; spreading those
-// rows over more warps is the first step to make it faster.
+// and 1. Optional injected u1 [m, f1] and u2 [m*f1, f2] replace the
+// Philox uniforms, so the kernel can be held bit-exactly against the
+// plain version. Draw routine and uniforms: draw.cuh, shared with
+// sample_neighbor.cu. Build without --use_fast_math.
 //
 // Launch discipline: runs on the caller's stream, allocates nothing,
-// does not synchronise; the C entry returns cudaGetLastError().
+// does not synchronise; the C entry returns the launch's error.
 
 #include "draw.cuh"
 
 namespace {
 
 using etpu::clamp_row;
-using etpu::draw;
-using etpu::draw_row_out;
-using etpu::kFull;
-using etpu::load_row;
-using etpu::philox_uniform;
-
-constexpr int kWarpsPerBlock = 4;
+using etpu::kWarpsPerBlock;
 
 template <int T>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
@@ -62,41 +66,50 @@ fanout2_kernel(const int* __restrict__ roots, int m,
                int f1, int f2, uint32_t k0, uint32_t k1,
                const float* __restrict__ u1, const float* __restrict__ u2,
                int* __restrict__ out1, int* __restrict__ out2) {
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (r >= m) return;  // warp-uniform: whole warps leave together
+  extern __shared__ float4 stage[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long picks = static_cast<long long>(m) * f1;
+  const long long p =
+      static_cast<long long>(blockIdx.x) * kWarpsPerBlock + warp;
+  if (p >= picks) return;  // warp-uniform: whole warps leave together
+  int r, c;  // 32-bit division where it fits: a 64-bit one is a long loop
+  if (picks <= INT_MAX) {
+    r = static_cast<int>(p) / f1;
+    c = static_cast<int>(p) - r * f1;
+  } else {
+    r = static_cast<int>(p / f1);
+    c = static_cast<int>(p - static_cast<long long>(r) * f1);
+  }
+
+  // One Philox pass serves both hops: lane j < f2 takes hop-2 draw j of
+  // pick p (draw_row_out's first chunk, chunk_uniform's layout) and, when
+  // f2 < 32, lane 31 takes hop-1 draw c of root r. The rounds overlap
+  // the row loads.
+  const bool h1 = lane == 31 && f2 < 32;
+  float u_lane = 0.0f;
+  if (h1 || lane < f2)
+    u_lane = etpu::uniform_at(h1 ? u1 : u2, h1 ? p : p * f2 + lane, k0, k1,
+                              static_cast<uint32_t>(h1 ? r : p),
+                              static_cast<uint32_t>(h1 ? c : lane),
+                              h1 ? 0u : 1u);
+  const float u_hop1 =
+      f2 < 32 ? __shfl_sync(etpu::kFull, u_lane, 31)
+              : etpu::uniform_at(u1, p, k0, k1, static_cast<uint32_t>(r),
+                                 static_cast<uint32_t>(c), 0u);
 
   const int row1 = clamp_row(roots[r], R);
-  const bool s1 = ok1[row1] != 0;
-  float c1[T];
-  int n1[T];
-  load_row<T>(nbr1, cum1, row1, W1, R, lane, c1, n1);
+  float cr[T];
+  int nr[T];
+  etpu::load_row<T>(nbr1, cum1, row1, W1, R, lane, cr, nr);
+  const int p1 = etpu::draw<T>(u_hop1, cr, nr, W1, lane);
+  const int pick = ok1[row1] != 0 ? p1 : R - 1;
+  if (lane == 0) out1[p] = pick;
 
-  float c2[T];
-  int n2[T];
-  for (int c0 = 0; c0 < f1; c0 += 32) {
-    const int cnt = min(32, f1 - c0);
-    const long long g1 = static_cast<long long>(r) * f1 + c0;
-    float my_u = 0.0f;
-    if (lane < cnt)
-      my_u = u1 ? u1[g1 + lane]
-                : philox_uniform(k0, k1, static_cast<uint32_t>(r),
-                                 static_cast<uint32_t>(c0 + lane), 0u);
-    // hop 1: lane j keeps pick c0+j of this chunk
-    int pick = R - 1;
-    for (int j = 0; j < cnt; ++j) {
-      const int p = draw<T>(__shfl_sync(kFull, my_u, j), c1, n1, W1, lane);
-      if (lane == j) pick = s1 ? p : R - 1;
-    }
-    if (lane < cnt) out1[g1 + lane] = pick;
-    // hop 2: the f2 draws of each hop-1 pick of the chunk
-    for (int j = 0; j < cnt; ++j) {
-      const int row2 = clamp_row(__shfl_sync(kFull, pick, j), R);
-      load_row<T>(nbr2, cum2, row2, W2, R, lane, c2, n2);
-      draw_row_out<T>(c2, n2, ok2[row2] != 0, W2, R, lane, g1 + j, f2, 1,
-                      k0, k1, u2, out2);
-    }
-  }
+  const int row2 = clamp_row(pick, R);
+  etpu::load_row<T>(nbr2, cum2, row2, W2, R, lane, cr, nr);
+  etpu::draw_row_out<T>(cr, nr, ok2[row2] != 0, W2, R, lane, p, f2, 1, k0,
+                        k1, u2, u_lane, out2,
+                        etpu::warp_stage<T>(stage, warp));
 }
 
 }  // namespace
@@ -114,13 +127,12 @@ extern "C" int etpu_sample_fanout2(const int* roots, int m, const int* nbr1,
   if (m <= 0 || R <= 0 || W1 <= 0 || W2 <= 0 || f1 <= 0 || f2 <= 0 ||
       w > etpu::kMaxWidth)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (m + kWarpsPerBlock - 1) / kWarpsPerBlock;
   auto s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(etpu::with_slots(w, [&](auto slots) {
-    fanout2_kernel<decltype(slots)::value>
-        <<<blocks, 32 * kWarpsPerBlock, 0, s>>>(
-            roots, m, nbr1, cum1, ok1, nbr2, cum2, ok2, R, W1, W2, f1, f2,
-            k0, k1, u1, u2, out1, out2);
-    return cudaGetLastError();
+    constexpr int T = decltype(slots)::value;
+    return etpu::launch_warps<T>(
+        fanout2_kernel<T>, static_cast<long long>(m) * f1, s, roots, m, nbr1,
+        cum1, ok1, nbr2, cum2, ok2, R, W1, W2, f1, f2, k0, k1, u1, u2, out1,
+        out2);
   }));
 }

@@ -8,12 +8,14 @@
 // past-the-slab ids are clamped to the default row. Same function as
 // euler_tpu_torch/graph/device.py sample_neighbor, its plain version.
 //
-// Design. One warp per node, several nodes per block: the warp loads its
-// row into lane registers with coalesced loads and runs the shared draw
-// routine (draw.cuh, the same one sample_fanout2.cu runs for both of its
-// hops) `count` times. The TPU kernel's packed [2K(N+2), 128] slab and
-// its double-buffered row DMAs follow the TPU's tiling; here the unpacked
-// nbr/cum/sampleable slabs are read directly.
+// Design. One warp per node, eight nodes a block: the warp loads its row
+// with coalesced loads and makes the row's draws through the shared
+// routine draw_row_out (draw.cuh, the same one sample_fanout2.cu runs for
+// its hop-2 draws), which stages the row in the warp's slice of shared
+// memory and makes a chunk's draws at once, a group of lanes a draw. The
+// TPU kernel's packed [2K(N+2), 128] slab and its double-buffered row
+// DMAs follow the TPU's tiling; here the unpacked nbr/cum/sampleable
+// slabs are read directly.
 //
 // Uniforms: Philox counter (r, c, hop, 0) for draw c of node r, with the
 // hop given by the caller, so a launch at hop h draws what
@@ -21,19 +23,24 @@
 // injected u [m, count] replaces them.
 //
 // Bound. At the unsupervised GraphSAGE positives ([512, 1], W = 32) the
-// draw reads 512 rows of W x 8 B + 1 B, about 131 KB (0.04 us at
-// 3.35 TB/s), and at a hop-2 shape ([5120, 10]) about 1.5 MB (0.45 us).
-// One dependent row load per warp and the launch set its time at the
-// small shape; it is bound by the row loads at the large one.
+// draw reads 512 rows of W x 8 B + 1 B, about 135 KB (0.04 us at
+// 3.35 TB/s), and at a hop-2 shape ([5120, 10]) about 1.2 MB (0.35 us).
+// No launch reaches the first: the node id, its row and one draw make a
+// chain of two dependent loads behind the launch itself, and the small
+// shape is set by the launch. The large one is set by the same chain
+// plus its draws. Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3
+// (700 W): 5.4 us at [512, 1] against 4.8 us for an empty kernel at the
+// same grid under the same event timer, 7.1 us at [5120, 10] against
+// 5.1 us.
 //
 // Launch discipline: runs on the caller's stream, allocates nothing,
-// does not synchronise; the C entry returns cudaGetLastError().
+// does not synchronise; the C entry returns the launch's error.
 
 #include "draw.cuh"
 
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
+using etpu::kWarpsPerBlock;
 
 template <int T>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
@@ -43,16 +50,18 @@ sample_neighbor_kernel(const int* __restrict__ nodes, int m,
                        const uint8_t* __restrict__ ok, int R, int W,
                        int count, int hop, uint32_t k0, uint32_t k1,
                        const float* __restrict__ u, int* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  extern __shared__ float4 stage[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r = blockIdx.x * kWarpsPerBlock + warp;
   if (r >= m) return;  // warp-uniform: whole warps leave together
 
   const int row = etpu::clamp_row(nodes[r], R);
+  const float u0 = etpu::chunk_uniform(u, k0, k1, r, count, 0, hop, lane);
   float c[T];
   int n[T];
   etpu::load_row<T>(nbr, cum, row, W, R, lane, c, n);
   etpu::draw_row_out<T>(c, n, ok[row] != 0, W, R, lane, r, count, hop, k0,
-                        k1, u, out);
+                        k1, u, u0, out, etpu::warp_stage<T>(stage, warp));
 }
 
 }  // namespace
@@ -65,12 +74,11 @@ extern "C" int etpu_sample_neighbor(const int* nodes, int m, const int* nbr,
   if (m <= 0 || R <= 0 || W <= 0 || count <= 0 || hop < 0 ||
       W > etpu::kMaxWidth)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (m + kWarpsPerBlock - 1) / kWarpsPerBlock;
   auto s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(etpu::with_slots(W, [&](auto slots) {
-    sample_neighbor_kernel<decltype(slots)::value>
-        <<<blocks, 32 * kWarpsPerBlock, 0, s>>>(nodes, m, nbr, cum, ok, R, W,
-                                                count, hop, k0, k1, u, out);
-    return cudaGetLastError();
+    constexpr int T = decltype(slots)::value;
+    return etpu::launch_warps<T>(sample_neighbor_kernel<T>, m, s, nodes, m,
+                                 nbr, cum, ok, R, W, count, hop, k0, k1, u,
+                                 out);
   }));
 }

@@ -13,9 +13,10 @@ concat, sigmoid cross-entropy). Runs one warmup chunk of
 ``torch.profiler`` (CPU + CUDA activities). Prints the card, the wall
 time per step with and without the profiler, the device time per step
 summed over kernels, the kernel launches per step, the device busy share
-(device time / profiled wall time) and the kernels by device time; then
-the launches and device time of one node-sampler draw alone, for the
-roots and (graphsage) the Philox negatives.
+(device time / profiled wall time), the kernels by device time and,
+wherever they rank, the port's own draw kernels; then the launches and
+device time of one node-sampler draw alone, for the roots and
+(graphsage) the Philox negatives.
 """
 
 from __future__ import annotations
@@ -91,6 +92,10 @@ def main() -> int:
     top = sorted(per_kernel.items(), key=lambda kv: kv[1][0], reverse=True)
     for name, (us, n) in top[:args.top]:
         print(f"{us / args.steps:15.3f} {n / args.steps:10.1f}  {name[:100]}")
+    for name, (us, n) in top:  # the hand-written kernels, by their names
+        if "fanout2_kernel" in name or "sample_neighbor_kernel" in name:
+            print(f"{us / args.steps:15.3f} {n / args.steps:10.1f}  "
+                  f"{name[:100]} (port kernel)")
     # the node samplers alone, at the step's shapes: 512 roots from the
     # generator, and (graphsage) 2,560 negatives from Philox uniforms
     sampler = state["consts"]["roots"]

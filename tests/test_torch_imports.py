@@ -186,3 +186,51 @@ def test_unsupervised_entry_points_default_to_the_card(monkeypatch):
     state = m.init_state(g, train.get_optimizer("adam", 0.01), device="cpu")
     assert next(state["module"].parameters()).device.type == "cpu"
     assert state["consts"]["negs"]["ids"].device.type == "cpu"
+
+
+_CTYPE_OF = {"int": "c_int", "uint32_t": "c_uint32"}
+
+
+def test_c_entries_declared_with_matching_argtypes():
+    """Every ``extern "C"`` entry in ``csrc/*.cu`` gets an ``argtypes``
+    list of its arity from ``_build._declare``: ``c_void_p`` for every
+    pointer (the stream included), ``c_int`` for ``int``, ``c_uint32`` for
+    ``uint32_t``, and ``restype`` ``c_int``. An undeclared pointer would
+    pass as a 32-bit int and be cut. Parsed from the sources; a stub stands
+    in for the ``CDLL``, so no compiler is needed."""
+    import ctypes
+    import re
+    import types
+
+    from euler_tpu_torch import _build
+
+    entries = {}
+    for src in sorted((PKG / "csrc").glob("*.cu")):
+        for name, params in re.findall(
+            r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)', src.read_text()
+        ):
+            want = []
+            for param in filter(None, (p.strip() for p in params.split(","))):
+                if "*" in param:
+                    want.append(ctypes.c_void_p)
+                else:
+                    ctype = param.rsplit(None, 1)[0].removeprefix("const ")
+                    want.append(getattr(ctypes, _CTYPE_OF[ctype]))
+            entries[name] = want
+    assert {"etpu_sample_fanout2", "etpu_sample_neighbor",
+            "etpu_draw_max_width", "etpu_launch_floor"} <= set(entries)
+
+    class Stub:
+        def __init__(self):
+            self.fns = {}
+
+        def __getattr__(self, name):
+            return self.fns.setdefault(name, types.SimpleNamespace())
+
+    stub = Stub()
+    assert _build._declare(stub) is stub
+    assert set(stub.fns) == set(entries)
+    for name, want in entries.items():
+        fn = stub.fns[name]
+        assert fn.argtypes == want, name
+        assert fn.restype is ctypes.c_int, name

@@ -198,13 +198,19 @@ def _odd_nodes(n_rows, rng, m):
     return nodes
 
 
-@pytest.mark.parametrize("which", ["synthetic", "mock"])
+@pytest.mark.parametrize("which", ["synthetic", "mock", "wide"])
 def test_sample_neighbor_key_replay(graphs, which):
     """Bit-exact picks under key replay, including negative and
-    past-the-slab ids, the default row and zero-weight rows."""
+    past-the-slab ids, the default row and zero-weight rows; "wide" is a
+    slab of rows wider than 128, past the main paths' width of 32."""
     if which == "synthetic":
         g, max_id = graphs[1], SYN["num_nodes"] - 1
         adj = tdev.build_adjacency(g, [0], max_id)
+    elif which == "wide":
+        g, max_id = Graph(**build_synthetic(400, 150, 2, 2, max_degree=300,
+                                            seed=5)), 399
+        adj = tdev.build_adjacency(g, [0], max_id)
+        assert adj["nbr"].shape[1] > 128
     else:
         g, max_id = _mock_graph(), 7
         with warnings.catch_warnings():
