@@ -30,10 +30,19 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    negatives' fanout), and is timed there as in (c); (i) both kernels
    equal their plain versions with Philox uniforms on synthetic slabs
    of width 128 and 1,024 (rows of random degree up to the width), each
-   timed warm. Each kernel time is
+   timed warm; (j) on the synthetic Reddit graph at ``bench.py``'s shape
+   (232,965 nodes, W = 60), B1 at the reddit shape (1,000 roots, [4, 4])
+   equals its plain version with injected and Philox uniforms on the same
+   kinds of odd roots, and is timed as in (c); (k) the alias draw (plain
+   PyTorch, no kernel) on CUDA tensors equals the same draw on CPU
+   tensors bit for bit, single hop and a [4, 4] fanout with Philox
+   uniforms, on a 9,000-node power-law graph with hub rows, and launches
+   no kernel. Each kernel time is
    taken warm (``ms``), with the L2 cache flushed by a 128 MiB write
    before each launch (``ms_cold``), and beside ``floor_ms``, an empty
-   kernel at the kernel's grid under the same timer.
+   kernel at the kernel's grid under the same timer, and ``bound_ms``,
+   the least time the card could take for the draws of this run
+   (``draw_bound``).
 4. Train, each path with the launch counts set to 0 just before it and
    read just after: a small model agrees between CPU (plain draws) and
    CUDA (kernels) step for step; then ``SupervisedGraphSage`` at full ppi
@@ -43,8 +52,15 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    graphsage`` defaults: dim 256, fanouts [10, 10], batch 512, 5
    negatives, concat, sigmoid cross-entropy, Adam 0.01): B2 once per step
    (the positives) and B1 three times (the fanouts of roots, positives
-   and negatives).
-5. The ``kernels`` line; then the final ``ok`` line.
+   and negatives). Then ``bench.py``'s reddit recipe (batch 1,000,
+   fanouts [4, 4], dim 64, Adam 0.03, 602 features, 41 one-hot labels,
+   sigmoid loss): reddit (B1 once per step), reddit_bf16 (the same with a
+   bfloat16 feature table) and reddit_heavytail (the power-law graph at
+   114.6M edges over alias tables: no kernel launch), each printing its
+   build times, its tables' bytes on the card and the peak of allocated
+   device memory.
+5. The ``kernels`` line; then the final ``ok`` line. Each phase prints
+   its wall time.
 """
 
 from __future__ import annotations
@@ -63,6 +79,15 @@ PPI_BATCH = 512
 PPI_FANOUTS = (10, 10)
 PPI_DIM = 256
 PPI_LR = 0.01
+# bench.py's reddit recipe (bench.py:106-130, 608-625)
+REDDIT_BATCH = 1000
+REDDIT_FANOUTS = (4, 4)
+REDDIT_DIM = 64
+REDDIT_LR = 0.03
+# phase 3 (k)'s power-law graph: hub_degree is max(2048, n // 64) = 2048
+# and d_cap n // 4 = 2,250, so the largest rows are hubs
+ALIAS_CHECK = dict(num_nodes=9000, num_edges=270_000, feature_dim=8,
+                   label_dim=4)
 SAGE_NEGS = 5
 CHUNK_STEPS = 20
 TIMED_CHUNKS = 4
@@ -233,27 +258,7 @@ def phase_kernel(seed: int):
     ]
     roots[5:5 + len(holders)] = torch.tensor(holders, dtype=torch.int32,
                                              device=dev)
-    u1 = torch.rand((m, f1), generator=gen, device=dev)
-    u2 = torch.rand((m * f1, f2), generator=gen, device=dev)
-    max_err = 0
-    for mode, (a, b) in (("injected", (u1, u2)), ("philox", (None, None))):
-        k1, k2 = sampling_kernels.sample_fanout2(
-            adj_w, adj_w, roots, words, f1, f2, u1=a, u2=b)
-        p1, p2 = sampling_kernels.sample_fanout2_reference(
-            adj_w, adj_w, roots, words, f1, f2, u1=a, u2=b)
-        torch.cuda.synchronize()
-        err = max(int((k1 - p1).abs().max()), int((k2 - p2).abs().max()))
-        max_err = max(max_err, err)
-        if not (torch.equal(k1, p1) and torch.equal(k2, p2)):
-            raise AssertionError(f"kernel != plain ({mode} uniforms): "
-                                 f"max |diff| {err}")
-        if not bool((k1[:5] == default).all()):
-            raise AssertionError("unknown, default and zero-weight roots "
-                                 "must draw the default id")
-        check_members(adj_w, roots, k1)
-        check_members(adj_w, k1.reshape(-1), k2)
-        log(f"(a) {mode} uniforms: kernel == plain at [{m}, {f1}] + "
-            f"[{m * f1}, {f2}], max |diff| {err}")
+    max_err = fanout2_exact(adj_w, roots, words, f1, f2, 5, gen, "a")
 
     # (b) Philox distribution of hop-1 picks for four fixed rows
     deg = adj_w["deg"]
@@ -290,23 +295,8 @@ def phase_kernel(seed: int):
     for mm in B1_ROOTS:
         if mm != m:
             odd = odd_nodes(mm, max_id, zero_rows, gen)
-            k1, k2 = sampling_kernels.sample_fanout2(adj_w, adj_w, odd,
-                                                     words, f1, f2)
-            p1, p2 = sampling_kernels.sample_fanout2_reference(
-                adj_w, adj_w, odd, words, f1, f2)
-            torch.cuda.synchronize()
-            err = max(int((k1 - p1).abs().max()), int((k2 - p2).abs().max()))
-            max_err = max(max_err, err)
-            if not (torch.equal(k1, p1) and torch.equal(k2, p2)):
-                raise AssertionError(f"kernel != plain at {mm} roots "
-                                     f"(philox): max |diff| {err}")
-            if not bool((k1[:3 + len(zero_rows)] == default).all()):
-                raise AssertionError("unknown, default and zero-weight roots "
-                                     "must draw the default id")
-            check_members(adj_w, odd, k1)
-            check_members(adj_w, k1.reshape(-1), k2)
-            log(f"(h) philox uniforms: kernel == plain at [{mm}, {f1}] + "
-                f"[{mm * f1}, {f2}], max |diff| {err}")
+            max_err = max(max_err, fanout2_exact(
+                adj_w, odd, words, f1, f2, 3 + len(zero_rows), None, "h"))
         roots_t = device_graph.sample_node(sampler, mm, generator=gen)
         if mm == m:
             roots_c = roots_t
@@ -323,23 +313,181 @@ def phase_kernel(seed: int):
             return adj["nbr"][hop1].gather(1, i2)
 
         t = time_draw(kern, plain, library, mm * f1, flush)
-        h1, _ = kern()
-        uniq1 = int(torch.unique(roots_t).numel())
-        uniq2 = int(torch.unique(h1).numel())
-        bound_ms, bound_by, bytes_moved, ops = fanout2_bound(
-            mm, f1, f2, uniq1, uniq2, width)
+        h1, h2 = kern()
+        b = draw_bound(adj, ((roots_t, h1), (h1, h2)), mm)
         log(f"({'c' if mm == m else 'h'}) sample_fanout2 at [{mm}, {f1}, "
-            f"{f2}], W={width}: {describe(t)}, bound {bound_ms * 1e3:.3f} us "
-            f"({bound_by}: {bytes_moved} B over {uniq1}+{uniq2} distinct "
-            f"rows, {ops} compares)")
-        timed.append(dict(shape=[mm, f1, f2], **t, bound_ms=bound_ms,
-                          bound_by=bound_by))
+            f"{f2}], W={width}: {describe(t)}, {describe_bound(b)}")
+        timed.append(dict(shape=[mm, f1, f2], **t, bound_ms=b["bound_ms"],
+                          bound_by=b["bound_by"]))
+    b2 = check_single_hop(adj, adj_w, roots, roots_c, zero_rows, seed, flush)
+    wide = check_wide(seed)
+    reddit, reddit_timed, reddit_err = check_reddit_fanout(seed, flush)
+    timed.append(reddit_timed)
+    max_err = max(max_err, reddit_err)
     b1 = dict(max_abs_err=max_err, exact_vs_plain=max_err == 0,
               **{k: v for k, v in timed[0].items() if k != "shape"},
               shapes=timed)
-    b2 = check_single_hop(adj, adj_w, roots, roots_c, zero_rows, seed, flush)
-    b1["wide"], b2["wide"] = check_wide(seed)
-    return graph, {"sample_fanout2": b1, "sample_neighbor": b2}
+    b1["wide"], b2["wide"] = wide
+    check_alias(seed)
+    return graph, reddit, {"sample_fanout2": b1, "sample_neighbor": b2}
+
+
+def fanout2_exact(adj_w, roots, words, f1: int, f2: int, n_default: int,
+                  gen, tag: str) -> int:
+    """B1 equals its plain version bit for bit on ``roots``, with Philox
+    uniforms and, when ``gen`` is given, first with uniforms drawn from
+    it; the first ``n_default`` roots draw the default id and every pick
+    is a neighbor of its row. Returns the max |diff| (0)."""
+    from euler_tpu_torch.graph import sampling_kernels
+
+    m = roots.shape[0]
+    default = adj_w["nbr"].shape[0] - 1
+    modes = [("philox", (None, None))]
+    if gen is not None:
+        modes.insert(0, ("injected", (
+            torch.rand((m, f1), generator=gen, device="cuda"),
+            torch.rand((m * f1, f2), generator=gen, device="cuda"))))
+    max_err = 0
+    for mode, (a, b) in modes:
+        k1, k2 = sampling_kernels.sample_fanout2(
+            adj_w, adj_w, roots, words, f1, f2, u1=a, u2=b)
+        p1, p2 = sampling_kernels.sample_fanout2_reference(
+            adj_w, adj_w, roots, words, f1, f2, u1=a, u2=b)
+        torch.cuda.synchronize()
+        err = max(int((k1 - p1).abs().max()), int((k2 - p2).abs().max()))
+        max_err = max(max_err, err)
+        if not (torch.equal(k1, p1) and torch.equal(k2, p2)):
+            raise AssertionError(f"kernel != plain at {m} roots ({mode} "
+                                 f"uniforms): max |diff| {err}")
+        if not bool((k1[:n_default] == default).all()):
+            raise AssertionError("unknown, default and zero-weight roots "
+                                 "must draw the default id")
+        check_members(adj_w, roots, k1)
+        check_members(adj_w, k1.reshape(-1), k2)
+        log(f"({tag}) {mode} uniforms: kernel == plain at [{m}, {f1}] + "
+            f"[{m * f1}, {f2}], W={adj_w['nbr'].shape[1]}, max |diff| {err}")
+    return max_err
+
+
+def check_reddit_fanout(seed: int, flush):
+    """Phase 3 (j): builds the synthetic Reddit graph at ``bench.py``'s
+    shape (W = 60 after the Poisson(50) clip), holds B1 against its plain
+    version at [1,000, 4, 4] on a weighted variant with zero-weight rows,
+    with injected and Philox uniforms, and times it on the main path's
+    slab. Returns (the graph and its build seconds, the timing record,
+    the max |diff|)."""
+    from euler_tpu_torch.datasets import REDDIT, build_synthetic
+    from euler_tpu_torch.graph import Graph, sampling_kernels
+    from euler_tpu_torch.graph import device as device_graph
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    data = build_synthetic(**REDDIT)
+    graph = Graph(**data)
+    build_s = time.perf_counter() - t0
+    max_id = graph.max_node_id
+    t0 = time.perf_counter()
+    adj = device_graph.tensors(
+        device_graph.build_adjacency(graph, [0], max_id), dev)
+    width = adj["nbr"].shape[1]
+    log(f"(j) reddit graph {graph.num_nodes} nodes, {len(data['indices'])} "
+        f"edges built in {build_s:.2f} s; slab {tuple(adj['nbr'].shape)} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    zero_rows = [5, 77]
+    adj_w = device_graph.tensors(device_graph.build_adjacency(
+        Graph(**weighted_variant(data, zero_rows, seed)), [0], max_id), dev)
+    del data
+    m, (f1, f2) = REDDIT_BATCH, REDDIT_FANOUTS
+    gen = torch.Generator(device=dev).manual_seed(seed + 60)
+    words = device_graph.seed_words(seed + 6060)
+    roots = odd_nodes(m, max_id, zero_rows, gen)
+    max_err = fanout2_exact(adj_w, roots, words, f1, f2, 3 + len(zero_rows),
+                            gen, "j")
+    del adj_w
+    sampler = device_graph.tensors(
+        device_graph.build_node_sampler(graph, -1, max_id), dev)
+    roots_t = device_graph.sample_node(sampler, m, generator=gen)
+    n_rows = adj["nbr"].shape[0]
+    probs = torch.diff(adj["cum"], dim=1,
+                       prepend=adj["cum"].new_zeros(n_rows, 1))
+    kern = lambda: sampling_kernels.sample_fanout2(  # noqa: E731
+        adj, adj, roots_t, words, f1, f2)
+    plain = lambda: sampling_kernels.sample_fanout2_reference(  # noqa: E731
+        adj, adj, roots_t, words, f1, f2)
+
+    def library():  # one torch.multinomial per hop over gathered rows
+        r1 = roots_t.long()
+        i1 = torch.multinomial(probs[r1], f1, replacement=True)
+        hop1 = adj["nbr"][r1].gather(1, i1).reshape(-1).long()
+        i2 = torch.multinomial(probs[hop1], f2, replacement=True)
+        return adj["nbr"][hop1].gather(1, i2)
+
+    t = time_draw(kern, plain, library, m * f1, flush)
+    h1, h2 = kern()
+    b = draw_bound(adj, ((roots_t, h1), (h1, h2)), m)
+    log(f"(j) sample_fanout2 at [{m}, {f1}, {f2}], W={width}: {describe(t)}, "
+        f"{describe_bound(b)}")
+    del adj, probs, sampler
+    return ((graph, build_s),
+            dict(shape=[m, f1, f2], width=width, **t, bound_ms=b["bound_ms"],
+                 bound_by=b["bound_by"]), max_err)
+
+
+def check_alias(seed: int) -> None:
+    """Phase 3 (k): the plain alias draw (no kernel) on CUDA tensors
+    equals the same draw on CPU tensors bit for bit, Philox uniforms, on
+    a power-law graph with hub rows and random weights: single-hop draws
+    and a two-hop fanout, on roots led by a negative id, one past the
+    end, the default row, zero-weight rows and the hubs. Checks the int64
+    Philox ops and the float32 slot arithmetic on the card; no kernel
+    may launch."""
+    from euler_tpu_torch.datasets import build_powerlaw
+    from euler_tpu_torch.graph import Graph, sampling_kernels
+    from euler_tpu_torch.graph import device as device_graph
+
+    zero_rows = [5, 77]
+    graph = Graph(**weighted_variant(build_powerlaw(**ALIAS_CHECK),
+                                     zero_rows, seed))
+    max_id = graph.max_node_id
+    t0 = time.perf_counter()
+    table = device_graph.build_alias_adjacency(graph, [0], max_id)
+    hubs = np.argsort(table["deg"])[-4:].tolist()
+    if table["deg"].max() < max(2048, graph.num_nodes // 64):
+        raise AssertionError("the alias check graph has no hub row")
+    log(f"(k) power-law graph {graph.num_nodes} nodes, "
+        f"{len(table['nbr'])} edges, max degree {table['deg'].max()}, alias "
+        f"tables in {time.perf_counter() - t0:.2f} s")
+    cpu = device_graph.tensors(table, "cpu")
+    gpu = device_graph.tensors(table, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 70)
+    roots = odd_nodes(REDDIT_BATCH, max_id, zero_rows + hubs, gen)
+    n_default = 3 + len(zero_rows)
+    words = device_graph.seed_words(seed + 7070)
+    f1, f2 = REDDIT_FANOUTS
+    before = dict(sampling_kernels.launches)
+    on_card = [device_graph.sample_neighbor(gpu, roots, f1, words, hop=2)]
+    on_card += device_graph.sample_fanout([gpu, gpu], roots, [f1, f2], words)
+    on_cpu = [device_graph.sample_neighbor(cpu, roots.cpu(), f1, words, hop=2)]
+    on_cpu += device_graph.sample_fanout([cpu, cpu], roots.cpu(), [f1, f2],
+                                         words)
+    torch.cuda.synchronize()
+    if sampling_kernels.launches != before:
+        raise AssertionError("an alias draw launched a kernel")
+    for name, a, b in zip(("single hop", "roots", "hop 1", "hop 2"),
+                          on_card, on_cpu):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(
+                f"alias draw ({name}) differs between CUDA and CPU: max "
+                f"|diff| {int((a.cpu() - b).abs().max())}")
+    single = on_card[0]
+    if not bool((single[:n_default] == max_id + 1).all()):
+        raise AssertionError("unknown, default and zero-weight rows must "
+                             "draw the default id")
+    if bool((single[n_default:n_default + len(hubs)] == max_id + 1).any()):
+        raise AssertionError("a hub row drew the default id")
+    log(f"(k) philox uniforms: alias draw on CUDA == on CPU at "
+        f"[{REDDIT_BATCH}, {f1}] (hop 2) and the [{f1}, {f2}] fanout "
+        f"(hops {[int(h.numel()) for h in on_card[1:]]}), no launch")
 
 
 def wide_slab(n_rows: int, width: int, seed: int) -> dict:
@@ -425,30 +573,38 @@ def odd_nodes(m: int, max_id: int, zero_rows, gen) -> torch.Tensor:
     return nodes
 
 
-def bound_of(m: int, count: int, uniq_rows: int, width: int):
-    """(bound_ms, bound_by, bytes, compares) of m x count single-hop draws
-    touching uniq_rows distinct slab rows: ids read, rows read once, picks
-    written; one u >= cum compare per slot and draw."""
-    row_bytes = width * 8 + 1  # nbr + cum + sampleable
-    bytes_moved = 4 * m + uniq_rows * row_bytes + 4 * m * count
-    ops = m * count * width
+def draw_bound(adj, hops, ids: int) -> dict:
+    """The least time the card could take for weighted draws over the slab
+    ``adj``, from this run's picks; ``hops`` holds one (rows, picks
+    [len(rows), count]) pair per hop. Bytes: the ``ids`` roots read, the
+    cum row and sampleable flag of each distinct row read once, one 4-byte
+    nbr entry per distinct (row, picked id) of a sampleable row (the draw
+    counts on cum, then reads only the slot it chose), every pick written.
+    Operations: one u >= cum compare per slot and draw."""
+    n_rows, width = adj["nbr"].shape
+    default = n_rows - 1
+    rows = [torch.where(r.reshape(-1) < 0, default,
+                        r.reshape(-1).clamp(max=default)).long()
+            for r, _ in hops]
+    uniq_rows = int(torch.unique(torch.cat(rows)).numel())
+    keys = []
+    for r, (_, p) in zip(rows, hops):
+        key = r[:, None] * n_rows + p.long()
+        keys.append(key[adj["sampleable"][r]])
+    reads = int(torch.unique(torch.cat(keys)).numel())
+    picks = sum(p.numel() for _, p in hops)
+    bytes_moved = 4 * ids + uniq_rows * (4 * width + 1) + 4 * reads + 4 * picks
+    ops = picks * width
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops
-            else "operations", bytes_moved, ops)
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=bytes_moved, compares=ops, rows=uniq_rows, reads=reads)
 
 
-def fanout2_bound(m: int, f1: int, f2: int, uniq1: int, uniq2: int,
-                  width: int):
-    """(bound_ms, bound_by, bytes, compares) of the chained draw: roots
-    read, the uniq1 + uniq2 distinct rows of the two hops read once, both
-    hops' picks written; one u >= cum compare per slot and draw."""
-    row_bytes = width * 8 + 1  # nbr + cum + sampleable
-    bytes_moved = 4 * m + (uniq1 + uniq2) * row_bytes + 4 * (m * f1
-                                                             + m * f1 * f2)
-    ops = m * f1 * width + m * f1 * f2 * width
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops
-            else "operations", bytes_moved, ops)
+def describe_bound(b: dict) -> str:
+    return (f"bound {b['bound_ms'] * 1e3:.3f} us ({b['bound_by']}: "
+            f"{b['bytes']} B over {b['rows']} distinct rows and {b['reads']} "
+            f"distinct nbr reads, {b['compares']} compares)")
 
 
 def floor_launch(warps: int):
@@ -574,19 +730,18 @@ def check_single_hop(adj, adj_w, roots, roots_c, zero_rows, seed, flush):
             return adj["nbr"][rows].gather(1, idx)
 
         t = time_draw(kern, plain, library, m, flush)
-        uniq = int(torch.unique(nodes).numel())
-        bound_ms, bound_by, bytes_moved, ops = bound_of(m, count, uniq, width)
+        b = draw_bound(adj, ((nodes, kern()),), m)
         log(f"(g) sample_neighbor at [{m}, {count}], W={width}: "
-            f"{describe(t)}, bound {bound_ms * 1e3:.3f} us ({bound_by}: "
-            f"{bytes_moved} B over {uniq} distinct rows, {ops} compares)")
-        timed.append(dict(shape=[m, count], **t, bound_ms=bound_ms,
-                          bound_by=bound_by))
+            f"{describe(t)}, {describe_bound(b)}")
+        timed.append(dict(shape=[m, count], **t, bound_ms=b["bound_ms"],
+                          bound_by=b["bound_by"]))
     return dict(max_abs_err=max_err, exact_vs_plain=max_err == 0,
                 **{k: v for k, v in timed[0].items() if k != "shape"},
                 shapes=timed)
 
 
-def agree_cpu_cuda(model, graph, seed: int, name: str) -> None:
+def agree_cpu_cuda(model, graph, seed: int, name: str,
+                   lr: float = PPI_LR) -> None:
     """Three steps of ``model`` from the same init on the CPU (plain
     draws) and on the card (kernels), on the same roots and seeds: first
     loss rtol 1e-5, all losses rtol 1e-3, step-1 gradients within 1e-5 of
@@ -594,7 +749,7 @@ def agree_cpu_cuda(model, graph, seed: int, name: str) -> None:
     a sum over the batch, so its gradients run to tens)."""
     from euler_tpu_torch import train
 
-    opt = train.get_optimizer("adam", PPI_LR)
+    opt = train.get_optimizer("adam", lr)
     st = {d: model.init_state(graph, opt, device=d, seed=seed)
           for d in ("cpu", "cuda")}
     step = model.make_train_step()
@@ -621,21 +776,35 @@ def agree_cpu_cuda(model, graph, seed: int, name: str) -> None:
                              f"scale of {g_scale}")
 
 
+def table_bytes(consts) -> int:
+    """Bytes of every tensor in a (nested) consts dict."""
+    if isinstance(consts, dict):
+        return sum(table_bytes(v) for v in consts.values())
+    return consts.numel() * consts.element_size()
+
+
 def train_full(model, graph, seed: int, smi: str, name: str,
-               edges_per_step: int, edges_note: str) -> dict:
+               edges_per_step: int, edges_note: str, lr: float = PPI_LR,
+               batch: int = PPI_BATCH) -> dict:
     """Train ``model`` at full width through ``train.make_scan_train``: a
-    warmup chunk, then TIMED_CHUNKS timed chunks. The launch counts are
-    set to 0 just before and read just after; returns them. Raises unless
-    the losses are finite and fall from the first chunk to the last."""
+    warmup chunk, then TIMED_CHUNKS timed chunks. Prints the tables'
+    bytes on the card and the peak of allocated device memory. The launch
+    counts are set to 0 just before and read just after; returns them.
+    Raises unless the losses are finite and fall from the first chunk to
+    the last."""
     from euler_tpu_torch import train
     from euler_tpu_torch.graph import sampling_kernels
 
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    state = model.init_state(graph, train.get_optimizer("adam", PPI_LR),
+    state = model.init_state(graph, train.get_optimizer("adam", lr),
                              device="cuda", seed=seed)
     torch.cuda.synchronize()
-    log(f"{name} state on card in {time.perf_counter() - t0:.2f} s")
-    scan = train.make_scan_train(model, CHUNK_STEPS, PPI_BATCH)
+    log(f"{name} state on card in {time.perf_counter() - t0:.2f} s (its tables "
+        f"built and uploaded), tables "
+        f"{table_bytes(state['consts'])} B, of which adjacency "
+        f"{table_bytes(state['consts']['adj'])} B")
+    scan = train.make_scan_train(model, CHUNK_STEPS, batch)
     for k in sampling_kernels.launches:
         sampling_kernels.launches[k] = 0
     state, first = scan(state, 0)  # warmup chunk
@@ -661,12 +830,13 @@ def train_full(model, graph, seed: int, smi: str, name: str,
     log(f"{name} train: {steps} steps, launches {launches}, step "
         f"{step_ms:.4f} ms, {edges_per_step / step_ms * 1e3:.1f} edges/s "
         f"({edges_note}; timed {CHUNK_STEPS * TIMED_CHUNKS} steps after a "
-        f"warmup chunk; card: {smi})")
+        f"warmup chunk; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} B; card: {smi})")
     return {"steps": steps, "launches": launches}
 
 
-def phase_train(graph, seed: int, smi: str) -> dict:
-    """Both main paths; returns {path: {"steps", "launches"}}."""
+def phase_train(graph, reddit, seed: int, smi: str) -> dict:
+    """The five main paths; returns {path: {"steps", "launches"}}."""
     log("== phase 4: train")
     from euler_tpu_torch.datasets import build_synthetic
     from euler_tpu_torch.graph import Graph
@@ -712,6 +882,80 @@ def phase_train(graph, seed: int, smi: str) -> dict:
         raise AssertionError(
             f"graphsage launches {runs['graphsage']['launches']}, expected "
             f"{expect}")
+    runs.update(train_reddit(reddit, seed, smi))
+    return runs
+
+
+def reddit_sage(max_id: int, feature_dtype=None, alias: bool = False):
+    """``bench.py``'s reddit model (bench.py:608-625): batch 1,000,
+    fanouts [4, 4], dim 64, 602 features, 41 one-hot labels, mean
+    aggregator, the default sigmoid loss."""
+    from euler_tpu_torch.datasets import REDDIT
+    from euler_tpu_torch.models import SupervisedGraphSage
+
+    model = SupervisedGraphSage(
+        label_idx=0, label_dim=REDDIT["label_dim"], metapath=[[0], [0]],
+        fanouts=list(REDDIT_FANOUTS), dim=REDDIT_DIM, feature_idx=1,
+        feature_dim=REDDIT["feature_dim"], max_id=max_id,
+        device_features=True, device_sampling=True,
+        feature_dtype=feature_dtype)
+    if alias:
+        model.set_sampling_options(alias=True)
+    return model
+
+
+def train_reddit(reddit, seed: int, smi: str) -> dict:
+    """bench.py's reddit, reddit_bf16 and reddit_heavytail configs, each
+    after a CPU/CUDA agreement on a small graph: B1 once per step on the
+    synthetic graph's slab (float32 and bfloat16 feature tables), no
+    kernel on the heavy-tail graph's alias tables."""
+    from euler_tpu_torch.datasets import (REDDIT, REDDIT_HEAVYTAIL,
+                                          build_powerlaw, build_synthetic)
+    from euler_tpu_torch.graph import Graph
+
+    graph, build_s = reddit
+    f1, f2 = REDDIT_FANOUTS
+    edges = REDDIT_BATCH * (f1 + f1 * f2)
+    note = f"{REDDIT_BATCH} * ({f1} + {f1}*{f2}) sampled edges/step"
+    width = dict(feature_dim=REDDIT["feature_dim"],
+                 label_dim=REDDIT["label_dim"])
+    small = Graph(**build_synthetic(2000, REDDIT["avg_degree"], **width,
+                                    multilabel=False, seed=seed + 2))
+    small_pl = Graph(**build_powerlaw(3000, 90_000, **width, seed=seed + 3))
+    runs = {}
+    for name, feature_dtype, alias in (("reddit", None, False),
+                                       ("reddit_bf16", "bfloat16", False),
+                                       ("reddit_heavytail", None, True)):
+        t_path = time.perf_counter()
+        if alias:
+            t0 = time.perf_counter()
+            data = build_powerlaw(**REDDIT_HEAVYTAIL)
+            t1 = time.perf_counter()
+            graph = Graph(**data)
+            t2 = time.perf_counter()
+            log(f"{name} graph {graph.num_nodes} nodes, "
+                f"{len(data['indices'])} edges (REDDIT_HEAVYTAIL, no cut), "
+                f"max degree {np.diff(data['indptr']).max()}, built in "
+                f"{t2 - t0:.2f} s ({t1 - t0:.2f} s build_powerlaw, "
+                f"{t2 - t1:.2f} s Graph with its sort); its alias tables "
+                f"are built in init_state")
+            del data
+        else:
+            log(f"{name} graph: the synthetic reddit graph of phase 3 (j), "
+                f"built in {build_s:.2f} s")
+        g_small = small_pl if alias else small
+        agree_cpu_cuda(reddit_sage(g_small.max_node_id, feature_dtype, alias),
+                       g_small, seed, name, REDDIT_LR)
+        runs[name] = train_full(
+            reddit_sage(graph.max_node_id, feature_dtype, alias), graph,
+            seed, smi, name, edges, note, REDDIT_LR, REDDIT_BATCH)
+        steps = runs[name]["steps"]
+        expect = {"sample_fanout2": 0 if alias else steps,
+                  "sample_neighbor": 0}
+        if runs[name]["launches"] != expect:
+            raise AssertionError(f"{name} launches {runs[name]['launches']}, "
+                                 f"expected {expect}")
+        log(f"{name} path: {time.perf_counter() - t_path:.1f} s")
     return runs
 
 
@@ -719,10 +963,16 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t0 = time.perf_counter()
     smi = phase_env()
     phase_build()
-    graph, k = phase_kernel(args.seed)
-    runs = phase_train(graph, args.seed, smi)
+    t1 = time.perf_counter()
+    log(f"phases 1-2: {t1 - t0:.1f} s")
+    graph, reddit, k = phase_kernel(args.seed)
+    t2 = time.perf_counter()
+    log(f"phase 3: {t2 - t1:.1f} s")
+    runs = phase_train(graph, reddit, args.seed, smi)
+    log(f"phase 4: {time.perf_counter() - t2:.1f} s")
     log("== phase 5: kernels")
     meta = {
         "sample_fanout2": dict(

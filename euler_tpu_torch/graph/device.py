@@ -12,13 +12,19 @@ PyTorch on those tensors, with the JAX package's semantics:
 - ``sample_neighbor`` draws with replacement: ``idx = #(u >= cum[row])``
   clipped to W-1; unknown ids draw from the default row, rows of zero
   total weight yield the default node.
+- ``build_alias_adjacency`` exports the exact form for heavy-tailed
+  graphs instead: flat-CSR Walker alias tables (``off``, ``deg``, ``nbr``,
+  ``alias``, ``prob``, ``sampleable``), O(E) memory and no width cap.
+  ``sample_neighbor`` dispatches on its ``"off"`` key to the O(1) alias
+  draw, which has no kernel: it is plain PyTorch on every device.
 - ``build_node_sampler`` / ``sample_node`` draw roots weight-
   proportionally through the two-level (segment, then within-segment)
   cumulative that stays exact beyond float32's resolution (see ``SEG``).
-- ``sample_fanout`` chains the hops; a two-hop fanout runs as ONE call of
-  ``sampling_kernels.sample_fanout2``, other fanouts one call of
-  ``sampling_kernels.sample_neighbor`` per hop: the hand-written Hopper
-  kernels on CUDA tensors.
+- ``sample_fanout`` chains the hops; a two-hop fanout over two slabs runs
+  as ONE call of ``sampling_kernels.sample_fanout2``, other fanouts hop by
+  hop through ``neighbor_draw``: ``sampling_kernels.sample_neighbor`` for
+  a slab (the hand-written Hopper kernels on CUDA tensors), the alias
+  draw for an alias table.
 
 Randomness: every draw takes injected uniforms (``u=``) so tests can
 replay the JAX package's threefry uniforms bit for bit. Without them the
@@ -194,6 +200,98 @@ def build_node_sampler(graph, node_type: int = -1, max_id: int = 0) -> dict:
     }
 
 
+def _build_alias_rows(offsets: np.ndarray, weights: np.ndarray):
+    """(prob [E] float32, alias [E] int32 row-local slots): Vose's alias
+    table of every CSR row, bit for bit the native engine's
+    ``eg::BuildAliasRows``. Per row: the float64 sum of its weights in
+    order, ``scale = n / total``, ``scaled = w * scale``; slots below 1.0
+    go to ``small`` and the rest to ``large``, both in index order and
+    popped from the back; each small slot keeps ``prob = scaled`` (stored
+    as float32) and aliases the large one, whose ``scaled`` loses
+    ``1 - scaled[s]``. Slots left over, and rows of zero total, keep
+    ``prob = 1`` and alias themselves.
+
+    A row whose weights are all equal scales every slot alike, so either
+    no slot is small or none is large: the loop pairs nothing and the row
+    keeps the defaults. Only the other rows run the loop, in Python (every
+    row of an unweighted graph skips it)."""
+    e = len(weights)
+    counts = np.diff(offsets)
+    base = np.repeat(offsets[:-1], counts)  # each slot's row start
+    prob = np.ones(e, np.float32)
+    alias = (np.arange(e, dtype=np.int64) - base).astype(np.int32)
+    differs = np.flatnonzero(weights != weights[base])  # NaN differs too
+    mixed = np.unique(np.searchsorted(offsets, differs, side="right") - 1)
+    for r in mixed.tolist():
+        lo, n = int(offsets[r]), int(counts[r])
+        w = weights[lo:lo + n].tolist()
+        total = 0.0
+        for x in w:
+            total += x
+        if total <= 0.0:
+            continue
+        scale = n / total
+        scaled = [x * scale for x in w]
+        small = [i for i in range(n) if scaled[i] < 1.0]
+        large = [i for i in range(n) if not scaled[i] < 1.0]
+        row_prob = [1.0] * n
+        row_alias = list(range(n))
+        while small and large:
+            sm = small.pop()
+            lg = large.pop()
+            row_prob[sm] = scaled[sm]
+            row_alias[sm] = lg
+            scaled[lg] -= 1.0 - scaled[sm]
+            (small if scaled[lg] < 1.0 else large).append(lg)
+        prob[lo:lo + n] = np.asarray(row_prob, np.float64)  # float32 cast
+        alias[lo:lo + n] = row_alias
+    return prob, alias
+
+
+def build_alias_adjacency(graph, edge_types, max_id: int,
+                          chunk: int = 65536) -> dict:
+    """Export the adjacency restricted to ``edge_types`` as exact
+    flat-CSR alias tables: every neighbor kept, no ``max_degree`` cap, 12
+    bytes an edge (1.38 GB at Reddit's 114.6M edges).
+
+    Returns {"off": [N+2] int32 row starts, "deg": [N+2] int32, "nbr":
+    [E] int32, "alias": [E] int32 (global ids, so a draw needs no second
+    hop through the row), "prob": [E] float32, "sampleable": [N+2] bool,
+    "bisect_steps": [max(bit_length(max degree), 1)] int8 zeros, kept for
+    the JAX package's layout} with N = max_id + 1. Unknown ids, the
+    default row and rows of zero total weight draw the default node. The
+    id-sorted variant (``sorted=True`` in the JAX package) serves the
+    biased walks and comes with them."""
+    n_rows = max_id + 2
+    default = max_id + 1
+    counts_all, nbr_flat, w_flat, offsets = _fetch_flat_csr(
+        graph, edge_types, max_id, chunk
+    )
+    e = len(nbr_flat)
+    if e >= 1 << 31:
+        raise ValueError(
+            f"alias adjacency needs int32 slots: {e} edges; shard the "
+            "graph first"
+        )
+    prob, alias_local = _build_alias_rows(offsets, w_flat)
+    row_base = np.repeat(offsets[:-1], counts_all)
+    alias_ids = nbr_flat[row_base + alias_local].astype(np.int32)
+    csum_z = np.concatenate([[0.0], np.cumsum(w_flat, dtype=np.float64)])
+    sums = csum_z[offsets[1:]] - csum_z[offsets[:-1]]
+    sampleable = (counts_all > 0) & (sums > 0)
+    sampleable[default] = False
+    max_deg = int(counts_all.max()) if len(counts_all) else 0
+    return {
+        "off": offsets[:-1].astype(np.int32),
+        "deg": counts_all.astype(np.int32),
+        "nbr": nbr_flat.astype(np.int32),
+        "alias": alias_ids,
+        "prob": prob,
+        "sampleable": sampleable,
+        "bisect_steps": np.zeros(max(max_deg.bit_length(), 1), np.int8),
+    }
+
+
 def tensors(arrays: dict, device) -> dict:
     """The numpy arrays of a table dict as tensors on ``device``."""
     return {k: torch.as_tensor(v, device=device) for k, v in arrays.items()}
@@ -248,6 +346,21 @@ def philox4x32(counter, key):
     return c0, c1, c2, c3
 
 
+def _philox_grid(seed_words, hop: int, rows: int, cols: int, device):
+    """The four Philox4x32-10 words at counter (row, column, hop, 0) for
+    every cell of a [rows, cols] grid."""
+    r = torch.arange(rows, dtype=torch.int64, device=device)[:, None]
+    c = torch.arange(cols, dtype=torch.int64, device=device)[None, :]
+    h = torch.full((1, 1), hop, dtype=torch.int64, device=device)
+    return philox4x32((r, c, h, torch.zeros_like(h)), seed_words)
+
+
+def _top24(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit word's top 24 bits scaled by 2^-24: a float32 uniform in
+    [0, 1), exact."""
+    return (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
 def philox_uniform(seed_words, hop: int, rows: int, cols: int,
                    device=None) -> torch.Tensor:
     """[rows, cols] float32 uniforms in [0, 1): Philox4x32-10 keyed by
@@ -255,11 +368,17 @@ def philox_uniform(seed_words, hop: int, rows: int, cols: int,
     top 24 bits scaled by 2^-24 (exact in float32). The CUDA kernel
     computes the same numbers, so kernel and plain version agree bit for
     bit without injected uniforms."""
-    r = torch.arange(rows, dtype=torch.int64, device=device)[:, None]
-    c = torch.arange(cols, dtype=torch.int64, device=device)[None, :]
-    h = torch.full((1, 1), hop, dtype=torch.int64, device=device)
-    x0 = philox4x32((r, c, h, torch.zeros_like(h)), seed_words)[0]
-    return (x0 >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    return _top24(_philox_grid(seed_words, hop, rows, cols, device)[0])
+
+
+def philox_uniform2(seed_words, hop: int, rows: int, cols: int,
+                    device=None):
+    """Two [rows, cols] float32 uniforms from one Philox call: words 0 and
+    1 at the same counter (row, column, hop, 0), each cut as in
+    ``philox_uniform`` (whose numbers are the first). The alias draw's
+    slot and coin."""
+    x = _philox_grid(seed_words, hop, rows, cols, device)
+    return _top24(x[0]), _top24(x[1])
 
 
 def _bisect_first_ge(cum, lo, hi, u, steps: int):
@@ -306,14 +425,54 @@ def sample_node(sampler: dict, count: int, generator=None, u=None,
     return ids[idx]
 
 
+def _alias_sample_neighbor(adj: dict, nodes, count: int, seed_words=None,
+                           hop: int = 0, u=None):
+    """[*nodes.shape, count] int32 exact draws from alias tables: slot j =
+    min(int32(u1 * deg), deg - 1), computed in float32 as the JAX package
+    does; keep ``nbr`` at the slot when u2 < ``prob``, else ``alias``.
+    Negative and unknown ids draw from the default row; unsampleable and
+    empty rows, and every draw of a table with no edges, yield the default
+    node. ``u`` = (u1, u2), each [len(nodes), count] float32, replaces
+    ``philox_uniform2(seed_words, hop, ...)``."""
+    off = adj["off"]
+    dev = off.device
+    n_rows = off.shape[0]
+    default = n_rows - 1
+    flat = nodes.reshape(-1)
+    flat = torch.where(flat < 0, default, flat.clamp(max=default)).long()
+    m = flat.shape[0]
+    e = adj["prob"].shape[0]
+    if e == 0:  # no edges of these types at all: everything defaults
+        return torch.full((*nodes.shape, count), default, dtype=torch.int32,
+                          device=dev)
+    if u is None:
+        u1, u2 = philox_uniform2(seed_words, hop, m, count, device=dev)
+    else:
+        u1, u2 = (torch.as_tensor(x, dtype=torch.float32, device=dev)
+                  .reshape(m, count) for x in u)
+    deg = adj["deg"].index_select(0, flat)[:, None]          # int32 [m, 1]
+    j = torch.minimum((u1 * deg).to(torch.int32), (deg - 1).clamp(min=0))
+    # empty rows at the CSR's end start at off == E; their draws are
+    # masked below, so the clamp only keeps the gather in bounds
+    slot = (off.index_select(0, flat)[:, None].long() + j).clamp(max=e - 1)
+    pick = torch.where(u2 < adj["prob"][slot], adj["nbr"][slot],
+                       adj["alias"][slot])
+    ok = adj["sampleable"].index_select(0, flat) & (deg[:, 0] > 0)
+    out = torch.where(ok[:, None], pick, default)
+    return out.reshape(*nodes.shape, count)
+
+
 def sample_neighbor(adj: dict, nodes, count: int, seed_words=None,
                     hop: int = 0, u=None):
     """[*nodes.shape, count] int32 weighted neighbor draws (replacement),
-    the plain slab draw: per draw the first slot whose cumulative weight
-    exceeds u. Negative and past-the-slab ids draw from the default row;
-    rows of zero total weight yield the default node. ``u`` ([len(nodes),
-    count] float32) replaces the Philox uniforms of ``seed_words`` at
-    ``hop``."""
+    the plain draw. An alias table (``"off"`` key) takes
+    ``_alias_sample_neighbor``. A slab takes per draw the first slot whose
+    cumulative weight exceeds u. Negative and past-the-slab ids draw from
+    the default row; rows of zero total weight yield the default node.
+    ``u`` ([len(nodes), count] float32) replaces the Philox uniforms of
+    ``seed_words`` at ``hop``."""
+    if "off" in adj:
+        return _alias_sample_neighbor(adj, nodes, count, seed_words, hop, u)
     nbr, cum = adj["nbr"], adj["cum"]
     n_rows, width = nbr.shape
     flat = nodes.reshape(-1)
@@ -332,16 +491,33 @@ def sample_neighbor(adj: dict, nodes, count: int, seed_words=None,
     return out.reshape(*nodes.shape, count)
 
 
+def neighbor_draw(adj: dict, nodes, count: int, seed_words=None,
+                  hop: int = 0, u=None):
+    """One hop's draw as a model makes it: a slab (``"cum"``) takes
+    ``sampling_kernels.sample_neighbor`` (the Hopper kernel on CUDA
+    tensors), an alias table the plain ``sample_neighbor`` (its draw has
+    no kernel). Arguments as ``sample_neighbor``'s; ``u`` is (u1, u2) for
+    an alias table."""
+    if "cum" not in adj:
+        return sample_neighbor(adj, nodes, count, seed_words, hop, u)
+    from euler_tpu_torch.graph import sampling_kernels
+
+    return sampling_kernels.sample_neighbor(adj, nodes, seed_words, count,
+                                            hop=hop, u=u)
+
+
 def sample_fanout(adjs, roots, counts, seed_words=None, u=None):
     """Multi-hop fanout: [roots, hop1, hop2, ...] flat int32 tensors, hop
     h sized len(roots) * prod(counts[:h+1]). ``adjs`` holds one adjacency
-    per hop; ``u`` one injected [rows, count] uniform tensor per hop.
+    per hop; ``u`` one injected uniform per hop ([rows, count], or the
+    pair (u1, u2) for an alias table).
 
-    Two hops over slabs of one id space run as one call of the chained
-    draw ``sampling_kernels.sample_fanout2``; other fanouts run hop by hop
-    through the single-hop draw ``sampling_kernels.sample_neighbor`` at
-    hop h (both the Hopper kernels on CUDA tensors, and the same Philox
-    counters, so the two routes draw the same picks)."""
+    Two hops over two slabs (``"cum"``) of one id space run as one call of
+    the chained draw ``sampling_kernels.sample_fanout2``; other fanouts
+    run hop by hop through ``neighbor_draw`` at hop h (the single-hop
+    kernel for a slab, with the same Philox counters as the chained one,
+    so both routes draw the same picks; the alias draw for an alias
+    table, which never reaches a kernel)."""
     from euler_tpu_torch.graph import sampling_kernels
 
     if len(adjs) != len(counts):
@@ -351,7 +527,8 @@ def sample_fanout(adjs, roots, counts, seed_words=None, u=None):
         )
     roots = roots.reshape(-1)
     u = [None] * len(counts) if u is None else list(u)
-    if len(counts) == 2 and adjs[0]["nbr"].shape[0] == adjs[1]["nbr"].shape[0]:
+    if (len(counts) == 2 and all("cum" in a for a in adjs)
+            and adjs[0]["nbr"].shape[0] == adjs[1]["nbr"].shape[0]):
         h1, h2 = sampling_kernels.sample_fanout2(
             adjs[0], adjs[1], roots, seed_words, counts[0], counts[1],
             u1=u[0], u2=u[1],
@@ -360,8 +537,7 @@ def sample_fanout(adjs, roots, counts, seed_words=None, u=None):
     out = [roots]
     cur = roots
     for h, (adj, c) in enumerate(zip(adjs, counts)):
-        cur = sampling_kernels.sample_neighbor(adj, cur, seed_words, c,
-                                               hop=h, u=u[h])
+        cur = neighbor_draw(adj, cur, c, seed_words, hop=h, u=u[h])
         cur = cur.reshape(-1)
         out.append(cur)
     return out

@@ -11,7 +11,9 @@
   ``sample_fanout2_reference``, is two chained plain draws.
 
 Both kernels run one draw routine (``csrc/draw.cuh``), as the TPU kernels
-share ``_stage_draw``. Routing is by where the tensors lie, and nothing
+share ``_stage_draw``. Both take slabs only: an alias table has no kernel,
+and ``device.sample_fanout`` / ``device.neighbor_draw`` route it to the
+plain alias draw before any wrapper here. Routing is by where the tensors lie, and nothing
 else: CPU tensors run the plain version, CUDA tensors launch the kernel
 or raise. ``launches`` counts each kernel's launches, so a run can show
 that its path went through the kernels.

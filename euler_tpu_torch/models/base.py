@@ -72,13 +72,29 @@ def unsupervised_decoder(emb, emb_pos, emb_negs, xent_loss: bool):
 
 def gather_consts(feats: dict, consts: dict) -> dict:
     """Replace one node set's ``'gids'`` indices with rows gathered from
-    the device feature table."""
+    the device feature table. A reduced-precision table
+    (``feature_dtype="bfloat16"``) is cast back to float32 after the
+    gather, so the module's math is unchanged and only the table's bytes
+    and the gather traffic shrink."""
     if not consts or "gids" not in feats:
         return feats
     feats = dict(feats)
     if "features" in consts:
-        feats["dense"] = consts["features"].index_select(0, feats["gids"])
+        feats["dense"] = consts["features"].index_select(
+            0, feats["gids"]).to(torch.float32)
     return feats
+
+
+def _feature_table_dtype(name: str) -> torch.dtype:
+    """The ``torch`` dtype of a feature-table dtype name (``"bfloat16"``,
+    ``"float16"``, ``"float32"``); anything else raises."""
+    dtype = getattr(torch, str(name), None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(
+            f"bad feature table dtype {name!r} (from the feature_dtype "
+            "kwarg; use a floating dtype name like 'bfloat16')"
+        )
+    return dtype
 
 
 def lookup_labels(consts: dict, root_ids):
@@ -103,9 +119,39 @@ class Model:
     feature_dim: int = 0
     label_idx: int = -1
     label_dim: int = 0
+    # the feature table's dtype name (None: float32), e.g. "bfloat16"
+    feature_dtype: Optional[str] = None
+    # device adjacency form, set with set_sampling_options: a max_degree
+    # cap on the slab's width, or the exact flat-CSR alias tables
+    sampling_max_degree: Optional[int] = None
+    sampling_alias: bool = False
+    # families whose device pipeline reads the 2-D slab itself (the
+    # full-neighborhood GCN walks adj["nbr"]) set this False
+    alias_sampling_ok: bool = True
 
     def make_module(self, generator=None) -> torch.nn.Module:
         raise NotImplementedError
+
+    def set_sampling_options(
+        self, max_degree: Optional[int] = None, alias: bool = False
+    ) -> None:
+        """Choose the device adjacency form before ``init_state``:
+        ``max_degree`` caps the padded slab's width (each row keeps its
+        heaviest neighbors, which changes hub distributions); ``alias``
+        switches to the exact flat-CSR alias tables (no truncation, O(E)
+        memory), the form for power-law graphs."""
+        if alias and max_degree is not None:
+            raise ValueError(
+                "alias sampling is exact: max_degree does not apply"
+            )
+        if alias and not self.alias_sampling_ok:
+            raise ValueError(
+                f"{type(self).__name__} walks the 2-D adjacency slab "
+                "(full-neighborhood aggregation) — alias sampling does "
+                "not apply; use max_degree to bound slab width instead"
+            )
+        self.sampling_max_degree = max_degree
+        self.sampling_alias = alias
 
     @staticmethod
     def adj_key(edge_types) -> str:
@@ -121,19 +167,25 @@ class Model:
         negs_type: Optional[int] = None,
         roots_type: Optional[int] = None,
     ) -> dict:
-        """Upload the device-sampling tables: one adjacency slab per
-        distinct edge-type set (unpacked ``nbr``/``cum``/``sampleable``,
-        which the CUDA kernels read directly) and the typed node samplers
-        for negatives (``negs_type``) and roots (``roots_type``), one
-        shared table when the types match."""
+        """Upload the device-sampling tables: one adjacency per distinct
+        edge-type set, in the form ``set_sampling_options`` chose (a slab,
+        unpacked ``nbr``/``cum``/``sampleable``, which the CUDA kernels
+        read directly, capped at ``sampling_max_degree``; or alias
+        tables), and the typed node samplers for negatives
+        (``negs_type``) and roots (``roots_type``), one shared table when
+        the types match."""
         adj = consts.setdefault("adj", {})
         for et in edge_type_sets:
             k = self.adj_key(et)
             if k not in adj:
-                adj[k] = device_graph.tensors(
-                    device_graph.build_adjacency(graph, et, self.max_id),
-                    device,
-                )
+                if self.sampling_alias:
+                    table = device_graph.build_alias_adjacency(
+                        graph, et, self.max_id)
+                else:
+                    table = device_graph.build_adjacency(
+                        graph, et, self.max_id,
+                        max_degree=self.sampling_max_degree)
+                adj[k] = device_graph.tensors(table, device)
         if negs_type is not None:
             consts["negs"] = device_graph.tensors(
                 device_graph.build_node_sampler(graph, negs_type,
@@ -165,17 +217,18 @@ class Model:
 
     def build_consts(self, graph, device) -> dict:
         """Device-resident lookup tables, uploaded once at init. Row
-        max_id+1 is the default/padding node (zeros)."""
+        max_id+1 is the default/padding node (zeros). The feature table
+        takes ``feature_dtype`` (converted on the host, so the upload
+        moves the narrow bytes); labels stay float32, as loss targets."""
         n = self.max_id + 2
         ids = np.arange(n, dtype=np.int64)
         consts = {}
         if self.feature_idx >= 0:
-            consts["features"] = torch.as_tensor(
-                graph.get_dense_feature(
-                    ids, [self.feature_idx], [self.feature_dim]
-                ),
-                device=device,
-            )
+            table = torch.as_tensor(graph.get_dense_feature(
+                ids, [self.feature_idx], [self.feature_dim]))
+            if self.feature_dtype:
+                table = table.to(_feature_table_dtype(self.feature_dtype))
+            consts["features"] = table.to(device)
         if self.label_idx >= 0:
             consts["labels"] = torch.as_tensor(
                 graph.get_dense_feature(ids, [self.label_idx],

@@ -2,9 +2,10 @@
 ``euler_tpu/models/graphsage.py``).
 
 Device-sampling mode is the main path: the batch is root ids and a seed,
-the fanouts are drawn on the device (the chained two-hop kernel on CUDA,
-the single-hop kernel for the unsupervised model's positives), and
-features and labels are gathered from device tables. The modules also
+the fanouts are drawn on the device (over slabs, the chained two-hop
+kernel on CUDA and the single-hop kernel for the unsupervised model's
+positives; over alias tables, the plain alias draw), and features and
+labels are gathered from device tables. The modules also
 take host-given node sets (``{"hops": ...}``, ``{"src_hops": ...,
 "pos_hops": ..., "neg_hops": ...}``), so they can be held against the flax
 modules without any sampling. Host-sampling mode needs the engine client,
@@ -18,7 +19,6 @@ from typing import Optional, Sequence
 from torch import nn
 
 from euler_tpu_torch.graph import device as device_graph
-from euler_tpu_torch.graph import sampling_kernels
 from euler_tpu_torch.models import base
 from euler_tpu_torch.nn import metrics
 from euler_tpu_torch.nn.encoders import SageEncoder, ShallowEncoder
@@ -45,8 +45,9 @@ def _check_device_mode(name, device_features, device_sampling, feature_idx,
 
 
 def _sampled_hops(consts, adj_keys, roots, fanouts, words, u):
-    """The fanout of ``roots`` drawn on the device from the slabs
-    ``consts["adj"][k]`` of ``adj_keys`` with the Philox stream ``words``
+    """The fanout of ``roots`` drawn on the device from the adjacencies
+    (slabs or alias tables) ``consts["adj"][k]`` of ``adj_keys`` with the
+    Philox stream ``words``
     (or the injected per-hop uniforms ``u``), as ``{"gids": ids}`` node
     sets, one a hop."""
     adjs = [consts["adj"][k] for k in adj_keys]
@@ -116,7 +117,9 @@ class _SupervisedSageModule(nn.Module):
 class SupervisedGraphSage(base.Model):
     """Supervised node classification over device-resident features,
     labels and adjacency (``device_features=True, device_sampling=True``,
-    the JAX package's flagship configuration)."""
+    the JAX package's flagship configuration). ``feature_dtype``
+    ("bfloat16") narrows the feature table; ``set_sampling_options``
+    chooses capped slabs or alias tables."""
 
     def __init__(
         self,
@@ -135,10 +138,12 @@ class SupervisedGraphSage(base.Model):
         device_features: bool = False,
         device_sampling: bool = False,
         train_node_type: int = -1,
+        feature_dtype: Optional[str] = None,
     ):
         _check_device_mode("SupervisedGraphSage", device_features,
                            device_sampling, feature_idx, max_id, metapath,
                            fanouts)
+        self.feature_dtype = feature_dtype
         self.label_idx = label_idx
         self.label_dim = label_dim
         self.metapath = [list(m) for m in metapath]
@@ -237,8 +242,8 @@ class _UnsupervisedSageModule(nn.Module):
             for i, name in enumerate(UNSUP_STREAMS)
         }
         u = batch.get("u") or {}
-        pos = sampling_kernels.sample_neighbor(
-            consts["adj"][self.pos_adj_key], roots, words["pos"], 1,
+        pos = device_graph.neighbor_draw(
+            consts["adj"][self.pos_adj_key], roots, 1, words["pos"],
             u=u.get("pos"),
         ).reshape(-1)
         negs = device_graph.sample_node(
@@ -296,9 +301,11 @@ class GraphSage(base.Model):
         xent_loss: bool = False,
         device_features: bool = False,
         device_sampling: bool = False,
+        feature_dtype: Optional[str] = None,
     ):
         _check_device_mode("GraphSage", device_features, device_sampling,
                            feature_idx, max_id, metapath, fanouts)
+        self.feature_dtype = feature_dtype
         self.node_type = node_type
         self.edge_type = list(edge_type)
         self.metapath = [list(m) for m in metapath]

@@ -2,21 +2,30 @@
 """Where the time of the port's train step goes, on one NVIDIA GPU.
 
     python3 scripts/torch_step_profile.py [--model graphsage_supervised]
-        [--steps 20] [--top 15]
+        [--feature_dtype bfloat16] [--alias] [--steps 20] [--top 15]
 
-Builds the full synthetic PPI graph and, at full width (dim 256, batch
-512, fanouts [10, 10], Adam 0.01), either ``SupervisedGraphSage`` (the
-ppi recipe, the default) or ``--model graphsage``, the unsupervised
-``GraphSage`` with ``run_loop --model graphsage``'s defaults (5 negatives,
-concat, sigmoid cross-entropy). Runs one warmup chunk of
-``train.make_scan_train``, times one chunk, then profiles one chunk with
-``torch.profiler`` (CPU + CUDA activities). Prints the card, the wall
-time per step with and without the profiler, the device time per step
-summed over kernels, the kernel launches per step, the device busy share
-(device time / profiled wall time), the kernels by device time and,
-wherever they rank, the port's own draw kernels; then the launches and
-device time of one node-sampler draw alone, for the roots and
-(graphsage) the Philox negatives.
+``--model graphsage_supervised`` (the default, the ppi recipe) and
+``--model graphsage`` build the full synthetic PPI graph and train, at
+full width (dim 256, batch 512, fanouts [10, 10], Adam 0.01),
+``SupervisedGraphSage`` or the unsupervised ``GraphSage`` with
+``run_loop --model graphsage``'s defaults (5 negatives, concat, sigmoid
+cross-entropy). ``--model reddit`` trains ``bench.py``'s reddit recipe
+(batch 1,000, fanouts [4, 4], dim 64, Adam 0.03, 602 features, 41
+one-hot labels) on the synthetic Reddit graph; with ``--feature_dtype
+bfloat16`` its feature table is bfloat16 (reddit_bf16), and with
+``--alias`` it runs on the power-law graph ``REDDIT_HEAVYTAIL`` over
+alias tables (reddit_heavytail).
+
+Runs one warmup chunk of ``train.make_scan_train``, times one chunk, then
+profiles one chunk with ``torch.profiler`` (CPU + CUDA activities).
+Prints the card, the wall time per step with and without the profiler,
+the device time per step summed over kernels, the kernel launches per
+step, the device busy share (device time / profiled wall time), the
+device time of the gathers (``index_select`` and indexing kernels) and
+of the copies and dtype casts, the kernels by device time and, wherever
+they rank, the port's own draw kernels; then the launches and device
+time of one node-sampler draw alone, for the roots and (graphsage) the
+Philox negatives.
 """
 
 from __future__ import annotations
@@ -36,16 +45,23 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", default="graphsage_supervised",
-                    choices=["graphsage_supervised", "graphsage"])
+                    choices=["graphsage_supervised", "graphsage", "reddit"])
+    ap.add_argument("--feature_dtype", default=None,
+                    help="the feature table's dtype, e.g. bfloat16")
+    ap.add_argument("--alias", action="store_true",
+                    help="reddit on the power-law graph over alias tables")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args()
+    if args.alias and args.model != "reddit":
+        ap.error("--alias goes with --model reddit")
     if not torch.cuda.is_available():
         raise SystemExit("torch_step_profile: no CUDA device")
     from torch.profiler import ProfilerActivity, profile
 
     from euler_tpu_torch import train
-    from euler_tpu_torch.datasets import PPI, build_synthetic
+    from euler_tpu_torch.datasets import (PPI, REDDIT, REDDIT_HEAVYTAIL,
+                                          build_powerlaw, build_synthetic)
     from euler_tpu_torch.graph import Graph
     from euler_tpu_torch.graph import device as device_graph
     from euler_tpu_torch.models import GraphSage, SupervisedGraphSage
@@ -55,19 +71,38 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
     ).stdout.strip()
-    print(f"card: {smi}; torch {torch.__version__}; model {args.model}",
+    print(f"card: {smi}; torch {torch.__version__}; model {args.model}, "
+          f"feature_dtype {args.feature_dtype}, alias {args.alias}",
           flush=True)
-    graph = Graph(**build_synthetic(**PPI))
-    common = dict(metapath=[[0], [0]], fanouts=[10, 10], dim=256,
-                  feature_idx=1, feature_dim=50, max_id=graph.max_node_id,
-                  device_features=True, device_sampling=True)
-    if args.model == "graphsage":
-        model = GraphSage(node_type=0, edge_type=[0], num_negs=5,
-                          concat=True, xent_loss=True, **common)
+    t0 = time.perf_counter()
+    if args.model == "reddit":
+        batch, lr = 1000, 0.03
+        graph = Graph(**(build_powerlaw(**REDDIT_HEAVYTAIL) if args.alias
+                         else build_synthetic(**REDDIT)))
+        model = SupervisedGraphSage(
+            label_idx=0, label_dim=REDDIT["label_dim"], metapath=[[0], [0]],
+            fanouts=[4, 4], dim=64, feature_idx=1,
+            feature_dim=REDDIT["feature_dim"], max_id=graph.max_node_id,
+            device_features=True, device_sampling=True,
+            feature_dtype=args.feature_dtype)
+        if args.alias:
+            model.set_sampling_options(alias=True)
     else:
-        model = SupervisedGraphSage(label_idx=0, label_dim=121, **common)
-    state = model.init_state(graph, train.get_optimizer("adam", 0.01))
-    scan = train.make_scan_train(model, args.steps, 512)
+        batch, lr = 512, 0.01
+        graph = Graph(**build_synthetic(**PPI))
+        common = dict(metapath=[[0], [0]], fanouts=[10, 10], dim=256,
+                      feature_idx=1, feature_dim=50,
+                      max_id=graph.max_node_id, device_features=True,
+                      device_sampling=True, feature_dtype=args.feature_dtype)
+        if args.model == "graphsage":
+            model = GraphSage(node_type=0, edge_type=[0], num_negs=5,
+                              concat=True, xent_loss=True, **common)
+        else:
+            model = SupervisedGraphSage(label_idx=0, label_dim=121, **common)
+    print(f"graph {graph.num_nodes} nodes built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    state = model.init_state(graph, train.get_optimizer("adam", lr))
+    scan = train.make_scan_train(model, args.steps, batch)
     state, _ = scan(state, 0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -88,6 +123,15 @@ def main() -> int:
           f"{device_us / args.steps / 1e3:.4f} ms/step summed over "
           f"{launches / args.steps:.1f} kernel launches/step, busy share "
           f"{device_us / 1e6 / wall:.4f}, final loss {float(losses[-1]):.5f}")
+    for what, words in (("gathers (index_select, indexing)",
+                         ("scatter_gather", "index_elementwise",
+                          "indexSelect")),
+                        ("copies and dtype casts", ("direct_copy",))):
+        group = [(us, n) for name, (us, n) in per_kernel.items()
+                 if any(w in name.split("(")[0] for w in words)]
+        print(f"{what}: {sum(us for us, _ in group) / args.steps:.3f} device "
+              f"us/step over {sum(n for _, n in group) / args.steps:.1f} "
+              "launches/step")
     print(f"{'device us/step':>15} {'calls/step':>10}  kernel")
     top = sorted(per_kernel.items(), key=lambda kv: kv[1][0], reverse=True)
     for name, (us, n) in top[:args.top]:
@@ -96,14 +140,14 @@ def main() -> int:
         if "fanout2_kernel" in name or "sample_neighbor_kernel" in name:
             print(f"{us / args.steps:15.3f} {n / args.steps:10.1f}  "
                   f"{name[:100]} (port kernel)")
-    # the node samplers alone, at the step's shapes: 512 roots from the
-    # generator, and (graphsage) 2,560 negatives from Philox uniforms
+    # the node samplers alone, at the step's shapes: the batch's roots
+    # from the generator, and (graphsage) 5 negatives a root from Philox
     sampler = state["consts"]["roots"]
     draws = {"roots": lambda: device_graph.sample_node(
-        sampler, 512, generator=torch.Generator(device="cuda"))}
+        sampler, batch, generator=torch.Generator(device="cuda"))}
     if args.model == "graphsage":
         draws["negatives"] = lambda: device_graph.sample_node(
-            sampler, 2560, seed_words=device_graph.stream_words(1, 1))
+            sampler, 5 * batch, seed_words=device_graph.stream_words(1, 1))
     for name, draw in draws.items():
         draw()
         torch.cuda.synchronize()
