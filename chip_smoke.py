@@ -37,7 +37,18 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    PyTorch, no kernel) on CUDA tensors equals the same draw on CPU
    tensors bit for bit, single hop and a [4, 4] fanout with Philox
    uniforms, on a 9,000-node power-law graph with hub rows, and launches
-   no kernel. Each kernel time is
+   no kernel; (l) ``random_walk`` at node2vec's shape (15,360 walkers,
+   walk_len 5) over the weighted ppi slab on CUDA tensors equals the same
+   walk on CPU tensors bit for bit, on the same kinds of odd roots, with
+   exactly five B2 launches, and B2 is timed at [15,360, 1] as in (g);
+   (m) the biased walks, plain PyTorch, no kernel: the 2-step joint of
+   ``biased_random_walk`` (10^5 walkers from one root of the sorted
+   slab) matches the analytic node2vec joint within a TVD of 0.03 for
+   (p, q) = (4, 0.25) and (0.25, 4); at 15,360 walkers its CUDA and CPU
+   picks are compared (float32 cumsums may round apart: the differing
+   picks are counted, every pick must be a legal transition); and
+   ``alias_biased_random_walk`` over (k)'s graph's sorted alias tables
+   equals the same walk on CPU tensors bit for bit. Each kernel time is
    taken warm (``ms``), with the L2 cache flushed by a 128 MiB write
    before each launch (``ms_cold``), and beside ``floor_ms``, an empty
    kernel at the kernel's grid under the same timer, and ``bound_ms``,
@@ -58,7 +69,17 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    bfloat16 feature table) and reddit_heavytail (the power-law graph at
    114.6M edges over alias tables: no kernel launch), each printing its
    build times, its tables' bytes on the card and the peak of allocated
-   device memory.
+   device memory. Then the walk models (the JAX package's ``run_loop
+   --model node2vec --device_sampling`` and ``--model line`` defaults:
+   dim 256, id embeddings, combiner add, 5 negatives, sigmoid
+   cross-entropy, Adam 0.01), Node2Vec and LINE each after a small
+   CPU/CUDA agreement: node2vec (walk_len 5, windows 5/5, 15,360 roots a
+   step: B2 five times a step at [15,360, 1]), node2vec_biased (p 4, q
+   0.25 over the sorted slab: no kernel), line (order 1, 512 roots: B2
+   once a step at [512, 1]) and node2vec_heavytail (node2vec_biased's
+   recipe on reddit_heavytail's graph over sorted alias tables: the exact
+   rejection walk, no kernel), each printing walk edges and pairs a step
+   with their rates and the launches a step.
 5. The ``kernels`` line; then the final ``ok`` line. Each phase prints
    its wall time.
 """
@@ -89,6 +110,15 @@ REDDIT_LR = 0.03
 ALIAS_CHECK = dict(num_nodes=9000, num_edges=270_000, feature_dim=8,
                    label_dim=4)
 SAGE_NEGS = 5
+# run_loop --model node2vec's defaults (run_loop.py:91-102, 141-144,
+# 570-584, 725): walk_len 5, windows 5 and 5 (30 pairs a root), and
+# --batch_size 512 times those 30 pairs: 15,360 roots a step
+N2V_WALK_LEN = 5
+N2V_WINDOW = 5
+N2V_ROOTS = PPI_BATCH * 30
+# the JAX package's biased-walk settings (p, q), both sides of 1
+BIASED_PQ = ((4.0, 0.25), (0.25, 4.0))
+BIASED_WALKERS = 100_000
 CHUNK_STEPS = 20
 TIMED_CHUNKS = 4
 TVD_BOUND = 0.03
@@ -241,8 +271,9 @@ def phase_kernel(seed: int):
 
     # (a) exactness on a weighted variant with zero-weight rows
     zero_rows = [5, 77]
-    adj_w = device_graph.tensors(device_graph.build_adjacency(
-        Graph(**weighted_variant(data, zero_rows, seed)), [0], max_id), dev)
+    graph_w = Graph(**weighted_variant(data, zero_rows, seed))
+    adj_w = device_graph.tensors(
+        device_graph.build_adjacency(graph_w, [0], max_id), dev)
     if bool(adj_w["sampleable"][zero_rows].any()):
         raise AssertionError("zero-weight rows must not be sampleable")
     roots = torch.randint(0, max_id + 1, (m,), generator=gen, device=dev,
@@ -328,7 +359,10 @@ def phase_kernel(seed: int):
               **{k: v for k, v in timed[0].items() if k != "shape"},
               shapes=timed)
     b1["wide"], b2["wide"] = wide
-    check_alias(seed)
+    pl_graph = check_alias(seed)
+    b2["shapes"].append(check_walks(adj, adj_w, sampler, zero_rows, seed,
+                                    flush))
+    check_biased(graph_w, pl_graph, zero_rows, seed)
     return graph, reddit, {"sample_fanout2": b1, "sample_neighbor": b2}
 
 
@@ -488,6 +522,191 @@ def check_alias(seed: int) -> None:
     log(f"(k) philox uniforms: alias draw on CUDA == on CPU at "
         f"[{REDDIT_BATCH}, {f1}] (hop 2) and the [{f1}, {f2}] fanout "
         f"(hops {[int(h.numel()) for h in on_card[1:]]}), no launch")
+    return graph
+
+
+def check_walks(adj, adj_w, sampler, zero_rows, seed: int, flush) -> dict:
+    """Phase 3 (l): ``random_walk`` at node2vec's shape (15,360 walkers,
+    walk_len 5) on the weighted ppi slab held as CUDA tensors equals the
+    same walk over CPU tensors bit for bit (the kernel against its plain
+    version, one Philox stream), from roots led by a negative id, one
+    past the slab, the default row and the zero-weight rows, with exactly
+    one B2 launch a step; then B2 timed at [15,360, 1] on the main path's
+    slab, on step-1 picks of a walk from sampled roots. Returns the
+    timing record."""
+    from euler_tpu_torch.graph import sampling_kernels
+    from euler_tpu_torch.graph import device as device_graph
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 80)
+    max_id = adj["nbr"].shape[0] - 2
+    m, steps = N2V_ROOTS, N2V_WALK_LEN
+    words = device_graph.stream_words(seed + 8080, 0)
+    roots = odd_nodes(m, max_id, zero_rows, gen)
+    before = sampling_kernels.launches["sample_neighbor"]
+    on_card = device_graph.random_walk(adj_w, roots, steps, words)
+    torch.cuda.synchronize()
+    launched = sampling_kernels.launches["sample_neighbor"] - before
+    on_cpu = device_graph.random_walk(
+        {k: v.cpu() for k, v in adj_w.items()}, roots.cpu(), steps, words)
+    if launched != steps:
+        raise AssertionError(f"a {steps}-step walk launched B2 {launched} "
+                             "times")
+    if not torch.equal(on_card.cpu(), on_cpu):
+        raise AssertionError(
+            f"random_walk differs between CUDA and CPU in "
+            f"{int((on_card.cpu() != on_cpu).sum())} picks")
+    if not bool((on_card[:3 + len(zero_rows), 1:] == max_id + 1).all()):
+        raise AssertionError("unknown, default and zero-weight roots must "
+                             "walk the default row")
+    for t in range(steps):
+        check_members(adj_w, on_card[:, t], on_card[:, t + 1:t + 2])
+    log(f"(l) philox uniforms: random_walk on CUDA == on CPU at [{m}, "
+        f"{steps + 1}], {launched} B2 launches, every pick a neighbor")
+
+    nodes = device_graph.random_walk(
+        adj, device_graph.sample_node(sampler, m, generator=gen), 1,
+        words)[:, 1].contiguous()
+    n_rows, width = adj["nbr"].shape
+    probs = torch.diff(adj["cum"], dim=1,
+                       prepend=adj["cum"].new_zeros(n_rows, 1))
+    rows = nodes.long()
+    kern = lambda: sampling_kernels.sample_neighbor(  # noqa: E731
+        adj, nodes, words, 1, hop=1)
+    plain = lambda: sampling_kernels.sample_neighbor_reference(  # noqa: E731
+        adj, nodes, words, 1, hop=1)
+
+    def library():  # one torch.multinomial over the gathered rows
+        idx = torch.multinomial(probs[rows], 1, replacement=True)
+        return adj["nbr"][rows].gather(1, idx)
+
+    t = time_draw(kern, plain, library, m, flush)
+    b = draw_bound(adj, ((nodes, kern()),), m)
+    log(f"(l) sample_neighbor at [{m}, 1], W={width}: {describe(t)}, "
+        f"{describe_bound(b)}")
+    return dict(shape=[m, 1], **t, bound_ms=b["bound_ms"],
+                bound_by=b["bound_by"])
+
+
+def analytic_biased_joint(nbr, cum, deg, root: int, p: float, q: float):
+    """Exact P(c1, c2) of a 2-step node2vec walk from ``root`` over a
+    slab's numpy arrays: step 1 plain weighted, step 2 reweighted by d_tx
+    against the parent ``root`` (1 for a neighbor of the root, which wins
+    on a root self-loop; 1/p for the root; 1/q otherwise)."""
+    def row_probs(v):
+        d = deg[v]
+        w = np.diff(cum[v][:d].astype(np.float64), prepend=0.0)
+        return nbr[v][:d], w / w.sum()
+
+    joint = {}
+    root_nbrs = set(nbr[root][:deg[root]].tolist())
+    for c1, p1 in zip(*row_probs(root)):
+        cands, w2 = row_probs(int(c1))
+        scale = np.array([1.0 if c in root_nbrs
+                          else (1.0 / p if c == root else 1.0 / q)
+                          for c in cands])
+        w2 = w2 * scale / (w2 * scale).sum()
+        for c2, pr in zip(cands, w2):
+            key = (int(c1), int(c2))
+            joint[key] = joint.get(key, 0.0) + p1 * pr
+    return joint
+
+
+def check_biased(graph_w, pl_graph, zero_rows, seed: int) -> None:
+    """Phase 3 (m): the biased walks, plain PyTorch on the card, no kernel
+    launch. ``biased_random_walk`` over the weighted ppi graph's sorted
+    slab: the 2-step joint of 10^5 walkers from one root against
+    ``analytic_biased_joint`` (TVD bound ``TVD_BOUND``), for each (p, q)
+    of ``BIASED_PQ``; then at node2vec's 15,360 walkers and walk_len 5 on
+    CUDA against CPU, where float32 cumsums may round apart: the
+    differing picks are counted and every pick must be a legal
+    transition. ``alias_biased_random_walk`` over the 9,000-node
+    power-law graph's sorted alias tables (64 trials) equals the same
+    walk on CPU tensors bit for bit."""
+    from euler_tpu_torch.graph import sampling_kernels
+    from euler_tpu_torch.graph import device as device_graph
+
+    before = dict(sampling_kernels.launches)
+    max_id = graph_w.max_node_id
+    table = device_graph.build_adjacency(graph_w, [0], max_id, sorted=True)
+    nbr, cum, deg = table["nbr"], table["cum"], table["deg"]
+    # the root: a small joint (few cells for 10^5 draws), every neighbor
+    # a live row; a self-loop root where there is one, so the d_tx = 1
+    # precedence is in the joint
+    live = table["sampleable"] & (deg > 0)
+    real = np.arange(nbr.shape[1])[None, :] < deg[:, None]
+    cells = deg[nbr].sum(1)  # padding is the default row, of degree 0
+    ok = ((deg >= 4) & live & np.where(real, live[nbr], True).all(1)
+          & (cells <= 120))
+    loops = ok & (real & (nbr == np.arange(len(nbr))[:, None])).any(1)
+    pool = np.flatnonzero(loops if loops.any() else ok)
+    root = int(pool[np.argmin(cells[pool])])
+    gpu = device_graph.tensors(table, "cuda")
+    cpu = device_graph.tensors(table, "cpu")
+    n = BIASED_WALKERS
+    n_rows = max_id + 2
+    for i, (p, q) in enumerate(BIASED_PQ):
+        walks = device_graph.biased_random_walk(
+            gpu, torch.full((n,), root, dtype=torch.int32, device="cuda"), 2,
+            p, q, device_graph.seed_words(seed + 90 + i))
+        keys, counts = torch.unique(walks[:, 1].long() * n_rows
+                                    + walks[:, 2].long(), return_counts=True)
+        seen = {(int(k) // n_rows, int(k) % n_rows): int(c) / n
+                for k, c in zip(keys.cpu(), counts.cpu())}
+        want = analytic_biased_joint(nbr, cum, deg, root, p, q)
+        if set(seen) - set(want):
+            raise AssertionError(f"illegal 2-step transitions from {root}: "
+                                 f"{sorted(set(seen) - set(want))[:5]}")
+        tvd = 0.5 * sum(abs(seen.get(k, 0.0) - v) for k, v in want.items())
+        log(f"(m) biased_random_walk (p, q) = ({p}, {q}) from root {root} "
+            f"(degree {deg[root]}, self-loop "
+            f"{bool((nbr[root, :deg[root]] == root).any())}, {len(want)} "
+            f"cells): {n} walkers, TVD {tvd:.5f} (bound {TVD_BOUND})")
+        if not tvd < TVD_BOUND:
+            raise AssertionError(f"biased walk TVD {tvd} >= {TVD_BOUND}")
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 91)
+    roots = odd_nodes(N2V_ROOTS, max_id, zero_rows, gen)
+    words = device_graph.stream_words(seed + 9191, 0)
+    for p, q in BIASED_PQ:
+        a = device_graph.biased_random_walk(gpu, roots, N2V_WALK_LEN, p, q,
+                                            words)
+        b = device_graph.biased_random_walk(cpu, roots.cpu(), N2V_WALK_LEN,
+                                            p, q, words)
+        for t in range(N2V_WALK_LEN):
+            check_members(gpu, a[:, t], a[:, t + 1:t + 2])
+        differ = int((a.cpu() != b).sum())
+        log(f"(m) biased_random_walk (p, q) = ({p}, {q}) at "
+            f"[{N2V_ROOTS}, {N2V_WALK_LEN + 1}] on CUDA against CPU: "
+            f"{differ} of {b.numel()} picks differ (float32 cumsum "
+            f"rounding), every CUDA pick a legal transition")
+
+    max_id = pl_graph.max_node_id
+    t0 = time.perf_counter()
+    table = device_graph.build_alias_adjacency(pl_graph, [0], max_id,
+                                               sorted=True)
+    gpu = device_graph.tensors(table, "cuda")
+    cpu = device_graph.tensors(table, "cpu")
+    hubs = np.argsort(table["deg"])[-4:].tolist()
+    roots = odd_nodes(4096, max_id, hubs, gen)
+    words = device_graph.stream_words(seed + 9292, 0)
+    for p, q in BIASED_PQ:
+        a = device_graph.alias_biased_random_walk(gpu, roots, N2V_WALK_LEN,
+                                                  p, q, seed_words=words)
+        b = device_graph.alias_biased_random_walk(
+            cpu, roots.cpu(), N2V_WALK_LEN, p, q, seed_words=words)
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(
+                f"alias_biased_random_walk (p, q) = ({p}, {q}) differs "
+                f"between CUDA and CPU in {int((a.cpu() != b).sum())} picks")
+        log(f"(m) philox uniforms: alias_biased_random_walk (p, q) = ({p}, "
+            f"{q}), {device_graph.DEFAULT_WALK_TRIALS} trials, on CUDA == on "
+            f"CPU at [4096, {N2V_WALK_LEN + 1}] over sorted alias tables "
+            f"(max degree {table['deg'].max()}, "
+            f"{table['bisect_steps'].shape[0]} bisection steps)")
+    torch.cuda.synchronize()
+    if sampling_kernels.launches != before:
+        raise AssertionError("a biased walk launched a kernel")
+    log(f"(m) no kernel launched; alias part {time.perf_counter() - t0:.2f} s")
 
 
 def wide_slab(n_rows: int, width: int, seed: int) -> dict:
@@ -783,15 +1002,43 @@ def table_bytes(consts) -> int:
     return consts.numel() * consts.element_size()
 
 
+def replay_loss(state, batch: int) -> float:
+    """The mean loss of the first chunk's batches under ``state``, without
+    a step: ``train.make_scan_train``'s draws for seed 0 (roots from a
+    generator seeded 0, step i's draws keyed by i), replayed."""
+    from euler_tpu_torch.graph import device as device_graph
+
+    sampler = state["consts"]["roots"]
+    gen = torch.Generator(device=sampler["ids"].device).manual_seed(0)
+    losses = []
+    with torch.no_grad():
+        for i in range(CHUNK_STEPS):
+            roots = device_graph.sample_node(sampler, batch, generator=gen)
+            losses.append(state["module"]({"roots": roots, "seed": i},
+                                          state["consts"]).loss)
+    return float(torch.stack(losses).mean())
+
+
 def train_full(model, graph, seed: int, smi: str, name: str,
                edges_per_step: int, edges_note: str, lr: float = PPI_LR,
-               batch: int = PPI_BATCH) -> dict:
+               batch: int = PPI_BATCH, pairs_per_step: int = 0,
+               fresh_loss_falls: bool = True) -> dict:
     """Train ``model`` at full width through ``train.make_scan_train``: a
     warmup chunk, then TIMED_CHUNKS timed chunks. Prints the tables'
-    bytes on the card and the peak of allocated device memory. The launch
-    counts are set to 0 just before and read just after; returns them.
-    Raises unless the losses are finite and fall from the first chunk to
-    the last."""
+    bytes on the card, the peak of allocated device memory, the kernel
+    launches a step and, for the walk models, the skip-gram pairs a step
+    and their rate. The launch counts are set to 0 just before and read
+    just after; returns them. Raises unless the losses are finite and
+    fall from the first chunk to the last.
+
+    The walk models (``pairs_per_step``) also replay the first chunk's
+    batches before and after training (``replay_loss``, outside the
+    counted run), and their loss must fall. ``fresh_loss_falls=False``
+    keeps only that check: LINE at ``run_loop``'s defaults draws 512 roots
+    a step from 56,944 nodes, so in 100 steps a node is a root less than
+    once, and the loss of fresh batches need not fall (it rises by about
+    0.1% on the CPU, as the JAX package's steps, which the port's
+    match)."""
     from euler_tpu_torch import train
     from euler_tpu_torch.graph import sampling_kernels
 
@@ -805,6 +1052,7 @@ def train_full(model, graph, seed: int, smi: str, name: str,
         f"{table_bytes(state['consts'])} B, of which adjacency "
         f"{table_bytes(state['consts']['adj'])} B")
     scan = train.make_scan_train(model, CHUNK_STEPS, batch)
+    replayed = [replay_loss(state, batch)] if pairs_per_step else []
     for k in sampling_kernels.launches:
         sampling_kernels.launches[k] = 0
     state, first = scan(state, 0)  # warmup chunk
@@ -823,12 +1071,26 @@ def train_full(model, graph, seed: int, smi: str, name: str,
         f"{[round(float(x), 5) for x in all_losses.mean(1)]}")
     if not bool(torch.isfinite(all_losses).all()):
         raise AssertionError(f"{name}: non-finite training loss")
-    if not float(all_losses[-1].mean()) < float(all_losses[0].mean()):
+    falls = float(all_losses[-1].mean()) < float(all_losses[0].mean())
+    if fresh_loss_falls and not falls:
         raise AssertionError(
             f"{name}: loss did not fall from the first chunk to the last")
+    if replayed:
+        replayed.append(replay_loss(state, batch))
+        log(f"{name} first chunk's batches replayed: mean loss "
+            f"{replayed[0]:.5f} at init, {replayed[1]:.5f} after "
+            f"{steps} steps; fresh batches' loss fell: {falls}")
+        if not replayed[1] < replayed[0]:
+            raise AssertionError(f"{name}: the loss of the batches it "
+                                 "trained on did not fall")
     step_ms = dt / (CHUNK_STEPS * TIMED_CHUNKS) * 1e3
-    log(f"{name} train: {steps} steps, launches {launches}, step "
-        f"{step_ms:.4f} ms, {edges_per_step / step_ms * 1e3:.1f} edges/s "
+    pairs = (f", {pairs_per_step} pairs/step, "
+             f"{pairs_per_step / step_ms * 1e3:.1f} pairs/s"
+             if pairs_per_step else "")
+    per_step = {k: v / steps for k, v in launches.items()}
+    log(f"{name} train: {steps} steps, launches {launches} ({per_step} a "
+        f"step), step {step_ms:.4f} ms, {edges_per_step} edges/step, "
+        f"{edges_per_step / step_ms * 1e3:.1f} edges/s{pairs} "
         f"({edges_note}; timed {CHUNK_STEPS * TIMED_CHUNKS} steps after a "
         f"warmup chunk; max_memory_allocated "
         f"{torch.cuda.max_memory_allocated()} B; card: {smi})")
@@ -836,7 +1098,7 @@ def train_full(model, graph, seed: int, smi: str, name: str,
 
 
 def phase_train(graph, reddit, seed: int, smi: str) -> dict:
-    """The five main paths; returns {path: {"steps", "launches"}}."""
+    """The nine main paths; returns {path: {"steps", "launches"}}."""
     log("== phase 4: train")
     from euler_tpu_torch.datasets import build_synthetic
     from euler_tpu_torch.graph import Graph
@@ -882,8 +1144,94 @@ def phase_train(graph, reddit, seed: int, smi: str) -> dict:
         raise AssertionError(
             f"graphsage launches {runs['graphsage']['launches']}, expected "
             f"{expect}")
-    runs.update(train_reddit(reddit, seed, smi))
+    runs.update(train_walks(graph, small, seed, smi))
+    reddit_runs, heavy = train_reddit(reddit, seed, smi)
+    runs.update(reddit_runs)
+    runs.update(train_walk_heavytail(heavy, seed, smi))
     return runs
+
+
+def node2vec(max_id: int, dim: int, p: float = 1.0, q: float = 1.0,
+             alias: bool = False):
+    """``run_loop --model node2vec --device_sampling``'s model: all node
+    types, the graph's one edge type, dim ``dim``, id embeddings of
+    max_id+2 rows (combiner add), walk_len 5, windows 5/5, 5 negatives,
+    sigmoid cross-entropy; over sorted alias tables when ``alias``."""
+    from euler_tpu_torch.models import Node2Vec
+
+    model = Node2Vec(
+        node_type=-1, edge_type=[0], max_id=max_id, dim=dim,
+        walk_len=N2V_WALK_LEN, walk_p=p, walk_q=q, left_win_size=N2V_WINDOW,
+        right_win_size=N2V_WINDOW, num_negs=SAGE_NEGS, xent_loss=True,
+        device_sampling=True)
+    if model.batch_size_ratio * PPI_BATCH != N2V_ROOTS:
+        raise AssertionError(f"node2vec pairs a root: "
+                             f"{model.batch_size_ratio}, expected 30")
+    if alias:
+        model.set_sampling_options(alias=True)
+    return model
+
+
+def line(max_id: int, dim: int):
+    """``run_loop --model line``'s model: order 1, dim ``dim``, 5
+    negatives, sigmoid cross-entropy, id embeddings."""
+    from euler_tpu_torch.models import LINE
+
+    return LINE(node_type=-1, edge_type=[0], max_id=max_id, dim=dim,
+                order=1, num_negs=SAGE_NEGS, xent_loss=True,
+                device_sampling=True)
+
+
+def train_walks(graph, small, seed: int, smi: str) -> dict:
+    """The walk models on the ppi graph, each after a CPU/CUDA agreement
+    on the small graph where it has one: node2vec (five B2 launches a
+    step, at [15,360, 1]), node2vec_biased (the sorted slab, no kernel)
+    and line (one B2 launch a step, at [512, 1])."""
+    max_id = graph.max_node_id
+    edges = N2V_ROOTS * N2V_WALK_LEN
+    pairs = N2V_ROOTS * 30
+    note = f"{N2V_ROOTS} walks of {N2V_WALK_LEN} edges, 30 pairs a root"
+    runs = {}
+    agree_cpu_cuda(node2vec(small.max_node_id, 32), small, seed, "node2vec")
+    runs["node2vec"] = train_full(
+        node2vec(max_id, PPI_DIM), graph, seed, smi, "node2vec", edges, note,
+        batch=N2V_ROOTS, pairs_per_step=pairs)
+    runs["node2vec_biased"] = train_full(
+        node2vec(max_id, PPI_DIM, *BIASED_PQ[0]), graph, seed, smi,
+        "node2vec_biased", edges, note, batch=N2V_ROOTS,
+        pairs_per_step=pairs)
+    agree_cpu_cuda(line(small.max_node_id, 32), small, seed, "line")
+    runs["line"] = train_full(
+        line(max_id, PPI_DIM), graph, seed, smi, "line", PPI_BATCH,
+        f"{PPI_BATCH} positive edges", pairs_per_step=PPI_BATCH,
+        fresh_loss_falls=False)
+    for name, b2 in (("node2vec", N2V_WALK_LEN), ("node2vec_biased", 0),
+                     ("line", 1)):
+        steps = runs[name]["steps"]
+        expect = {"sample_fanout2": 0, "sample_neighbor": b2 * steps}
+        if runs[name]["launches"] != expect:
+            raise AssertionError(f"{name} launches {runs[name]['launches']}, "
+                                 f"expected {expect}")
+    return runs
+
+
+def train_walk_heavytail(graph, seed: int, smi: str) -> dict:
+    """node2vec_biased's recipe on the heavy-tail graph that
+    reddit_heavytail trained on (not built again), over its sorted alias
+    tables: the exact rejection walk, 64 trials a step and 16-step
+    bisection, no kernel."""
+    t0 = time.perf_counter()
+    run = train_full(
+        node2vec(graph.max_node_id, PPI_DIM, *BIASED_PQ[0], alias=True),
+        graph, seed, smi, "node2vec_heavytail", N2V_ROOTS * N2V_WALK_LEN,
+        f"{N2V_ROOTS} walks of {N2V_WALK_LEN} edges, 30 pairs a root",
+        batch=N2V_ROOTS, pairs_per_step=N2V_ROOTS * 30)
+    expect = {"sample_fanout2": 0, "sample_neighbor": 0}
+    if run["launches"] != expect:
+        raise AssertionError(f"node2vec_heavytail launches "
+                             f"{run['launches']}, expected {expect}")
+    log(f"node2vec_heavytail path: {time.perf_counter() - t0:.1f} s")
+    return {"node2vec_heavytail": run}
 
 
 def reddit_sage(max_id: int, feature_dtype=None, alias: bool = False):
@@ -904,11 +1252,12 @@ def reddit_sage(max_id: int, feature_dtype=None, alias: bool = False):
     return model
 
 
-def train_reddit(reddit, seed: int, smi: str) -> dict:
+def train_reddit(reddit, seed: int, smi: str):
     """bench.py's reddit, reddit_bf16 and reddit_heavytail configs, each
     after a CPU/CUDA agreement on a small graph: B1 once per step on the
     synthetic graph's slab (float32 and bfloat16 feature tables), no
-    kernel on the heavy-tail graph's alias tables."""
+    kernel on the heavy-tail graph's alias tables. Returns the runs and
+    the heavy-tail graph."""
     from euler_tpu_torch.datasets import (REDDIT, REDDIT_HEAVYTAIL,
                                           build_powerlaw, build_synthetic)
     from euler_tpu_torch.graph import Graph
@@ -956,7 +1305,7 @@ def train_reddit(reddit, seed: int, smi: str) -> dict:
             raise AssertionError(f"{name} launches {runs[name]['launches']}, "
                                  f"expected {expect}")
         log(f"{name} path: {time.perf_counter() - t_path:.1f} s")
-    return runs
+    return runs, graph
 
 
 def main() -> int:
@@ -981,7 +1330,7 @@ def main() -> int:
             tpu_kernel="_fanout2_kernel"),
         "sample_neighbor": dict(
             source="euler_tpu_torch/csrc/sample_neighbor.cu",
-            replaces="euler_tpu/graph/pallas_sampling.py:370",
+            replaces="euler_tpu/graph/pallas_sampling.py:302",
             tpu_kernel="_kernel"),
     }
     kernels = []

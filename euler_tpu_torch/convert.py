@@ -29,15 +29,34 @@ def _encoder(enc, prefix: str) -> dict:
     return sd
 
 
+def _shallow(enc, prefix: str) -> dict:
+    """A ShallowEncoder: ``Embedding_0/embeddings`` is the id table as it
+    stands ([num, dim] on both sides), ``Dense_0/Dense_0/kernel`` the
+    features' Dense ("add") or the projection ("concat")."""
+    sd = {}
+    if "Embedding_0" in enc:
+        sd[f"{prefix}.embedding.embeddings"] = torch.from_numpy(
+            np.array(enc["Embedding_0"]["embeddings"]))
+    if "Dense_0" in enc:
+        sd[f"{prefix}.dense.linear.weight"] = _kernel(
+            enc["Dense_0"]["Dense_0"]["kernel"])
+    return sd
+
+
 def params_from_flax(params) -> dict:
-    """State dict of a port GraphSAGE module from the params tree of its
-    flax counterpart (nested dicts of arrays): the SageEncoder towers
-    ``encoder`` (and ``context_encoder`` of the unsupervised module) and,
-    for the supervised module, the classifier ``predict/{kernel,bias}``."""
+    """State dict of a port module from the params tree of its flax
+    counterpart (nested dicts of arrays): the SageEncoder towers
+    ``encoder`` (and ``context_encoder`` of the unsupervised module), for
+    the supervised module the classifier ``predict/{kernel,bias}``, and
+    for LINE and Node2Vec the ShallowEncoders ``target`` (and
+    ``context``)."""
     sd = {}
     for tower in ("encoder", "context_encoder"):
         if tower in params:
             sd.update(_encoder(params[tower], tower))
+    for tower in ("target", "context"):
+        if tower in params:
+            sd.update(_shallow(params[tower], tower))
     if "predict" in params:
         sd["predict.linear.weight"] = _kernel(params["predict"]["kernel"])
         sd["predict.linear.bias"] = torch.from_numpy(

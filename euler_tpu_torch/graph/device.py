@@ -25,6 +25,12 @@ PyTorch on those tensors, with the JAX package's semantics:
   hop through ``neighbor_draw``: ``sampling_kernels.sample_neighbor`` for
   a slab (the hand-written Hopper kernels on CUDA tensors), the alias
   draw for an alias table.
+- ``random_walk`` chains ``neighbor_draw`` one step at a time (over a
+  slab on CUDA tensors, one single-hop kernel launch a step);
+  ``biased_random_walk`` (node2vec's p/q over id-sorted slabs,
+  ``sorted=True``) and ``alias_biased_random_walk`` (the exact rejection
+  walk over id-sorted alias tables) are plain PyTorch on every device,
+  as the JAX package runs them outside any kernel.
 
 Randomness: every draw takes injected uniforms (``u=``) so tests can
 replay the JAX package's threefry uniforms bit for bit. Without them the
@@ -44,10 +50,12 @@ import numpy as np
 import torch
 
 
-def _fetch_flat_csr(graph, edge_types, max_id: int, chunk: int):
+def _fetch_flat_csr(graph, edge_types, max_id: int, chunk: int,
+                    sorted: bool = False):
     """Chunked full-neighbor export: (counts [N+2] int64, nbr_flat int64,
     w_flat float32 contiguous, offsets [N+3] int64 with offsets[-1] ==
-    len(nbr_flat)). Row max_id+1 (the default row) is always empty."""
+    len(nbr_flat)). Row max_id+1 (the default row) is always empty.
+    ``sorted`` merges each row's edge types by id."""
     n_rows = max_id + 2
     et = list(edge_types)
     counts_all = np.zeros(n_rows, dtype=np.int64)
@@ -55,7 +63,7 @@ def _fetch_flat_csr(graph, edge_types, max_id: int, chunk: int):
     w_parts: list[np.ndarray] = []
     for lo in range(0, max_id + 1, chunk):
         ids = np.arange(lo, min(lo + chunk, max_id + 1), dtype=np.int64)
-        nbr, w, _, counts = graph.get_full_neighbor(ids, et)
+        nbr, w, _, counts = graph.get_full_neighbor(ids, et, sorted=sorted)
         counts_all[lo:lo + len(ids)] = counts
         nbr_parts.append(nbr)
         w_parts.append(w)
@@ -76,6 +84,8 @@ def build_adjacency(
     max_id: int,
     max_degree: int | None = None,
     chunk: int = 65536,
+    sorted: bool = False,
+    _prefetched=None,
 ) -> dict:
     """Export the adjacency restricted to ``edge_types`` as slabs.
 
@@ -83,11 +93,19 @@ def build_adjacency(
     int32, "sampleable": [N+2] bool} with N = max_id + 1; W = observed max
     degree, or the ``max_degree`` cap (rows beyond it keep their W
     heaviest neighbors, renormalized, with a warning). Rows whose weights
-    sum to 0 keep their neighbors but are not ``sampleable``."""
+    sum to 0 keep their neighbors but are not ``sampleable``.
+
+    ``sorted=True`` exports id-ordered rows, the precondition of
+    ``biased_random_walk``'s membership search: a truncated row keeps its
+    heaviest W neighbors in id order, and padding is the default id, the
+    largest, so whole rows ascend. ``_prefetched`` is a
+    ``_fetch_flat_csr`` result to build from (the truncation guard in
+    ``Model.add_sampling_consts`` fetches once for both builders)."""
     n_rows = max_id + 2
     default = max_id + 1
-    counts_all, nbr_flat, w_flat, offsets = _fetch_flat_csr(
-        graph, edge_types, max_id, chunk
+    counts_all, nbr_flat, w_flat, offsets = (
+        _prefetched if _prefetched is not None
+        else _fetch_flat_csr(graph, edge_types, max_id, chunk, sorted=sorted)
     )
 
     W = int(counts_all.max()) if len(counts_all) else 0
@@ -127,6 +145,8 @@ def build_adjacency(
         nb = nbr_flat[offsets[i]:offsets[i + 1]]
         wt = w_flat[offsets[i]:offsets[i + 1]]
         sel = np.argsort(wt)[::-1][:W]
+        if sorted:  # the heaviest W, in id order
+            sel = np.sort(sel)
         nb, wt = nb[sel], wt[sel]
         total = wt.sum()
         if total <= 0:
@@ -249,7 +269,8 @@ def _build_alias_rows(offsets: np.ndarray, weights: np.ndarray):
 
 
 def build_alias_adjacency(graph, edge_types, max_id: int,
-                          chunk: int = 65536) -> dict:
+                          chunk: int = 65536, sorted: bool = False,
+                          _prefetched=None) -> dict:
     """Export the adjacency restricted to ``edge_types`` as exact
     flat-CSR alias tables: every neighbor kept, no ``max_degree`` cap, 12
     bytes an edge (1.38 GB at Reddit's 114.6M edges).
@@ -258,14 +279,17 @@ def build_alias_adjacency(graph, edge_types, max_id: int,
     [E] int32, "alias": [E] int32 (global ids, so a draw needs no second
     hop through the row), "prob": [E] float32, "sampleable": [N+2] bool,
     "bisect_steps": [max(bit_length(max degree), 1)] int8 zeros, kept for
-    the JAX package's layout} with N = max_id + 1. Unknown ids, the
-    default row and rows of zero total weight draw the default node. The
-    id-sorted variant (``sorted=True`` in the JAX package) serves the
-    biased walks and comes with them."""
+    the rejection walk's bisection depth} with N = max_id + 1. Unknown
+    ids, the default row and rows of zero total weight draw the default
+    node. ``sorted=True`` exports id-sorted rows, the precondition of
+    ``alias_biased_random_walk``'s membership bisection (the alias draw
+    itself does not care about order); with one edge type the rows are
+    sorted either way. ``_prefetched`` as in ``build_adjacency``."""
     n_rows = max_id + 2
     default = max_id + 1
-    counts_all, nbr_flat, w_flat, offsets = _fetch_flat_csr(
-        graph, edge_types, max_id, chunk
+    counts_all, nbr_flat, w_flat, offsets = (
+        _prefetched if _prefetched is not None
+        else _fetch_flat_csr(graph, edge_types, max_id, chunk, sorted=sorted)
     )
     e = len(nbr_flat)
     if e >= 1 << 31:
@@ -371,14 +395,20 @@ def philox_uniform(seed_words, hop: int, rows: int, cols: int,
     return _top24(_philox_grid(seed_words, hop, rows, cols, device)[0])
 
 
-def philox_uniform2(seed_words, hop: int, rows: int, cols: int,
+def philox_uniforms(seed_words, hop: int, rows: int, cols: int, n: int,
                     device=None):
-    """Two [rows, cols] float32 uniforms from one Philox call: words 0 and
-    1 at the same counter (row, column, hop, 0), each cut as in
-    ``philox_uniform`` (whose numbers are the first). The alias draw's
-    slot and coin."""
+    """``n`` (up to four) [rows, cols] float32 uniforms from one Philox
+    call: words 0..n-1 at the same counter (row, column, hop, 0), each cut
+    as in ``philox_uniform`` (whose numbers are the first). The alias
+    draw takes two (slot and coin), the rejection walk three (slot, coin
+    and accept)."""
     x = _philox_grid(seed_words, hop, rows, cols, device)
-    return _top24(x[0]), _top24(x[1])
+    return tuple(_top24(w) for w in x[:n])
+
+
+def _default_clamped(nodes, default: int):
+    """Negative and past-the-table ids sent to the default row."""
+    return torch.where(nodes < 0, default, nodes.clamp(max=default))
 
 
 def _bisect_first_ge(cum, lo, hi, u, steps: int):
@@ -433,20 +463,20 @@ def _alias_sample_neighbor(adj: dict, nodes, count: int, seed_words=None,
     Negative and unknown ids draw from the default row; unsampleable and
     empty rows, and every draw of a table with no edges, yield the default
     node. ``u`` = (u1, u2), each [len(nodes), count] float32, replaces
-    ``philox_uniform2(seed_words, hop, ...)``."""
+    ``philox_uniforms(seed_words, hop, ..., 2)``."""
     off = adj["off"]
     dev = off.device
     n_rows = off.shape[0]
     default = n_rows - 1
     flat = nodes.reshape(-1)
-    flat = torch.where(flat < 0, default, flat.clamp(max=default)).long()
+    flat = _default_clamped(flat, default).long()
     m = flat.shape[0]
     e = adj["prob"].shape[0]
     if e == 0:  # no edges of these types at all: everything defaults
         return torch.full((*nodes.shape, count), default, dtype=torch.int32,
                           device=dev)
     if u is None:
-        u1, u2 = philox_uniform2(seed_words, hop, m, count, device=dev)
+        u1, u2 = philox_uniforms(seed_words, hop, m, count, 2, device=dev)
     else:
         u1, u2 = (torch.as_tensor(x, dtype=torch.float32, device=dev)
                   .reshape(m, count) for x in u)
@@ -476,7 +506,7 @@ def sample_neighbor(adj: dict, nodes, count: int, seed_words=None,
     nbr, cum = adj["nbr"], adj["cum"]
     n_rows, width = nbr.shape
     flat = nodes.reshape(-1)
-    flat = torch.where(flat < 0, n_rows - 1, flat.clamp(max=n_rows - 1))
+    flat = _default_clamped(flat, n_rows - 1)
     m = flat.shape[0]
     if u is None:
         u = philox_uniform(seed_words, hop, m, count, device=nbr.device)
@@ -541,3 +571,183 @@ def sample_fanout(adjs, roots, counts, seed_words=None, u=None):
         cur = cur.reshape(-1)
         out.append(cur)
     return out
+
+
+# ---- walks ----
+
+
+def random_walk(adj, roots, walk_len: int, seed_words=None, u=None):
+    """[len(roots), walk_len+1] int32 walks (column 0 = the roots as
+    given). Step i is one ``neighbor_draw(adj_i, cur, 1, seed_words,
+    hop=i)``: over a slab held as CUDA tensors one launch of the
+    single-hop kernel at [M, 1], over an alias table the plain alias draw.
+    Dead ends (and unknown ids) chain into the default row and stay there.
+
+    ``adj`` is one table, or a list of ``walk_len`` tables (the metapath
+    form). ``u`` holds one injected uniform per step ([M, 1], or the pair
+    (u1, u2) for an alias table) in place of the Philox stream."""
+    adjs = list(adj) if isinstance(adj, (list, tuple)) else [adj] * walk_len
+    if len(adjs) != walk_len:
+        raise ValueError(f"metapath walk needs {walk_len} per-step "
+                         f"adjacencies, got {len(adjs)}")
+    u = [None] * walk_len if u is None else list(u)
+    cur = roots.reshape(-1).to(torch.int32)
+    cols = [cur]
+    for i in range(walk_len):
+        cur = neighbor_draw(adjs[i], cur, 1, seed_words, hop=i,
+                            u=u[i]).reshape(-1)
+        cols.append(cur)
+    return torch.stack(cols, dim=1)
+
+
+def biased_random_walk(adj, roots, walk_len: int, p: float, q: float,
+                       seed_words=None, u=None):
+    """[len(roots), walk_len+1] int32 node2vec-biased walks over an
+    id-sorted slab (``build_adjacency(..., sorted=True)``), plain PyTorch
+    on every device: the reference's ``BuildWeights`` scales a candidate's
+    weight by 1 when it is a neighbor of the parent (d_tx = 1), else by
+    1/p when it is the parent (d_tx = 0), else by 1/q, then draws over
+    the rescaled row. On a parent self-loop d_tx = 1 wins, as the
+    reference merge's branch order has it.
+
+    The membership test searches each candidate in the parent's sorted
+    row (``torch.searchsorted``, left side, row by row). Step 0 has no
+    parent and takes the plain weighted draw over the row, here (not the
+    single-hop kernel, as the JAX function does not take
+    ``sample_neighbor`` there). Dead ends and unknown ids chain into the
+    default row. Step i's uniforms are ``philox_uniform(seed_words, i,
+    M, 1)``, or ``u[i]`` ([M, 1]) when injected."""
+    nbr, cum = adj["nbr"], adj["cum"]
+    deg, sampleable = adj["deg"], adj["sampleable"]
+    n_rows, width = nbr.shape
+    default = n_rows - 1
+    roots = roots.reshape(-1).to(torch.int32)
+    m = roots.shape[0]
+    cur = _default_clamped(roots, default).long()
+    parent = torch.full_like(cur, default)
+    prow = None  # the parent's row: the previous step's candidates
+    slot = torch.arange(width, device=nbr.device)
+    # 1/p and 1/q rounded to float32, as the JAX package's scales are
+    scales = (float(np.float32(1.0 / p)), float(np.float32(1.0 / q)))
+    cols = [roots]
+    for step in range(walk_len):
+        cand = nbr.index_select(0, cur)                      # [M, W]
+        c = cum.index_select(0, cur)
+        w = torch.cat([c[:, :1], c[:, 1:] - c[:, :-1]], dim=1)
+        w = w * (slot[None, :] < deg.index_select(0, cur)[:, None])
+        w = w * sampleable.index_select(0, cur)[:, None]
+        if prow is not None:
+            pos = torch.searchsorted(prow, cand)
+            hit = prow.gather(1, pos.clamp(max=width - 1)) == cand
+            in_parent = hit & (pos < deg.index_select(0, parent)[:, None])
+            is_parent = cand == parent[:, None]
+            w = w * torch.where(
+                in_parent, 1.0, torch.where(is_parent, *scales))
+        cw = torch.cumsum(w, dim=1)
+        total = cw[:, -1:]
+        cw = cw / total.clamp(min=1e-30)
+        us = (philox_uniform(seed_words, step, m, 1, device=nbr.device)
+              if u is None else torch.as_tensor(
+                  u[step], dtype=torch.float32,
+                  device=nbr.device).reshape(m, 1))
+        idx = (us >= cw).sum(1).clamp(max=width - 1)
+        nxt = cand.gather(1, idx[:, None])[:, 0]
+        nxt = torch.where(total[:, 0] > 0, nxt, default)
+        parent, cur, prow = cur, nxt.long(), cand
+        cols.append(nxt)
+    return torch.stack(cols, dim=1)
+
+
+DEFAULT_WALK_TRIALS = 64  # the rejection walk's proposals a step: at the
+# worst realistic node2vec point (p or q = 1/4, envelope 4) acceptance is
+# at least 1/16, so (1 - 1/16)^64, about 1.6% of steps, fall back to the
+# first (unbiased) proposal; p and q near 1 accept at once.
+
+
+def _alias_biased_step(adj, cur, parent, p: float, q: float, trials: int,
+                       u):
+    """One exact node2vec-biased transition over full neighbor lists:
+    ``trials`` proposals from the current node's alias row (u1 the slot,
+    u2 the alias coin), each accepted with probability s/M (u3), where s
+    is the reference's d_tx scale (1 for a neighbor of the parent, which
+    wins on a parent self-loop; 1/p for the parent; 1/q otherwise) and
+    M = max(1/p, 1, 1/q). Accepted proposals are distributed as w * s
+    exactly; when every trial is rejected, the walker takes its first
+    proposal. Membership bisects the parent's id-sorted CSR row
+    (``build_alias_adjacency(..., sorted=True)``) to the table's
+    ``bisect_steps`` depth. ``u`` = (u1, u2, u3), each [len(cur),
+    trials] float32. Returns [len(cur)] int32 next nodes."""
+    off, deg_t, prob = adj["off"], adj["deg"], adj["prob"]
+    nbrs, alias = adj["nbr"], adj["alias"]
+    default = off.shape[0] - 1
+    e = prob.shape[0]
+    b = cur.shape[0]
+    if e == 0:
+        return torch.full((b,), default, dtype=torch.int32, device=off.device)
+    u1, u2, u3 = (torch.as_tensor(x, dtype=torch.float32, device=off.device)
+                  .reshape(b, trials) for x in u)
+    deg = deg_t.index_select(0, cur)[:, None]                 # int32 [b, 1]
+    j = torch.minimum((u1 * deg).to(torch.int32), (deg - 1).clamp(min=0))
+    slot = (off.index_select(0, cur)[:, None].long() + j).clamp(max=e - 1)
+    cand = torch.where(u2 < prob[slot], nbrs[slot], alias[slot])
+    # first flat index in [plo, phi) of the parent's row with nbr >= cand
+    plo = off.index_select(0, parent).long()
+    phi = plo + deg_t.index_select(0, parent).long()
+    plo, phi = (x[:, None].expand(b, trials) for x in (plo, phi))
+    pos = _bisect_first_ge(nbrs, plo, phi, cand,
+                           int(adj["bisect_steps"].shape[0]))
+    hit = (nbrs[pos.clamp(0, e - 1)] == cand) & (pos < phi)
+    is_parent = cand == parent[:, None]
+    # s/M divided in float32, as the JAX package divides its float32 s
+    m = np.float32(max(1.0 / p, 1.0, 1.0 / q))
+    t_hit, t_parent, t_other = (float(np.float32(s) / m)
+                                for s in (1.0, 1.0 / p, 1.0 / q))
+    accept = u3 < torch.where(hit, t_hit,
+                              torch.where(is_parent, t_parent, t_other))
+    # the first accepted trial; none accepted -> argmax 0, the first
+    first = accept.to(torch.uint8).argmax(dim=1)
+    pick = cand.gather(1, first[:, None])[:, 0]
+    ok = adj["sampleable"].index_select(0, cur) & (deg[:, 0] > 0)
+    return torch.where(ok, pick, default)
+
+
+def alias_biased_random_walk(adj, roots, walk_len: int, p: float, q: float,
+                             trials: int | None = None, seed_words=None,
+                             u=None):
+    """[len(roots), walk_len+1] int32 node2vec-biased walks drawn exactly
+    over full neighbor lists, the heavy-tail form of
+    ``biased_random_walk``: proposals from id-sorted alias tables
+    (``build_alias_adjacency(..., sorted=True)``), rejection-corrected to
+    the d_tx-scaled distribution (``_alias_biased_step``). Plain PyTorch
+    on every device; no kernel.
+
+    Unknown ids walk from the default row (column 0 holds them clamped,
+    as in the JAX function). Step 0 has no parent and is the plain alias
+    draw at hop 0; dead ends chain into the default row. ``trials``
+    bounds a step's proposals (default ``DEFAULT_WALK_TRIALS``). Step i
+    >= 1 takes ``philox_uniforms(seed_words, i, M, trials, 3)``: words 0, 1
+    and 2 at counter (walker, trial, i, 0). ``u`` injects one entry a
+    step instead: (u1, u2) [M, 1] for step 0, (u1, u2, u3) [M, trials]
+    after it."""
+    if trials is None:
+        trials = DEFAULT_WALK_TRIALS
+    default = adj["off"].shape[0] - 1
+    dev = adj["off"].device
+    cur = _default_clamped(roots.reshape(-1).to(torch.int32), default)
+    m = cur.shape[0]
+    parent = torch.full_like(cur, default)
+    u = [None] * walk_len if u is None else list(u)
+    cols = [cur]
+    for step in range(walk_len):
+        if step == 0:
+            nxt = _alias_sample_neighbor(adj, cur, 1, seed_words, hop=0,
+                                         u=u[0])[:, 0]
+        else:
+            us = (u[step] if u[step] is not None else
+                  philox_uniforms(seed_words, step, m, trials, 3,
+                                  device=dev))
+            nxt = _alias_biased_step(adj, cur.long(), parent.long(), p, q,
+                                     trials, us)
+        parent, cur = cur, nxt
+        cols.append(cur)
+    return torch.stack(cols, dim=1)

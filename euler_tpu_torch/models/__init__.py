@@ -2,5 +2,7 @@
 
 from euler_tpu_torch.models.base import Model, ModelOutput
 from euler_tpu_torch.models.graphsage import GraphSage, SupervisedGraphSage
+from euler_tpu_torch.models.shallow import LINE, Node2Vec
 
-__all__ = ["GraphSage", "Model", "ModelOutput", "SupervisedGraphSage"]
+__all__ = ["GraphSage", "LINE", "Model", "ModelOutput", "Node2Vec",
+           "SupervisedGraphSage"]

@@ -72,7 +72,7 @@ class _SupervisedSageModule(nn.Module):
         self.fanouts = list(fanouts)
         self.sigmoid_loss = sigmoid_loss
         self.hop_adj_keys = list(hop_adj_keys)
-        self.node_encoder = ShallowEncoder(feature_dim)
+        self.node_encoder = ShallowEncoder(feature_dim=feature_dim)
         self.encoder = SageEncoder(
             self.node_encoder.output_dim, fanouts, dim, aggregator, concat
         )
@@ -203,11 +203,11 @@ class _UnsupervisedSageModule(nn.Module):
         self.hop_adj_keys = list(hop_adj_keys)
         self.pos_adj_key = pos_adj_key
         self.num_negs = num_negs
-        self.node_encoder = ShallowEncoder(feature_dim)
+        self.node_encoder = ShallowEncoder(feature_dim=feature_dim)
         self.encoder = SageEncoder(
             self.node_encoder.output_dim, fanouts, dim, aggregator, concat
         )
-        self.context_node_encoder = ShallowEncoder(feature_dim)
+        self.context_node_encoder = ShallowEncoder(feature_dim=feature_dim)
         self.context_encoder = SageEncoder(
             self.context_node_encoder.output_dim, fanouts, dim, aggregator,
             concat,

@@ -6,6 +6,7 @@ import math
 from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 # flax's lecun_normal draws a normal truncated at +-2 std and divides the
@@ -45,3 +46,27 @@ class Dense(nn.Module):
         if self.activation is not None:
             y = self.activation(y)
         return y
+
+
+class Embedding(nn.Module):
+    """Id embedding table ``[num, dim]``; ids are clipped into
+    ``[0, num-1]`` (callers size it max_id+2, the last row the default
+    id's). Init is flax's ``truncated_normal(stddev)``: a unit normal
+    truncated at +-2, scaled. The gradient is dense, as optax's Adam
+    decays the moments of every row each step."""
+
+    def __init__(self, num: int, dim: int, stddev: float = 0.1):
+        super().__init__()
+        self.stddev = stddev
+        self.embeddings = nn.Parameter(torch.empty(num, dim))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None) -> None:
+        with torch.no_grad():
+            nn.init.trunc_normal_(self.embeddings, std=self.stddev,
+                                  a=-2 * self.stddev, b=2 * self.stddev,
+                                  generator=generator)
+
+    def forward(self, ids):
+        ids = ids.clamp(0, self.embeddings.shape[0] - 1)
+        return F.embedding(ids, self.embeddings)

@@ -4,8 +4,10 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
+from euler_tpu_torch.device import resolve_device
 from euler_tpu_torch.graph import device as device_graph
 
 OPTIMIZERS = {
@@ -50,3 +52,21 @@ def make_scan_train(model, inner_steps: int, batch_size: int):
         return state, torch.stack(losses)
 
     return scan_fn
+
+
+def save_embedding(model, max_id: int, state, batch_size: int = 1024,
+                   device=None) -> np.ndarray:
+    """The ``[max_id+1, dim]`` embeddings of ids 0..max_id, as a numpy
+    array: ``model.make_embed_step()`` over chunks of ``batch_size`` ids
+    (the last chunk padded with id 0 and cut), on ``device`` (the card
+    unless ``"cpu"`` is asked for), where ``state`` must live."""
+    dev = resolve_device(device)
+    embed = model.make_embed_step()
+    ids = np.arange(max_id + 1, dtype=np.int64)
+    padded = np.concatenate(
+        [ids, np.zeros((-len(ids)) % batch_size, dtype=np.int64)])
+    chunks = [
+        embed(state, model.sample_embed(padded[i:i + batch_size], dev))
+        for i in range(0, len(padded), batch_size)
+    ]
+    return torch.cat(chunks).cpu().numpy()[:len(ids)]

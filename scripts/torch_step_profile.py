@@ -2,7 +2,8 @@
 """Where the time of the port's train step goes, on one NVIDIA GPU.
 
     python3 scripts/torch_step_profile.py [--model graphsage_supervised]
-        [--feature_dtype bfloat16] [--alias] [--steps 20] [--top 15]
+        [--feature_dtype bfloat16] [--alias] [--walk_p 1 --walk_q 1]
+        [--steps 20] [--top 15]
 
 ``--model graphsage_supervised`` (the default, the ppi recipe) and
 ``--model graphsage`` build the full synthetic PPI graph and train, at
@@ -14,7 +15,13 @@ cross-entropy). ``--model reddit`` trains ``bench.py``'s reddit recipe
 one-hot labels) on the synthetic Reddit graph; with ``--feature_dtype
 bfloat16`` its feature table is bfloat16 (reddit_bf16), and with
 ``--alias`` it runs on the power-law graph ``REDDIT_HEAVYTAIL`` over
-alias tables (reddit_heavytail).
+alias tables (reddit_heavytail). ``--model node2vec`` trains ``Node2Vec``
+with ``run_loop --model node2vec --device_sampling``'s defaults (dim 256,
+id embeddings, walk_len 5, windows 5/5, 15,360 roots a step, 5
+negatives, sigmoid cross-entropy, Adam 0.01) on the PPI graph, biased
+with ``--walk_p``/``--walk_q`` (over the sorted slab), and with
+``--alias`` on ``REDDIT_HEAVYTAIL`` over sorted alias tables;
+``--model line`` trains ``LINE`` (order 1, 512 roots) on the PPI graph.
 
 Runs one warmup chunk of ``train.make_scan_train``, times one chunk, then
 profiles one chunk with ``torch.profiler`` (CPU + CUDA activities).
@@ -24,8 +31,8 @@ step, the device busy share (device time / profiled wall time), the
 device time of the gathers (``index_select`` and indexing kernels) and
 of the copies and dtype casts, the kernels by device time and, wherever
 they rank, the port's own draw kernels; then the launches and device
-time of one node-sampler draw alone, for the roots and (graphsage) the
-Philox negatives.
+time of one node-sampler draw alone, for the roots and (graphsage, the
+walk models) the Philox negatives, and (node2vec) of one walk alone.
 """
 
 from __future__ import annotations
@@ -45,16 +52,22 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", default="graphsage_supervised",
-                    choices=["graphsage_supervised", "graphsage", "reddit"])
+                    choices=["graphsage_supervised", "graphsage", "reddit",
+                             "node2vec", "line"])
     ap.add_argument("--feature_dtype", default=None,
                     help="the feature table's dtype, e.g. bfloat16")
     ap.add_argument("--alias", action="store_true",
-                    help="reddit on the power-law graph over alias tables")
+                    help="reddit or node2vec on the power-law graph over "
+                    "alias tables")
+    ap.add_argument("--walk_p", type=float, default=1.0)
+    ap.add_argument("--walk_q", type=float, default=1.0)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args()
-    if args.alias and args.model != "reddit":
-        ap.error("--alias goes with --model reddit")
+    if args.alias and args.model not in ("reddit", "node2vec"):
+        ap.error("--alias goes with --model reddit or node2vec")
+    if (args.walk_p, args.walk_q) != (1.0, 1.0) and args.model != "node2vec":
+        ap.error("--walk_p/--walk_q go with --model node2vec")
     if not torch.cuda.is_available():
         raise SystemExit("torch_step_profile: no CUDA device")
     from torch.profiler import ProfilerActivity, profile
@@ -64,7 +77,8 @@ def main() -> int:
                                           build_powerlaw, build_synthetic)
     from euler_tpu_torch.graph import Graph
     from euler_tpu_torch.graph import device as device_graph
-    from euler_tpu_torch.models import GraphSage, SupervisedGraphSage
+    from euler_tpu_torch.models import (LINE, GraphSage, Node2Vec,
+                                        SupervisedGraphSage)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(
@@ -72,8 +86,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
     ).stdout.strip()
     print(f"card: {smi}; torch {torch.__version__}; model {args.model}, "
-          f"feature_dtype {args.feature_dtype}, alias {args.alias}",
-          flush=True)
+          f"feature_dtype {args.feature_dtype}, alias {args.alias}, walk_p "
+          f"{args.walk_p}, walk_q {args.walk_q}", flush=True)
     t0 = time.perf_counter()
     if args.model == "reddit":
         batch, lr = 1000, 0.03
@@ -87,6 +101,22 @@ def main() -> int:
             feature_dtype=args.feature_dtype)
         if args.alias:
             model.set_sampling_options(alias=True)
+    elif args.model in ("node2vec", "line"):
+        graph = Graph(**(build_powerlaw(**REDDIT_HEAVYTAIL) if args.alias
+                         else build_synthetic(**PPI)))
+        common = dict(node_type=-1, edge_type=[0], max_id=graph.max_node_id,
+                      dim=256, num_negs=5, xent_loss=True,
+                      device_sampling=True)
+        if args.model == "line":
+            batch, lr = 512, 0.01
+            model = LINE(order=1, **common)
+        else:
+            model = Node2Vec(walk_len=5, walk_p=args.walk_p,
+                             walk_q=args.walk_q, left_win_size=5,
+                             right_win_size=5, **common)
+            batch, lr = 512 * model.batch_size_ratio, 0.01
+            if args.alias:
+                model.set_sampling_options(alias=True)
     else:
         batch, lr = 512, 0.01
         graph = Graph(**build_synthetic(**PPI))
@@ -148,6 +178,16 @@ def main() -> int:
     if args.model == "graphsage":
         draws["negatives"] = lambda: device_graph.sample_node(
             sampler, 5 * batch, seed_words=device_graph.stream_words(1, 1))
+    if args.model in ("node2vec", "line"):
+        pairs = batch * getattr(model, "batch_size_ratio", 1)
+        draws["negatives"] = lambda: device_graph.sample_node(
+            sampler, 5 * pairs, seed_words=device_graph.stream_words(1, 1))
+    if args.model == "node2vec":
+        roots = device_graph.sample_node(
+            sampler, batch, generator=torch.Generator(device="cuda"))
+        draws["walk"] = lambda: state["module"]._walks(
+            state["consts"]["adj"][state["module"].adj_key], roots,
+            device_graph.stream_words(1, 0), None)
     for name, draw in draws.items():
         draw()
         torch.cuda.synchronize()
@@ -156,7 +196,8 @@ def main() -> int:
             draw()
             torch.cuda.synchronize()
         per = _per_kernel(prof)
-        print(f"sample_node ({name}): {sum(n for _, n in per.values())} "
+        what = "one walk" if name == "walk" else f"sample_node ({name})"
+        print(f"{what}: {sum(n for _, n in per.values())} "
               f"launches, {sum(us for us, _ in per.values()):.3f} device us")
     return 0
 
