@@ -63,7 +63,19 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    graphsage`` defaults: dim 256, fanouts [10, 10], batch 512, 5
    negatives, concat, sigmoid cross-entropy, Adam 0.01): B2 once per step
    (the positives) and B1 three times (the fanouts of roots, positives
-   and negatives). Then ``bench.py``'s reddit recipe (batch 1,000,
+   and negatives). Then the GCN family, each after a small CPU/CUDA
+   agreement, none launching B1 or B2 (gathers, a sort, cumsums and
+   segment sums, as in the JAX package): ``SupervisedGCN`` at ``run_loop
+   --model gcn --device_sampling``'s defaults (dim 256, metapath [[0],
+   [0]], caps [5,120, 51,200], batch 512, sigmoid loss, Adam 0.01, roots
+   drawn on the card each step) with the mean (gcn), gcn (gcn_gcnagg) and
+   attention (gcn_attention, 4 heads of 64) aggregators, after one
+   batch's expansion is printed hop by hop against its caps and
+   ``multi_hop_neighbor`` is timed alone; and ``ScalableGCN`` at
+   ``--model scalable_gcn``'s (2 layers, slab rows of 10, store lr 0.001,
+   store init 0.05) through ``train.make_scan_train``, printing its
+   stores' bytes. Each prints the aggregated (real, masked-in) edges a
+   step and their rate. Then ``bench.py``'s reddit recipe (batch 1,000,
    fanouts [4, 4], dim 64, Adam 0.03, 602 features, 41 one-hot labels,
    sigmoid loss): reddit (B1 once per step), reddit_bf16 (the same with a
    bfloat16 feature table) and reddit_heavytail (the power-law graph at
@@ -1020,15 +1032,17 @@ def replay_loss(state, batch: int) -> float:
 
 
 def train_full(model, graph, seed: int, smi: str, name: str,
-               edges_per_step: int, edges_note: str, lr: float = PPI_LR,
+               edges_per_step, edges_note: str, lr: float = PPI_LR,
                batch: int = PPI_BATCH, pairs_per_step: int = 0,
-               fresh_loss_falls: bool = True) -> dict:
-    """Train ``model`` at full width through ``train.make_scan_train``: a
-    warmup chunk, then TIMED_CHUNKS timed chunks. Prints the tables'
-    bytes on the card, the peak of allocated device memory, the kernel
-    launches a step and, for the walk models, the skip-gram pairs a step
-    and their rate. The launch counts are set to 0 just before and read
-    just after; returns them. Raises unless the losses are finite and
+               fresh_loss_falls: bool = True, scan=None) -> dict:
+    """Train ``model`` at full width through ``train.make_scan_train`` (or
+    the chunk function ``scan``, for a model whose consts carry no roots
+    sampler): a warmup chunk, then TIMED_CHUNKS timed
+    chunks. Prints the tables' bytes on the card (and a store model's
+    stores'), the peak of allocated device memory, the kernel launches a
+    step and, for the walk models, the skip-gram pairs a step and their
+    rate. The launch counts are set to 0 just before and read just after;
+    returns them and the step ms. Raises unless the losses are finite and
     fall from the first chunk to the last.
 
     The walk models (``pairs_per_step``) also replay the first chunk's
@@ -1051,7 +1065,11 @@ def train_full(model, graph, seed: int, smi: str, name: str,
         f"built and uploaded), tables "
         f"{table_bytes(state['consts'])} B, of which adjacency "
         f"{table_bytes(state['consts']['adj'])} B")
-    scan = train.make_scan_train(model, CHUNK_STEPS, batch)
+    if "stores" in state:
+        log(f"{name} stores {[table_bytes(s) for s in state['stores']]} B, "
+            f"grad-stores {[table_bytes(s) for s in state['grad_stores']]} "
+            f"B")
+    scan = scan or train.make_scan_train(model, CHUNK_STEPS, batch)
     replayed = [replay_loss(state, batch)] if pairs_per_step else []
     for k in sampling_kernels.launches:
         sampling_kernels.launches[k] = 0
@@ -1084,6 +1102,7 @@ def train_full(model, graph, seed: int, smi: str, name: str,
             raise AssertionError(f"{name}: the loss of the batches it "
                                  "trained on did not fall")
     step_ms = dt / (CHUNK_STEPS * TIMED_CHUNKS) * 1e3
+    runs = {"steps": steps, "launches": launches, "step_ms": step_ms}
     pairs = (f", {pairs_per_step} pairs/step, "
              f"{pairs_per_step / step_ms * 1e3:.1f} pairs/s"
              if pairs_per_step else "")
@@ -1094,11 +1113,12 @@ def train_full(model, graph, seed: int, smi: str, name: str,
         f"({edges_note}; timed {CHUNK_STEPS * TIMED_CHUNKS} steps after a "
         f"warmup chunk; max_memory_allocated "
         f"{torch.cuda.max_memory_allocated()} B; card: {smi})")
-    return {"steps": steps, "launches": launches}
+    return runs
 
 
 def phase_train(graph, reddit, seed: int, smi: str) -> dict:
-    """The nine main paths; returns {path: {"steps", "launches"}}."""
+    """The thirteen main paths; returns {path: {"steps", "launches",
+    "step_ms"}}."""
     log("== phase 4: train")
     from euler_tpu_torch.datasets import build_synthetic
     from euler_tpu_torch.graph import Graph
@@ -1144,10 +1164,163 @@ def phase_train(graph, reddit, seed: int, smi: str) -> dict:
         raise AssertionError(
             f"graphsage launches {runs['graphsage']['launches']}, expected "
             f"{expect}")
+    runs.update(train_gcn(graph, small, seed, smi))
     runs.update(train_walks(graph, small, seed, smi))
     reddit_runs, heavy = train_reddit(reddit, seed, smi)
     runs.update(reddit_runs)
     runs.update(train_walk_heavytail(heavy, seed, smi))
+    return runs
+
+
+def gcn(max_id: int, dim: int, aggregator: str, batch: int = PPI_BATCH):
+    """``run_loop --model gcn --device_sampling``'s model
+    (run_loop.py:586-602): metapath [[0], [0]], dim ``dim``, the sparse
+    aggregator ``aggregator``, 50 features, 121 labels, sigmoid loss, and
+    the caps ``batch * cap**h`` unique nodes a hop with cap =
+    max(fanouts) = 10: [5,120, 51,200] at batch 512."""
+    from euler_tpu_torch.models import SupervisedGCN
+
+    cap = max(PPI_FANOUTS)
+    return SupervisedGCN(
+        label_idx=0, label_dim=121, metapath=[[0], [0]], dim=dim,
+        max_nodes_per_hop=[batch * cap ** h for h in (1, 2)],
+        max_edges_per_hop=[batch * cap ** (h + 1) for h in (0, 1)],
+        aggregator=aggregator, feature_idx=1, feature_dim=50, max_id=max_id,
+        device_features=True, device_sampling=True)
+
+
+def scalable_gcn(max_id: int, dim: int):
+    """``run_loop --model scalable_gcn --device_sampling``'s model
+    (run_loop.py:604-625): 2 layers, dim ``dim``, mean aggregator, slab
+    rows capped at max_neighbors = fanouts[0] = 10, store lr 0.001, store
+    init 0.05, roots of node type 0."""
+    from euler_tpu_torch.models import ScalableGCN
+
+    return ScalableGCN(
+        label_idx=0, label_dim=121, edge_type=[0], num_layers=2, dim=dim,
+        max_id=max_id, max_neighbors=PPI_FANOUTS[0], aggregator="mean",
+        feature_idx=1, feature_dim=50, store_learning_rate=0.001,
+        store_init_maxval=0.05, device_features=True, device_sampling=True,
+        train_node_type=0)
+
+
+def sampled_roots_scan(model, sampler, batch: int):
+    """``make_scan_train``'s chunk function with ``batch`` roots drawn by
+    ``sample_node`` over ``sampler`` each step (the JAX package's
+    SupervisedGCN builds no roots sampler of its own) and handed to
+    ``model.make_train_step()``."""
+    from euler_tpu_torch.graph import device as device_graph
+
+    step = model.make_train_step()
+
+    def scan(state, seed: int):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        losses = []
+        for i in range(CHUNK_STEPS):
+            roots = device_graph.sample_node(sampler, batch, generator=gen)
+            losses.append(step(state, {"roots": roots,
+                                       "seed": seed * CHUNK_STEPS + i})[0])
+        return state, torch.stack(losses)
+
+    return scan
+
+
+def first_chunk_roots(sampler, batch: int):
+    """The roots of the first chunk's steps: ``sample_node`` over
+    ``sampler`` from a generator seeded 0, as the chunk loops draw
+    them."""
+    from euler_tpu_torch.graph import device as device_graph
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return [device_graph.sample_node(sampler, batch, generator=gen)
+            for _ in range(CHUNK_STEPS)]
+
+
+def expansion_report(adj, caps, sampler) -> float:
+    """Prints one batch's full-neighbor expansion hop by hop (parents,
+    their real edges, the unique neighbor ids against the cap, the edges
+    the cap keeps) and ``multi_hop_neighbor``'s device time alone; returns
+    the real edges a step kept (masks summed over the hops), the mean of
+    the first chunk's batches."""
+    from euler_tpu_torch.graph import device as device_graph
+
+    roots = first_chunk_roots(sampler, PPI_BATCH)
+    default = adj["nbr"].shape[0] - 1
+    hops = device_graph.multi_hop_neighbor([adj, adj], roots[0], caps)
+    parents = roots[0].long()
+    for h, (hop, cap) in enumerate(zip(hops, caps)):
+        parents = parents[parents != default]
+        width = adj["nbr"].shape[1]
+        deg = adj["deg"][parents]
+        real = adj["nbr"][parents][torch.arange(width, device="cuda")[None, :]
+                                   < deg[:, None]]
+        uniq = int(torch.unique(real).numel())
+        log(f"gcn expansion hop {h + 1}: {parents.numel()} parents, "
+            f"{int(deg.sum())} real edges, {uniq} unique neighbors against a "
+            f"cap of {cap} ({max(uniq - cap, 0)} dropped), "
+            f"{int(hop['mask'].sum())} edges kept")
+        parents = hop["nodes"].long()
+    ms = cuda_ms(lambda: device_graph.multi_hop_neighbor(
+        [adj, adj], roots[0], caps), runs=50, batch=5)
+    edges = statistics.mean(
+        float(sum(h["mask"].sum() for h in
+                  device_graph.multi_hop_neighbor([adj, adj], r, caps)))
+        for r in roots)
+    log(f"gcn multi_hop_neighbor alone at [{PPI_BATCH}] roots, caps {caps}: "
+        f"{ms:.4f} ms (CUDA events, median of 50); {edges:.1f} real edges "
+        f"kept a step (mean of the first chunk's {CHUNK_STEPS} batches)")
+    return edges
+
+
+def train_gcn(graph, small, seed: int, smi: str) -> dict:
+    """The GCN family on the ppi graph, each after a CPU/CUDA agreement on
+    the small graph: gcn (``run_loop --model gcn`` defaults, mean
+    aggregator), gcn_gcnagg (``--aggregator gcn``) and gcn_attention
+    (``--aggregator attention``, 4 heads of 64), each a step of roots
+    drawn on the card and the full-neighbor expansion; then scalable_gcn
+    (``--model scalable_gcn``) through ``make_scan_train``. None launches
+    a kernel: the paths are gathers, a sort, cumsums and segment sums."""
+    from euler_tpu_torch.graph import device as device_graph
+
+    max_id = graph.max_node_id
+    sampler = device_graph.tensors(
+        device_graph.build_node_sampler(graph, 0, max_id), "cuda")
+    adj = device_graph.tensors(
+        device_graph.build_adjacency(graph, [0], max_id), "cuda")
+    caps = gcn(max_id, PPI_DIM, "mean").max_nodes_per_hop
+    edges = expansion_report(adj, caps, sampler)
+    # ScalableGCN's slab rows hold min(degree, max_neighbors) real edges
+    row_edges = adj["deg"].clamp(max=PPI_FANOUTS[0])
+    sc_edges = statistics.mean(
+        float(row_edges[r.long()].sum())
+        for r in first_chunk_roots(sampler, PPI_BATCH))
+    del adj
+    note = (f"real edges kept a step, mean of the first chunk's batches; "
+            f"caps {caps}")
+    runs = {}
+    for name, aggregator in (("gcn", "mean"), ("gcn_gcnagg", "gcn"),
+                             ("gcn_attention", "attention")):
+        t0 = time.perf_counter()
+        agree_cpu_cuda(gcn(small.max_node_id, 32, aggregator, 64), small,
+                       seed, name)
+        model = gcn(max_id, PPI_DIM, aggregator)
+        runs[name] = train_full(
+            model, graph, seed, smi, name, edges, note,
+            scan=sampled_roots_scan(model, sampler, PPI_BATCH))
+        log(f"{name} path: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    agree_cpu_cuda(scalable_gcn(small.max_node_id, 32), small, seed,
+                   "scalable_gcn")
+    runs["scalable_gcn"] = train_full(
+        scalable_gcn(max_id, PPI_DIM), graph, seed, smi, "scalable_gcn",
+        sc_edges, f"real slab-row edges a step (W = {PPI_FANOUTS[0]}), mean "
+        f"of the first chunk's batches")
+    log(f"scalable_gcn path: {time.perf_counter() - t0:.1f} s")
+    for name, run in runs.items():
+        expect = {"sample_fanout2": 0, "sample_neighbor": 0}
+        if run["launches"] != expect:
+            raise AssertionError(f"{name} launches {run['launches']}, "
+                                 f"expected {expect}")
     return runs
 
 

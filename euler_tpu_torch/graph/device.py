@@ -25,6 +25,9 @@ PyTorch on those tensors, with the JAX package's semantics:
   hop through ``neighbor_draw``: ``sampling_kernels.sample_neighbor`` for
   a slab (the hand-written Hopper kernels on CUDA tensors), the alias
   draw for an alias table.
+- ``multi_hop_neighbor`` expands the full neighborhoods of roots hop by
+  hop over slabs, deduplicated up to static node caps: deterministic,
+  plain PyTorch on every device, no kernel (the GCN models' expansion).
 - ``random_walk`` chains ``neighbor_draw`` one step at a time (over a
   slab on CUDA tensors, one single-hop kernel launch a step);
   ``biased_random_walk`` (node2vec's p/q over id-sorted slabs,
@@ -571,6 +574,62 @@ def sample_fanout(adjs, roots, counts, seed_words=None, u=None):
         cur = cur.reshape(-1)
         out.append(cur)
     return out
+
+
+def multi_hop_neighbor(adjs, roots, node_caps):
+    """Full-neighbor multi-hop expansion with per-hop dedup over slabs:
+    deterministic, no draw and no kernel (plain PyTorch on every device,
+    as the JAX package computes it in XLA ops).
+
+    Per hop: gather each current node's slab row, mask the columns at or
+    past its degree to the default id, dense-rank the flat ``[C*W]`` ids
+    by a stable sort, and emit ``{"nodes": [cap] int32 (the unique ids in
+    ascending order, default-padded), "src"/"dst": [C*W] int32 indices
+    into the current/next hop's nodes, "mask": [C*W] float32 1.0 on real
+    edges, "w": the same tensor as "mask"}``. The default id is the
+    largest, so padding sorts last. A hop with more than ``node_caps[h]``
+    unique ids drops the largest ones: their edges are masked out and
+    their ``dst`` clipped to cap-1. Hop h+1 expands hop h's default-padded
+    ``nodes``; the default row has degree 0 and gives no edges.
+
+    Ids past the slab read the default row, as in the JAX function;
+    negative ids do too, where the JAX function wraps them (no model
+    passes one: roots come clipped)."""
+    cur = roots.reshape(-1).to(torch.int32)
+    hops = []
+    for adj, cap in zip(adjs, node_caps):
+        nbr, deg = adj["nbr"], adj["deg"]
+        default = nbr.shape[0] - 1
+        width = nbr.shape[1]
+        rows = _default_clamped(cur, default).long()
+        c = rows.shape[0]
+        valid = (torch.arange(width, device=nbr.device)[None, :]
+                 < deg.index_select(0, rows)[:, None])
+        flat = torch.where(valid, nbr.index_select(0, rows),
+                           default).reshape(-1)                # [C*W]
+        order = torch.argsort(flat, stable=True)
+        s = flat[order]
+        first = torch.ones_like(s, dtype=torch.bool)
+        first[1:] = s[1:] != s[:-1]
+        rank_sorted = torch.cumsum(first, 0) - 1               # int64
+        rank = torch.empty_like(rank_sorted)
+        rank[order] = rank_sorted
+        # ranks past the cap land in a spare slot that is cut off
+        nodes = torch.full((cap + 1,), default, dtype=torch.int32,
+                           device=nbr.device)
+        nodes[rank_sorted.clamp(max=cap)] = s
+        mask = (valid.reshape(-1) & (rank < cap)
+                & (flat != default)).to(torch.float32)
+        hops.append({
+            "nodes": nodes[:cap],
+            "src": torch.arange(c, dtype=torch.int32,
+                                device=nbr.device).repeat_interleave(width),
+            "dst": rank.clamp(0, cap - 1).to(torch.int32),
+            "mask": mask,
+            "w": mask,
+        })
+        cur = hops[-1]["nodes"]
+    return hops
 
 
 # ---- walks ----

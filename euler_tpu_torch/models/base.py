@@ -331,3 +331,144 @@ class Model:
                 return state["module"].embed(batch, state["consts"])
 
         return embed_step
+
+
+def _grads_or_zeros(loss, tensors, retain_graph: bool = False) -> list:
+    """d(loss)/d(tensors), zeros where ``loss`` does not reach a tensor
+    (optax updates every leaf, so a torch optimizer must see a zero
+    gradient there, not none)."""
+    grads = torch.autograd.grad(loss, tensors, retain_graph=retain_graph,
+                                allow_unused=True)
+    return [torch.zeros_like(t) if g is None else g
+            for g, t in zip(grads, tensors)]
+
+
+class ScalableStoreModel(Model):
+    """Shared training machinery of the Scalable{GCN,Sage} family
+    (counterpart of the JAX package's ``ScalableStoreModel``).
+
+    Each step expands only the 1-hop neighborhood; layer l+1 reads stale
+    neighbor embeddings from store l. The state holds, beside the module
+    and its optimizer, ``num_layers - 1`` ``stores`` and ``grad_stores``
+    (``[max_id+2, dim]`` float32 each; stores start uniform in [0,
+    ``store_init_maxval``)) and a second Adam at ``store_learning_rate``
+    over the same parameters, with moments of its own. One step, in this
+    order:
+
+    1. read the stale gradients at ``node_ids``, then zero those rows;
+    2. one forward with the store reads at ``neigh_ids`` as leaves;
+    3. d(loss) and d(store_loss) by (parameters, reads), both at the old
+       parameters, where store_loss = sum(emb_l * stale_l) over the first
+       ``num_layers - 1`` layer embeddings;
+    4. the main Adam steps on d(loss), then the store Adam on d(store_loss);
+    5. ``grad_stores[neigh_ids] += d(loss + store_loss)/d(reads)``,
+       duplicate ids adding;
+    6. ``stores[node_ids] = emb`` (detached).
+
+    Subclasses set ``num_layers``, ``dim``, ``max_id``,
+    ``store_learning_rate`` and ``store_init_maxval``, and give a module
+    with ``forward_train(batch, store_reads, consts) -> (loss, metric,
+    node_embeddings, emb)`` and ``forward(batch, store_reads, consts) ->
+    ModelOutput`` over batches with ``node_ids``/``neigh_ids``
+    (``_expand_batch`` turns a device-sampling batch into one)."""
+
+    num_layers: int = 1
+    dim: int = 0
+    store_learning_rate: float = 0.001
+    store_init_maxval: float = 0.05
+
+    def init_state(self, graph, optimizer, device=None, seed: int = 0):
+        """``Model.init_state``'s state plus ``stores``, ``grad_stores``
+        and ``store_optimizer``; the stores' uniforms come from the same
+        generator as the parameters, after them."""
+        dev = resolve_device(device)
+        consts = self.build_consts(graph, dev)
+        gen = torch.Generator().manual_seed(seed)
+        module = self.make_module(gen).to(dev)
+        shape = (self.max_id + 2, self.dim)
+        stores = [
+            (torch.rand(shape, generator=gen)
+             * self.store_init_maxval).to(dev)
+            for _ in range(1, self.num_layers)
+        ]
+        return {
+            "module": module,
+            "optimizer": optimizer(module.parameters()),
+            "consts": consts,
+            "stores": stores,
+            "grad_stores": [torch.zeros(shape, device=dev) for _ in stores],
+            "store_optimizer": torch.optim.Adam(
+                module.parameters(), lr=self.store_learning_rate),
+        }
+
+    def _expand_batch(self, batch, consts):
+        """Hook: a device-sampling batch (roots + seed) in the
+        ``node_ids``/``neigh_ids`` layout. Default: as given."""
+        return batch
+
+    def make_train_step(self):
+        """``step(state, batch) -> (loss, metric)``, updating ``state`` in
+        place; the parameters' ``.grad`` keeps d(loss)/d(params)."""
+
+        def train_step(state, batch):
+            module, consts = state["module"], state["consts"]
+            batch = self._expand_batch(batch, consts)
+            node_ids = batch["node_ids"].long()
+            neigh_ids = batch["neigh_ids"].long()
+            reads = [s.index_select(0, neigh_ids).requires_grad_()
+                     for s in state["stores"]]
+            stale = [gs.index_select(0, node_ids)
+                     for gs in state["grad_stores"]]
+            for gs in state["grad_stores"]:
+                gs.index_fill_(0, node_ids, 0.0)
+            loss, metric, node_embs, _ = module.forward_train(batch, reads,
+                                                              consts)
+            params = list(module.parameters())
+            n = len(params)
+            g_main = _grads_or_zeros(loss, params + reads,
+                                     retain_graph=bool(reads))
+            updates = [(state["optimizer"], g_main)]
+            if reads:
+                store_loss = sum((emb * g).sum()
+                                 for emb, g in zip(node_embs, stale))
+                g_store = _grads_or_zeros(store_loss, params + reads)
+                updates.append((state["store_optimizer"], g_store))
+                for gs, gm, gss in zip(state["grad_stores"], g_main[n:],
+                                       g_store[n:]):
+                    gs.index_add_(0, neigh_ids, gm + gss)
+            for opt, grads in updates:
+                for p, g in zip(params, grads):
+                    p.grad = g
+                opt.step()
+            for p, g in zip(params, g_main):  # .grad keeps d(loss)
+                p.grad = g
+            for s, emb in zip(state["stores"], node_embs):
+                s.index_copy_(0, node_ids, emb.detach())
+            return loss.detach(), metric.detach()
+
+        return train_step
+
+    def _apply_with_stores(self, state, batch):
+        batch = self._expand_batch(batch, state["consts"])
+        neigh_ids = batch["neigh_ids"].long()
+        reads = [s.index_select(0, neigh_ids) for s in state["stores"]]
+        with torch.no_grad():
+            return state["module"](batch, reads, state["consts"])
+
+    def make_eval_step(self):
+        """``eval(state, batch) -> (loss, metric)`` over the stores, without
+        gradients or updates."""
+
+        def eval_step(state, batch):
+            out = self._apply_with_stores(state, batch)
+            return out.loss, out.metric
+
+        return eval_step
+
+    def make_embed_step(self):
+        """``embed(state, batch) -> embeddings`` over the stores."""
+
+        def embed_step(state, batch):
+            return self._apply_with_stores(state, batch).embedding
+
+        return embed_step

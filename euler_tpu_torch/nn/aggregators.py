@@ -12,21 +12,41 @@ from torch import nn
 from euler_tpu_torch.nn.layers import Dense
 
 
+class GCNAggregator(nn.Module):
+    """One bias-free Dense with ``activation`` over the mean of the self
+    row and its neighbors (``[self; neigh]``)."""
+
+    def __init__(self, in_dim: int, dim: int,
+                 activation: Optional[Callable] = torch.relu):
+        super().__init__()
+        self.dense = Dense(in_dim, dim, activation, use_bias=False)
+
+    def forward(self, self_emb, neigh_emb):
+        all_emb = torch.cat([self_emb[:, None, :], neigh_emb], dim=1)
+        return self.dense(all_emb.mean(dim=1))
+
+
 class _BaseAggregator(nn.Module):
     """Bias-free self and neighbor Denses, each with ``activation``,
-    summed (or concatenated, half width each, when ``concat``)."""
+    summed (or concatenated, half width each, when ``concat``). The
+    neighbor Dense reads ``aggregate(neigh_emb)``, whose width
+    ``_aggregate_dim`` gives."""
 
     def __init__(self, in_dim: int, dim: int,
                  activation: Optional[Callable] = torch.relu,
                  concat: bool = False):
         super().__init__()
         self.concat = concat
+        agg_dim = self._aggregate_dim(in_dim, dim)
         if concat:
             if dim % 2:
                 raise ValueError("dim must be even when concat=True")
             dim //= 2
         self.self_dense = Dense(in_dim, dim, activation, use_bias=False)
-        self.neigh_dense = Dense(in_dim, dim, activation, use_bias=False)
+        self.neigh_dense = Dense(agg_dim, dim, activation, use_bias=False)
+
+    def _aggregate_dim(self, in_dim: int, dim: int) -> int:
+        return in_dim
 
     def aggregate(self, neigh_emb):
         raise NotImplementedError
@@ -44,7 +64,31 @@ class MeanAggregator(_BaseAggregator):
         return neigh_emb.mean(dim=1)
 
 
-AGGREGATORS = {"mean": MeanAggregator}
+class _PoolAggregator(_BaseAggregator):
+    """A pooling Dense (with bias and ReLU, to the full ``dim`` even under
+    ``concat``) on every neighbor row, then a pool over the fanout."""
+
+    def _aggregate_dim(self, in_dim: int, dim: int) -> int:
+        self.pool_dense = Dense(in_dim, dim, torch.relu)
+        return dim
+
+
+class MeanPoolAggregator(_PoolAggregator):
+    def aggregate(self, neigh_emb):
+        return self.pool_dense(neigh_emb).mean(dim=1)
+
+
+class MaxPoolAggregator(_PoolAggregator):
+    def aggregate(self, neigh_emb):
+        return self.pool_dense(neigh_emb).amax(dim=1)
+
+
+AGGREGATORS = {
+    "gcn": GCNAggregator,
+    "mean": MeanAggregator,
+    "meanpool": MeanPoolAggregator,
+    "maxpool": MaxPoolAggregator,
+}
 
 
 def get(name: str):

@@ -5,7 +5,8 @@ path, ``'dense'`` [n, feature_dim] float32 (after
 ``models.base.gather_consts`` has replaced the ``'gids'`` indices with
 rows of the device feature table). ``SageEncoder`` takes the per-hop
 list; hop h has n * prod(fanouts[:h]) rows, grouped by parent in
-row-major order.
+row-major order. ``GCNEncoder`` takes the per-hop list and one padded
+COO adjacency a hop (``graph.device.multi_hop_neighbor``).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 from torch import nn
 
 from euler_tpu_torch.nn import aggregators as dense_aggs
+from euler_tpu_torch.nn import sparse_aggregators as sparse_aggs
 from euler_tpu_torch.nn.layers import Dense, Embedding
 
 
@@ -102,12 +104,14 @@ class SageEncoder(nn.Module):
             )
         self.fanouts = list(fanouts)
         n = len(self.fanouts)
+        # the GCN aggregator has no concat form
+        kw = {} if agg_cls is dense_aggs.GCNAggregator else {"concat": concat}
         self.aggregators = nn.ModuleList(
             agg_cls(
                 in_dim if layer == 0 else dim,
                 dim,
                 activation=torch.relu if layer < n - 1 else None,
-                concat=concat,
+                **kw,
             )
             for layer in range(n)
         )
@@ -125,5 +129,49 @@ class SageEncoder(nn.Module):
                 d = hidden[hop].shape[-1]
                 neigh = hidden[hop + 1].reshape(-1, self.fanouts[hop], d)
                 next_hidden.append(agg(hidden[hop], neigh))
+            hidden = next_hidden
+        return hidden[0]
+
+
+class GCNEncoder(nn.Module):
+    """Full-neighbor multi-hop GCN over padded COO adjacency: layer l
+    aggregates hop h with hop h+1 through ``adjs[h]`` for hops
+    0..num_layers-1-l, with the sparse aggregator ``aggregator``
+    (``nn.sparse_aggregators``); ReLU on all layers but the last, and
+    with ``use_residual`` each layer's input row added to its output.
+    Layer 0 reads ``in_dim``-wide rows, later layers ``dim``."""
+
+    def __init__(self, in_dim: int, num_layers: int, dim: int,
+                 aggregator: str = "gcn", use_residual: bool = False):
+        super().__init__()
+        agg_cls = sparse_aggs.get(aggregator)
+        if agg_cls is None:
+            raise ValueError(
+                f"aggregator {aggregator!r} is not a sparse aggregator; "
+                f"have {sorted(sparse_aggs.AGGREGATORS)}")
+        self.num_layers = num_layers
+        self.use_residual = use_residual
+        self.aggregators = nn.ModuleList(
+            agg_cls(
+                in_dim if layer == 0 else dim,
+                dim,
+                activation=torch.relu if layer < num_layers - 1 else None,
+            )
+            for layer in range(num_layers)
+        )
+
+    def forward(self, hidden: list, adjs: list):
+        n = self.num_layers
+        if len(hidden) != n + 1 or len(adjs) != n:
+            raise ValueError(
+                f"GCNEncoder with {n} layers needs {n + 1} hops and {n} "
+                f"adjacencies, got {len(hidden)} and {len(adjs)}")
+        for agg in self.aggregators:
+            next_hidden = []
+            for hop in range(len(hidden) - 1):
+                h = agg(hidden[hop], hidden[hop + 1], adjs[hop])
+                if self.use_residual:
+                    h = hidden[hop] + h
+                next_hidden.append(h)
             hidden = next_hidden
         return hidden[0]

@@ -2,8 +2,8 @@
 """Where the time of the port's train step goes, on one NVIDIA GPU.
 
     python3 scripts/torch_step_profile.py [--model graphsage_supervised]
-        [--feature_dtype bfloat16] [--alias] [--walk_p 1 --walk_q 1]
-        [--steps 20] [--top 15]
+        [--aggregator mean] [--feature_dtype bfloat16] [--alias]
+        [--walk_p 1 --walk_q 1] [--steps 20] [--top 15]
 
 ``--model graphsage_supervised`` (the default, the ppi recipe) and
 ``--model graphsage`` build the full synthetic PPI graph and train, at
@@ -22,6 +22,14 @@ negatives, sigmoid cross-entropy, Adam 0.01) on the PPI graph, biased
 with ``--walk_p``/``--walk_q`` (over the sorted slab), and with
 ``--alias`` on ``REDDIT_HEAVYTAIL`` over sorted alias tables;
 ``--model line`` trains ``LINE`` (order 1, 512 roots) on the PPI graph.
+``--model gcn`` trains ``SupervisedGCN`` with ``run_loop --model gcn
+--device_sampling``'s defaults (dim 256, metapath [[0], [0]], caps
+[5,120, 51,200], batch 512, Adam 0.01) on the PPI graph, its roots drawn
+by ``sample_node`` over node type 0 each step (the model builds no roots
+sampler); ``--model scalable_gcn`` trains ``ScalableGCN`` (2 layers, dim
+256, slab rows of 10, store lr 0.001) through ``make_scan_train``.
+``--aggregator`` picks the aggregator of the GCN models (mean, gcn,
+attention) and of the GraphSAGE models (mean, gcn, meanpool, maxpool).
 
 Runs one warmup chunk of ``train.make_scan_train``, times one chunk, then
 profiles one chunk with ``torch.profiler`` (CPU + CUDA activities).
@@ -32,7 +40,10 @@ device time of the gathers (``index_select`` and indexing kernels) and
 of the copies and dtype casts, the kernels by device time and, wherever
 they rank, the port's own draw kernels; then the launches and device
 time of one node-sampler draw alone, for the roots and (graphsage, the
-walk models) the Philox negatives, and (node2vec) of one walk alone.
+walk models) the Philox negatives, (node2vec) of one walk alone, (gcn)
+of one full-neighbor expansion alone, and (scalable_gcn) of the store
+bookkeeping's ops alone at the step's shapes (the two store reads, the
+zeroing, the scatter-add of the read gradients, the write-back).
 """
 
 from __future__ import annotations
@@ -53,7 +64,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", default="graphsage_supervised",
                     choices=["graphsage_supervised", "graphsage", "reddit",
-                             "node2vec", "line"])
+                             "node2vec", "line", "gcn", "scalable_gcn"])
+    ap.add_argument("--aggregator", default="mean",
+                    choices=["mean", "gcn", "attention", "meanpool",
+                             "maxpool"])
     ap.add_argument("--feature_dtype", default=None,
                     help="the feature table's dtype, e.g. bfloat16")
     ap.add_argument("--alias", action="store_true",
@@ -68,6 +82,11 @@ def main() -> int:
         ap.error("--alias goes with --model reddit or node2vec")
     if (args.walk_p, args.walk_q) != (1.0, 1.0) and args.model != "node2vec":
         ap.error("--walk_p/--walk_q go with --model node2vec")
+    gcn_family = args.model in ("gcn", "scalable_gcn")
+    if args.aggregator in (("meanpool", "maxpool") if gcn_family
+                           else ("attention",)):
+        ap.error(f"--aggregator {args.aggregator} does not go with --model "
+                 f"{args.model}")
     if not torch.cuda.is_available():
         raise SystemExit("torch_step_profile: no CUDA device")
     from torch.profiler import ProfilerActivity, profile
@@ -78,6 +97,7 @@ def main() -> int:
     from euler_tpu_torch.graph import Graph
     from euler_tpu_torch.graph import device as device_graph
     from euler_tpu_torch.models import (LINE, GraphSage, Node2Vec,
+                                        ScalableGCN, SupervisedGCN,
                                         SupervisedGraphSage)
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -86,6 +106,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
     ).stdout.strip()
     print(f"card: {smi}; torch {torch.__version__}; model {args.model}, "
+          f"aggregator {args.aggregator}, "
           f"feature_dtype {args.feature_dtype}, alias {args.alias}, walk_p "
           f"{args.walk_p}, walk_q {args.walk_q}", flush=True)
     t0 = time.perf_counter()
@@ -117,11 +138,28 @@ def main() -> int:
             batch, lr = 512 * model.batch_size_ratio, 0.01
             if args.alias:
                 model.set_sampling_options(alias=True)
+    elif gcn_family:
+        batch, lr = 512, 0.01
+        graph = Graph(**build_synthetic(**PPI))
+        common = dict(label_idx=0, label_dim=121, dim=256,
+                      aggregator=args.aggregator, feature_idx=1,
+                      feature_dim=50, max_id=graph.max_node_id,
+                      device_features=True, device_sampling=True,
+                      feature_dtype=args.feature_dtype)
+        if args.model == "gcn":
+            model = SupervisedGCN(
+                metapath=[[0], [0]], max_nodes_per_hop=[5120, 51200],
+                max_edges_per_hop=[51200, 512000], **common)
+        else:
+            model = ScalableGCN(edge_type=[0], num_layers=2,
+                                max_neighbors=10, train_node_type=0,
+                                **common)
     else:
         batch, lr = 512, 0.01
         graph = Graph(**build_synthetic(**PPI))
         common = dict(metapath=[[0], [0]], fanouts=[10, 10], dim=256,
                       feature_idx=1, feature_dim=50,
+                      aggregator=args.aggregator,
                       max_id=graph.max_node_id, device_features=True,
                       device_sampling=True, feature_dtype=args.feature_dtype)
         if args.model == "graphsage":
@@ -132,7 +170,14 @@ def main() -> int:
     print(f"graph {graph.num_nodes} nodes built in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     state = model.init_state(graph, train.get_optimizer("adam", lr))
-    scan = train.make_scan_train(model, args.steps, batch)
+    if args.model == "gcn":
+        sampler = device_graph.tensors(
+            device_graph.build_node_sampler(graph, 0, graph.max_node_id),
+            "cuda")
+        scan = _roots_scan(model, sampler, args.steps, batch)
+    else:
+        sampler = state["consts"]["roots"]
+        scan = train.make_scan_train(model, args.steps, batch)
     state, _ = scan(state, 0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -172,7 +217,6 @@ def main() -> int:
                   f"{name[:100]} (port kernel)")
     # the node samplers alone, at the step's shapes: the batch's roots
     # from the generator, and (graphsage) 5 negatives a root from Philox
-    sampler = state["consts"]["roots"]
     draws = {"roots": lambda: device_graph.sample_node(
         sampler, batch, generator=torch.Generator(device="cuda"))}
     if args.model == "graphsage":
@@ -188,6 +232,16 @@ def main() -> int:
         draws["walk"] = lambda: state["module"]._walks(
             state["consts"]["adj"][state["module"].adj_key], roots,
             device_graph.stream_words(1, 0), None)
+    if gcn_family:
+        roots = device_graph.sample_node(
+            sampler, batch, generator=torch.Generator(device="cuda"))
+    if args.model == "gcn":
+        module = state["module"]
+        adjs = [state["consts"]["adj"][k] for k in module.hop_adj_keys]
+        draws["expansion"] = lambda: device_graph.multi_hop_neighbor(
+            adjs, roots, module.node_caps)
+    if args.model == "scalable_gcn":
+        draws["store bookkeeping"] = _store_ops(model, state, roots)
     for name, draw in draws.items():
         draw()
         torch.cuda.synchronize()
@@ -196,10 +250,56 @@ def main() -> int:
             draw()
             torch.cuda.synchronize()
         per = _per_kernel(prof)
-        what = "one walk" if name == "walk" else f"sample_node ({name})"
+        what = {"walk": "one walk",
+                "expansion": "one multi_hop_neighbor expansion",
+                "store bookkeeping": "the store bookkeeping's ops"}.get(
+                    name, f"sample_node ({name})")
         print(f"{what}: {sum(n for _, n in per.values())} "
               f"launches, {sum(us for us, _ in per.values()):.3f} device us")
     return 0
+
+
+def _roots_scan(model, sampler, steps: int, batch: int):
+    """``make_scan_train``'s loop for a model whose consts carry no roots
+    sampler: ``batch`` roots drawn by ``sample_node`` over ``sampler``
+    each step, then ``model.make_train_step()``."""
+    from euler_tpu_torch.graph import device as device_graph
+
+    step = model.make_train_step()
+
+    def scan(state, seed: int):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        losses = []
+        for i in range(steps):
+            roots = device_graph.sample_node(sampler, batch, generator=gen)
+            losses.append(step(state, {"roots": roots,
+                                       "seed": seed * steps + i})[0])
+        return state, torch.stack(losses)
+
+    return scan
+
+
+def _store_ops(model, state, roots):
+    """A callable running ScalableStoreModel's store bookkeeping alone on
+    the state's stores at one batch's ids: the reads at the neighbors and
+    the stale gradients at the nodes, the zeroing, the scatter-add of
+    [neighbors, dim] gradients and the write-back of [nodes, dim] rows."""
+    batch = model._expand_batch({"roots": roots}, state["consts"])
+    node_ids = batch["node_ids"].long()
+    neigh_ids = batch["neigh_ids"].long()
+    dim = state["stores"][0].shape[1]
+    g = torch.ones(neigh_ids.shape[0], dim, device="cuda")
+    emb = torch.ones(node_ids.shape[0], dim, device="cuda")
+
+    def ops():
+        for s, gs in zip(state["stores"], state["grad_stores"]):
+            s.index_select(0, neigh_ids)
+            gs.index_select(0, node_ids)
+            gs.index_fill_(0, node_ids, 0.0)
+            gs.index_add_(0, neigh_ids, g)
+            s.index_copy_(0, node_ids, emb)
+
+    return ops
 
 
 def _per_kernel(prof) -> dict:
