@@ -20,14 +20,15 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    neighbor of its row or the default; (c) B1, its plain version and a
    ``torch.multinomial`` yardstick, timed with CUDA events;
    (d) B2 equals ``sample_neighbor_reference`` exactly at [512, 1] (the
-   unsupervised positives) and at [5,120, 10] (a hop-2 shape), with
-   injected and Philox uniforms, on the same kinds of odd roots;
+   unsupervised positives), at [5,120, 10] (a hop-2 shape), at [512, 10]
+   (ScalableSage's draw) and at [512, 5] (GAT's), with injected and
+   Philox uniforms, on the same kinds of odd roots;
    (e) B1 equals two chained B2 launches (hop 0 on the roots, hop 1 on the
    hop-1 picks) bit for bit, so the shared draw routine is shared;
    (f) B2's pick frequencies as in (b); (g) B2, its plain version and a
-   ``torch.multinomial`` yardstick at both shapes; (h) B1 equals its plain
-   version with Philox uniforms at 2,560 roots (the unsupervised
-   negatives' fanout), and is timed there as in (c); (i) both kernels
+   ``torch.multinomial`` yardstick at those four shapes; (h) B1 equals
+   its plain version with Philox uniforms at 2,560 roots (the
+   unsupervised negatives' fanout), and is timed there as in (c); (i) both kernels
    equal their plain versions with Philox uniforms on synthetic slabs
    of width 128 and 1,024 (rows of random degree up to the width), each
    timed warm; (j) on the synthetic Reddit graph at ``bench.py``'s shape
@@ -75,7 +76,17 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    ``--model scalable_gcn``'s (2 layers, slab rows of 10, store lr 0.001,
    store init 0.05) through ``train.make_scan_train``, printing its
    stores' bytes. Each prints the aggregated (real, masked-in) edges a
-   step and their rate. Then ``bench.py``'s reddit recipe (batch 1,000,
+   step and their rate. Then the single-hop models through
+   ``train.make_scan_train``, each after a small CPU/CUDA agreement, B2
+   once a step and B1 never: ``ScalableSage`` at ``run_loop --model
+   scalable_sage --device_sampling``'s defaults (fanout 10, 2 layers,
+   dim 256, mean, concat, store lr 0.001, store init 0.05: scalable_sage,
+   B2 at [512, 10]), and ``GAT`` at ``--model gat``'s (hidden 256, 5
+   neighbors, 121 classes: gat with one head, gat_heads4 with four, the
+   hidden widths of the GAT paper's PPI model: B2 at [512, 5]); after
+   training, each runs ``train.evaluate`` over 10 batches of 512 roots
+   that were never a training root and prints f1 and loss. Then
+   ``bench.py``'s reddit recipe (batch 1,000,
    fanouts [4, 4], dim 64, Adam 0.03, 602 features, 41 one-hot labels,
    sigmoid loss): reddit (B1 once per step), reddit_bf16 (the same with a
    bfloat16 feature table) and reddit_heavytail (the power-law graph at
@@ -134,9 +145,18 @@ BIASED_WALKERS = 100_000
 CHUNK_STEPS = 20
 TIMED_CHUNKS = 4
 TVD_BOUND = 0.03
-# the single-hop draw's shapes: the unsupervised positives, and a hop-2
-# shape of the ppi fanout (512 * 10 rows, 10 draws each)
-B2_SHAPES = ((PPI_BATCH, 1), (PPI_BATCH * PPI_FANOUTS[0], PPI_FANOUTS[1]))
+# run_loop --model scalable_sage and --model gat (run_loop.py:139-183,
+# 655-688): ScalableSage draws fanouts[0] = 10 neighbors a root, GAT
+# nb_num = 5; gat_heads4 is --head_num 4, the GAT paper's hidden heads
+SSAGE_FANOUT = PPI_FANOUTS[0]
+GAT_NB = 5
+GAT_HEADS4 = 4
+EVAL_BATCHES = 10
+# the single-hop draw's shapes: the unsupervised positives, a hop-2 shape
+# of the ppi fanout (512 * 10 rows, 10 draws each), ScalableSage's draw
+# and GAT's, each a hop-0 draw on the roots
+B2_SHAPES = ((PPI_BATCH, 1), (PPI_BATCH * PPI_FANOUTS[0], PPI_FANOUTS[1]),
+             (PPI_BATCH, SSAGE_FANOUT), (PPI_BATCH, GAT_NB))
 # the chained draw's root counts: the ppi batch, and the unsupervised
 # negatives' fanout (512 * 5)
 B1_ROOTS = (PPI_BATCH, PPI_BATCH * SAGE_NEGS)
@@ -875,7 +895,7 @@ def check_single_hop(adj, adj_w, roots, roots_c, zero_rows, seed, flush):
     against the chained kernel, against the cum probabilities, and timed
     (``flush`` evicts the L2 cache for the cold times). Returns the
     kernel's numbers at the unsupervised positives' shape and, under
-    ``shapes``, at both."""
+    ``shapes``, at every shape of ``B2_SHAPES``."""
     from euler_tpu_torch.graph import sampling_kernels
     from euler_tpu_torch.graph import device as device_graph
 
@@ -941,15 +961,17 @@ def check_single_hop(adj, adj_w, roots, roots_c, zero_rows, seed, flush):
         if not tvd < TVD_BOUND:
             raise AssertionError(f"row {r}: TVD {tvd} >= {TVD_BOUND}")
 
-    # (g) timing at both shapes on the main path's slab: the positives'
-    # roots, and the hop-1 picks of those roots
+    # (g) timing at every shape on the main path's slab: the roots at hop
+    # 0 (the positives, ScalableSage's and GAT's draws), and the hop-1
+    # picks of those roots at hop 1
     n_rows, width = adj["nbr"].shape
     probs = torch.diff(adj["cum"], dim=1,
                        prepend=adj["cum"].new_zeros(n_rows, 1))
     hop1 = sampling_kernels.sample_neighbor(adj, roots_c, words, f1)
     timed = []
-    for hop, ((m, count), nodes) in enumerate(zip(
-            B2_SHAPES, (roots_c, hop1.reshape(-1)))):
+    for (m, count), nodes, hop in zip(
+            B2_SHAPES, (roots_c, hop1.reshape(-1), roots_c, roots_c),
+            (0, 1, 0, 0)):
         kern = lambda: sampling_kernels.sample_neighbor(  # noqa: E731
             adj, nodes, words, count, hop=hop)
         plain = lambda: sampling_kernels.sample_neighbor_reference(  # noqa: E731
@@ -1034,7 +1056,8 @@ def replay_loss(state, batch: int) -> float:
 def train_full(model, graph, seed: int, smi: str, name: str,
                edges_per_step, edges_note: str, lr: float = PPI_LR,
                batch: int = PPI_BATCH, pairs_per_step: int = 0,
-               fresh_loss_falls: bool = True, scan=None) -> dict:
+               fresh_loss_falls: bool = True, scan=None,
+               after=None) -> dict:
     """Train ``model`` at full width through ``train.make_scan_train`` (or
     the chunk function ``scan``, for a model whose consts carry no roots
     sampler): a warmup chunk, then TIMED_CHUNKS timed
@@ -1052,7 +1075,11 @@ def train_full(model, graph, seed: int, smi: str, name: str,
     a step from 56,944 nodes, so in 100 steps a node is a root less than
     once, and the loss of fresh batches need not fall (it rises by about
     0.1% on the CPU, as the JAX package's steps, which the port's
-    match)."""
+    match).
+
+    ``after(state)``, when given, runs on the trained state after the
+    counts are read (``evaluate_held_out``); its result is returned under
+    ``"after"``."""
     from euler_tpu_torch import train
     from euler_tpu_torch.graph import sampling_kernels
 
@@ -1113,12 +1140,15 @@ def train_full(model, graph, seed: int, smi: str, name: str,
         f"({edges_note}; timed {CHUNK_STEPS * TIMED_CHUNKS} steps after a "
         f"warmup chunk; max_memory_allocated "
         f"{torch.cuda.max_memory_allocated()} B; card: {smi})")
+    if after is not None:
+        runs["after"] = after(state)
     return runs
 
 
 def phase_train(graph, reddit, seed: int, smi: str) -> dict:
-    """The thirteen main paths; returns {path: {"steps", "launches",
-    "step_ms"}}."""
+    """The sixteen main paths; returns {path: {"steps", "launches",
+    "step_ms"}} (and the evaluation of the single-hop models under
+    "after")."""
     log("== phase 4: train")
     from euler_tpu_torch.datasets import build_synthetic
     from euler_tpu_torch.graph import Graph
@@ -1165,6 +1195,7 @@ def phase_train(graph, reddit, seed: int, smi: str) -> dict:
             f"graphsage launches {runs['graphsage']['launches']}, expected "
             f"{expect}")
     runs.update(train_gcn(graph, small, seed, smi))
+    runs.update(train_single_hop(graph, small, seed, smi))
     runs.update(train_walks(graph, small, seed, smi))
     reddit_runs, heavy = train_reddit(reddit, seed, smi)
     runs.update(reddit_runs)
@@ -1225,13 +1256,13 @@ def sampled_roots_scan(model, sampler, batch: int):
     return scan
 
 
-def first_chunk_roots(sampler, batch: int):
-    """The roots of the first chunk's steps: ``sample_node`` over
-    ``sampler`` from a generator seeded 0, as the chunk loops draw
-    them."""
+def first_chunk_roots(sampler, batch: int, chunk: int = 0):
+    """The roots of the first (or the ``chunk``-th) chunk's steps:
+    ``sample_node`` over ``sampler`` from a generator seeded with the
+    chunk's seed, as the chunk loops draw them."""
     from euler_tpu_torch.graph import device as device_graph
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    gen = torch.Generator(device="cuda").manual_seed(chunk)
     return [device_graph.sample_node(sampler, batch, generator=gen)
             for _ in range(CHUNK_STEPS)]
 
@@ -1321,6 +1352,104 @@ def train_gcn(graph, small, seed: int, smi: str) -> dict:
         if run["launches"] != expect:
             raise AssertionError(f"{name} launches {run['launches']}, "
                                  f"expected {expect}")
+    return runs
+
+
+def scalable_sage(max_id: int, dim: int):
+    """``run_loop --model scalable_sage --device_sampling``'s model
+    (run_loop.py:655-671): edge type 0, fanout fanouts[0] = 10, 2 layers
+    (len(fanouts)), dim ``dim``, mean aggregator, concat (``--concat``'s
+    default), store lr 0.001, store init 0.05, 50 features, 121 labels,
+    sigmoid loss, roots of node type 0."""
+    from euler_tpu_torch.models import ScalableSage
+
+    return ScalableSage(
+        label_idx=0, label_dim=121, edge_type=[0], fanout=SSAGE_FANOUT,
+        num_layers=len(PPI_FANOUTS), dim=dim, max_id=max_id,
+        aggregator="mean", concat=True, feature_idx=1, feature_dim=50,
+        store_learning_rate=0.001, store_init_maxval=0.05,
+        device_features=True, device_sampling=True, train_node_type=0)
+
+
+def gat(max_id: int, dim: int, head_num: int = 1):
+    """``run_loop --model gat --device_sampling``'s model
+    (run_loop.py:672-688): ``head_num`` heads of hidden width ``dim``
+    (``--dim``), nb_num 5, edge type 0, 50 features, 121 labels and
+    classes, sigmoid loss, roots of node type 0."""
+    from euler_tpu_torch.models import GAT
+
+    return GAT(label_idx=0, label_dim=121, feature_idx=1, feature_dim=50,
+               max_id=max_id, head_num=head_num, hidden_dim=dim,
+               nb_num=GAT_NB, edge_type=0, device_features=True,
+               device_sampling=True, train_node_type=0)
+
+
+def held_out_roots(sampler, batch: int, n_batches: int, seed: int):
+    """``n_batches`` batches of ``batch`` ids of the sampler's node type
+    that were never a root in ``train_full``'s run: every chunk's roots
+    replayed (``make_scan_train`` seeds chunk c's generator with c) and
+    set aside, the rest shuffled by a numpy generator seeded ``seed``."""
+    ids = sampler["ids"].long()
+    seen = torch.zeros(int(ids.max()) + 1, dtype=torch.bool, device="cuda")
+    for c in range(TIMED_CHUNKS + 1):
+        for roots in first_chunk_roots(sampler, batch, c):
+            seen[roots.long()] = True
+    fresh = ids[~seen[ids]].cpu().numpy()
+    need = batch * n_batches
+    if len(fresh) < need:
+        raise AssertionError(f"{len(fresh)} held-out roots, need {need}")
+    pick = np.random.default_rng(seed).permutation(fresh)[:need]
+    return [pick[i * batch:(i + 1) * batch] for i in range(n_batches)], (
+        len(ids) - len(fresh))
+
+
+def evaluate_held_out(model, graph, seed: int, name: str):
+    """``after`` for ``train_full``: ``train.evaluate`` over EVAL_BATCHES
+    batches of held-out roots; f1 must lie in [0, 1] and the loss be
+    finite. Returns the result."""
+    from euler_tpu_torch import train
+
+    def run(state):
+        batches, n_seen = held_out_roots(state["consts"]["roots"],
+                                         PPI_BATCH, EVAL_BATCHES, seed)
+        t0 = time.perf_counter()
+        result = train.evaluate(model, graph, batches, state, device="cuda",
+                                seed=10_000 + seed)
+        log(f"{name} evaluate: {result} over {EVAL_BATCHES} batches of "
+            f"{PPI_BATCH} roots, none of the {n_seen} distinct training "
+            f"roots among them, in {time.perf_counter() - t0:.2f} s")
+        if not (0.0 <= result["f1"] <= 1.0 and np.isfinite(result["loss"])):
+            raise AssertionError(f"{name} evaluate: {result}")
+        return result
+
+    return run
+
+
+def train_single_hop(graph, small, seed: int, smi: str) -> dict:
+    """The single-hop models on the ppi graph through
+    ``train.make_scan_train``, each after a CPU/CUDA agreement on the
+    small graph: scalable_sage (``run_loop --model scalable_sage``
+    defaults, B2 once a step at [512, 10]), gat and gat_heads4 (``--model
+    gat``, one and four heads, B2 once a step at [512, 5]); B1 never.
+    Each then evaluates on held-out roots."""
+    max_id = graph.max_node_id
+    runs = {}
+    for name, make, count in (
+            ("scalable_sage", scalable_sage, SSAGE_FANOUT),
+            ("gat", gat, GAT_NB),
+            ("gat_heads4", lambda m, d: gat(m, d, GAT_HEADS4), GAT_NB)):
+        t0 = time.perf_counter()
+        agree_cpu_cuda(make(small.max_node_id, 32), small, seed, name)
+        model = make(max_id, PPI_DIM)
+        runs[name] = train_full(
+            model, graph, seed, smi, name, PPI_BATCH * count,
+            f"{PPI_BATCH} * {count} sampled edges/step",
+            after=evaluate_held_out(model, graph, seed, name))
+        expect = {"sample_fanout2": 0, "sample_neighbor": runs[name]["steps"]}
+        if runs[name]["launches"] != expect:
+            raise AssertionError(f"{name} launches {runs[name]['launches']}, "
+                                 f"expected {expect}")
+        log(f"{name} path: {time.perf_counter() - t0:.1f} s")
     return runs
 
 

@@ -58,11 +58,28 @@ def _aggregator(cls: str, tree, prefix: str = "") -> dict:
     return sd
 
 
+def _att_head(tree, prefix: str) -> dict:
+    """A GAT attention head: the bias-free projection ``Dense_0``, the
+    two width-1 gates ``Dense_1`` and ``Dense_2`` (flax ``nn.Dense``s,
+    not wrapped) and the output ``bias``."""
+    sd = {}
+    for i, attr in enumerate(("fts", "f1", "f2")):
+        sd.update(_linear(tree[f"Dense_{i}"], f"{prefix}.{attr}"))
+    sd[f"{prefix}.bias"] = torch.from_numpy(np.array(tree["bias"]))
+    return sd
+
+
 def _encoder(enc, prefix: str) -> dict:
-    """A SageEncoder or GCNEncoder: ``{Cls}_{l}`` is layer l's
-    aggregator, the port's ``aggregators.{l}``."""
+    """A SageEncoder, GCNEncoder or ScalableSageEncoder: ``{Cls}_{l}`` is
+    layer l's aggregator, the port's ``aggregators.{l}``. An AttEncoder:
+    ``_AttHead_{i}`` is the port's ``heads.{i}`` (the hidden round first,
+    then the output round)."""
     sd = {}
     for key, tree in enc.items():
+        head = re.fullmatch(r"_AttHead_(\d+)", key)
+        if head:
+            sd.update(_att_head(tree, f"{prefix}.heads.{head.group(1)}"))
+            continue
         cls, layer = re.fullmatch(r"(\w+Aggregator)_(\d+)", key).groups()
         sd.update(_aggregator(cls, tree, f"{prefix}.aggregators.{layer}"))
     return sd
@@ -93,11 +110,12 @@ def _shallow(enc, prefix: str) -> dict:
 
 def params_from_flax(params) -> dict:
     """State dict of a port module from the params tree of its flax
-    counterpart (nested dicts of arrays): the SageEncoder or GCNEncoder
-    towers ``encoder`` (and ``context_encoder`` of the unsupervised
-    GraphSAGE), the classifier ``predict/{kernel,bias}``, the
-    ShallowEncoders ``node_encoder`` (GCN), ``target`` and ``context``
-    (LINE, Node2Vec), and ScalableGCN's layers ``aggs_{l}``."""
+    counterpart (nested dicts of arrays): the SageEncoder, GCNEncoder,
+    ScalableSageEncoder or AttEncoder towers ``encoder`` (and
+    ``context_encoder`` of the unsupervised GraphSAGE), the classifier
+    ``predict/{kernel,bias}``, the ShallowEncoders ``node_encoder`` (GCN,
+    ScalableSage), ``target`` and ``context`` (LINE, Node2Vec), and
+    ScalableGCN's layers ``aggs_{l}``."""
     sd = {}
     for tower in ("encoder", "context_encoder"):
         if tower in params:
@@ -116,9 +134,9 @@ def params_from_flax(params) -> dict:
 
 
 def load_stores(state: dict, stores, grad_stores) -> None:
-    """Copy a JAX ScalableStoreModel state's ``stores`` and
-    ``grad_stores`` (arrays of ``[max_id+2, dim]``, one a store) into a
-    port state's, in place."""
+    """Copy a JAX ScalableStoreModel state's (ScalableGCN, ScalableSage)
+    ``stores`` and ``grad_stores`` (arrays of ``[max_id+2, dim]``, one a
+    store) into a port state's, in place."""
     for name, arrays in (("stores", stores), ("grad_stores", grad_stores)):
         if len(arrays) != len(state[name]):
             raise ValueError(f"{name}: {len(arrays)} arrays for "

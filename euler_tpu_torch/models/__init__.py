@@ -2,10 +2,12 @@
 
 from euler_tpu_torch.models.base import (Model, ModelOutput,
                                          ScalableStoreModel)
+from euler_tpu_torch.models.gat import GAT
 from euler_tpu_torch.models.gcn import ScalableGCN, SupervisedGCN
-from euler_tpu_torch.models.graphsage import GraphSage, SupervisedGraphSage
+from euler_tpu_torch.models.graphsage import (GraphSage, ScalableSage,
+                                              SupervisedGraphSage)
 from euler_tpu_torch.models.shallow import LINE, Node2Vec
 
-__all__ = ["GraphSage", "LINE", "Model", "ModelOutput", "Node2Vec",
-           "ScalableGCN", "ScalableStoreModel", "SupervisedGCN",
-           "SupervisedGraphSage"]
+__all__ = ["GAT", "GraphSage", "LINE", "Model", "ModelOutput", "Node2Vec",
+           "ScalableGCN", "ScalableSage", "ScalableStoreModel",
+           "SupervisedGCN", "SupervisedGraphSage"]

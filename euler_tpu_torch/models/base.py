@@ -98,6 +98,46 @@ def _feature_table_dtype(name: str) -> torch.dtype:
     return dtype
 
 
+def check_device_mode(name, device_features, device_sampling, feature_idx,
+                      max_id, metapath=(), fanouts=()) -> None:
+    """The configuration the GraphSAGE models and GAT run: device
+    features and device sampling, a feature table of max_id+2 rows, one
+    edge-type set a hop."""
+    if not (device_features and device_sampling):
+        raise NotImplementedError(
+            f"euler_tpu_torch runs {name} with device_features=True and "
+            "device_sampling=True; host sampling needs the graph engine "
+            "client, not ported yet"
+        )
+    if feature_idx < 0 or max_id < 0:
+        raise ValueError(
+            "device features need feature_idx >= 0 and max_id >= 0 (the "
+            "feature/label tables are sized max_id+2)"
+        )
+    if len(metapath) != len(fanouts):
+        raise ValueError("metapath needs one edge-type set per fanout")
+
+
+def id_feats(ids, use_id: bool) -> dict:
+    """One node set's encoder inputs in device-sampling mode: the
+    feature-table indices ``"gids"``, which double as embedding ids
+    (``"ids"``) under ``use_id``."""
+    return {"gids": ids, "ids": ids} if use_id else {"gids": ids}
+
+
+def write_rows_last_wins(table, ids, rows) -> None:
+    """``table[ids] = rows`` in place, where an id repeated in ``ids``
+    takes the row of its last occurrence, as the JAX package's
+    ``.at[ids].set(rows)`` does on the CPU. Every occurrence of an id
+    writes that same row, so the write is deterministic on CUDA too, and
+    takes no host sync."""
+    pos = torch.arange(ids.shape[0], device=ids.device)
+    last = torch.full((table.shape[0],), -1, dtype=torch.int64,
+                      device=ids.device)
+    last.scatter_reduce_(0, ids, pos, reduce="amax")
+    table.index_copy_(0, ids, rows.index_select(0, last.index_select(0, ids)))
+
+
 def lookup_labels(consts: dict, root_ids):
     """Labels for a supervised batch, gathered from the device label
     table at ``root_ids`` (host-gathered labels come with host sampling,
@@ -332,6 +372,18 @@ class Model:
 
         return embed_step
 
+    def make_eval_step(self):
+        """``eval(state, batch) -> (loss, metric)``: the module's forward
+        over one batch with the state's tables, without gradients or
+        updates."""
+
+        def eval_step(state, batch):
+            with torch.no_grad():
+                out = state["module"](batch, state["consts"])
+            return out.loss, out.metric
+
+        return eval_step
+
 
 def _grads_or_zeros(loss, tensors, retain_graph: bool = False) -> list:
     """d(loss)/d(tensors), zeros where ``loss`` does not reach a tensor
@@ -363,7 +415,8 @@ class ScalableStoreModel(Model):
     4. the main Adam steps on d(loss), then the store Adam on d(store_loss);
     5. ``grad_stores[neigh_ids] += d(loss + store_loss)/d(reads)``,
        duplicate ids adding;
-    6. ``stores[node_ids] = emb`` (detached).
+    6. ``stores[node_ids] = emb`` (detached); a root drawn twice keeps
+       the row of its last occurrence (``write_rows_last_wins``).
 
     Subclasses set ``num_layers``, ``dim``, ``max_id``,
     ``store_learning_rate`` and ``store_init_maxval``, and give a module
@@ -443,7 +496,7 @@ class ScalableStoreModel(Model):
             for p, g in zip(params, g_main):  # .grad keeps d(loss)
                 p.grad = g
             for s, emb in zip(state["stores"], node_embs):
-                s.index_copy_(0, node_ids, emb.detach())
+                write_rows_last_wins(s, node_ids, emb.detach())
             return loss.detach(), metric.detach()
 
         return train_step

@@ -58,12 +58,6 @@ def _init(module, generator) -> None:
             m.reset_parameters(generator)
 
 
-def _feats(ids, use_id: bool) -> dict:
-    """One node set's encoder inputs: the ids double as embedding ids
-    under ``use_id``."""
-    return {"gids": ids, "ids": ids} if use_id else {"gids": ids}
-
-
 class _SupervisedGCNModule(nn.Module):
     def __init__(
         self,
@@ -102,7 +96,7 @@ class _SupervisedGCNModule(nn.Module):
         hops = device_graph.multi_hop_neighbor(adjs, batch["roots"],
                                                self.node_caps)
         node_sets = [batch["roots"]] + [h["nodes"] for h in hops]
-        return [_feats(i, self.use_id) for i in node_sets], hops
+        return [base.id_feats(i, self.use_id) for i in node_sets], hops
 
     def _forward(self, batch, consts):
         hops, adjs = self._hops_adjs(batch, consts)
@@ -376,8 +370,8 @@ class ScalableGCN(base.ScalableStoreModel):
         mask = (torch.arange(width, dtype=torch.int32, device=dev)[None, :]
                 < slab["deg"].index_select(0, rows)[:, None])
         return {
-            "node_feats": _feats(roots, self.use_id),
-            "neigh_feats": _feats(flat, self.use_id),
+            "node_feats": base.id_feats(roots, self.use_id),
+            "neigh_feats": base.id_feats(flat, self.use_id),
             "node_ids": roots,
             "neigh_ids": flat,
             "adj": {

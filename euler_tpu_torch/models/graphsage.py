@@ -1,5 +1,5 @@
-"""GraphSAGE, supervised and unsupervised (counterpart of
-``euler_tpu/models/graphsage.py``).
+"""GraphSAGE, supervised and unsupervised, and ScalableSage (counterpart
+of ``euler_tpu/models/graphsage.py``).
 
 Device-sampling mode is the main path: the batch is root ids and a seed,
 the fanouts are drawn on the device (over slabs, the chained two-hop
@@ -8,8 +8,12 @@ positives; over alias tables, the plain alias draw), and features and
 labels are gathered from device tables. The modules also
 take host-given node sets (``{"hops": ...}``, ``{"src_hops": ...,
 "pos_hops": ..., "neg_hops": ...}``), so they can be held against the flax
-modules without any sampling. Host-sampling mode needs the engine client,
-which is not ported yet.
+modules without any sampling. ScalableSage draws one hop a step through
+the single-hop kernel and reads deeper layers from the stores of
+``models.base.ScalableStoreModel``; its module also takes host-given
+``{"node_feats": ..., "neigh_feats": ..., "node_ids": ..., "neigh_ids":
+...}`` batches. Host-sampling mode needs the engine client, which is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -21,27 +25,9 @@ from torch import nn
 from euler_tpu_torch.graph import device as device_graph
 from euler_tpu_torch.models import base
 from euler_tpu_torch.nn import metrics
-from euler_tpu_torch.nn.encoders import SageEncoder, ShallowEncoder
-from euler_tpu_torch.nn.layers import Dense
-
-
-def _check_device_mode(name, device_features, device_sampling, feature_idx,
-                       max_id, metapath, fanouts) -> None:
-    """The configuration the port runs: device features and device
-    sampling, a feature table of max_id+2 rows, one edge-type set a hop."""
-    if not (device_features and device_sampling):
-        raise NotImplementedError(
-            f"euler_tpu_torch runs {name} with device_features=True and "
-            "device_sampling=True; host sampling needs the graph engine "
-            "client, not ported yet"
-        )
-    if feature_idx < 0 or max_id < 0:
-        raise ValueError(
-            "device features need feature_idx >= 0 and max_id >= 0 (the "
-            "feature/label tables are sized max_id+2)"
-        )
-    if len(metapath) != len(fanouts):
-        raise ValueError("metapath needs one edge-type set per fanout")
+from euler_tpu_torch.nn.encoders import (ScalableSageEncoder, SageEncoder,
+                                         ShallowEncoder)
+from euler_tpu_torch.nn.layers import Dense, Embedding
 
 
 def _sampled_hops(consts, adj_keys, roots, fanouts, words, u):
@@ -121,6 +107,8 @@ class SupervisedGraphSage(base.Model):
     ("bfloat16") narrows the feature table; ``set_sampling_options``
     chooses capped slabs or alias tables."""
 
+    metric_name = "f1"
+
     def __init__(
         self,
         label_idx: int,
@@ -140,9 +128,9 @@ class SupervisedGraphSage(base.Model):
         train_node_type: int = -1,
         feature_dtype: Optional[str] = None,
     ):
-        _check_device_mode("SupervisedGraphSage", device_features,
-                           device_sampling, feature_idx, max_id, metapath,
-                           fanouts)
+        base.check_device_mode("SupervisedGraphSage", device_features,
+                               device_sampling, feature_idx, max_id,
+                               metapath, fanouts)
         self.feature_dtype = feature_dtype
         self.label_idx = label_idx
         self.label_dim = label_dim
@@ -173,6 +161,158 @@ class SupervisedGraphSage(base.Model):
             consts, graph, self.metapath, device,
             roots_type=self.train_node_type,
         )
+
+
+class _ScalableSageModule(nn.Module):
+    """ScalableSage's forward over one expanded batch: the roots' rows and
+    their 1-hop fanout's through the node encoder, then
+    ``ScalableSageEncoder`` with the store reads."""
+
+    def __init__(
+        self,
+        fanout: int,
+        num_layers: int,
+        dim: int,
+        num_classes: int,
+        feature_dim: int,
+        aggregator: str = "mean",
+        concat: bool = False,
+        sigmoid_loss: bool = True,
+        max_id: int = -1,
+        embedding_dim: int = 16,
+        generator=None,
+    ):
+        super().__init__()
+        self.sigmoid_loss = sigmoid_loss
+        self.node_encoder = ShallowEncoder(feature_dim=feature_dim,
+                                           max_id=max_id,
+                                           embedding_dim=embedding_dim)
+        self.encoder = ScalableSageEncoder(self.node_encoder.output_dim,
+                                           fanout, num_layers, dim,
+                                           aggregator, concat)
+        self.predict = Dense(dim, num_classes)
+        for m in self.modules():
+            if isinstance(m, (Dense, Embedding)):
+                m.reset_parameters(generator)
+
+    def forward_train(self, batch, store_reads, consts=None):
+        """(loss, f1 counts, every layer's node embeddings, the last)."""
+        node_feat = self.node_encoder(
+            base.gather_consts(batch["node_feats"], consts))
+        neigh_feat = self.node_encoder(
+            base.gather_consts(batch["neigh_feats"], consts))
+        emb, node_embeddings = self.encoder(node_feat, neigh_feat,
+                                            store_reads)
+        logits = self.predict(emb)
+        labels = base.lookup_labels(consts, batch["node_ids"])
+        loss, predictions = base.supervised_decoder(logits, labels,
+                                                    self.sigmoid_loss)
+        return (loss, metrics.f1_counts(labels, predictions),
+                node_embeddings, emb)
+
+    def forward(self, batch, store_reads, consts=None):
+        loss, f1c, _, emb = self.forward_train(batch, store_reads, consts)
+        return base.ModelOutput(embedding=emb, loss=loss, metric_name="f1",
+                                metric=f1c)
+
+
+class ScalableSage(base.ScalableStoreModel):
+    """ScalableSage: GraphSAGE whose receptive field is one sampled hop a
+    step. ``fanout`` neighbors of each root are drawn on the device (the
+    single-hop kernel on CUDA slabs); layer l > 0 reads the neighbors'
+    stale layer l-1 embeddings from the stores. Roots of
+    ``train_node_type`` are drawn on the device, so
+    ``train.make_scan_train`` drives it. Evaluation uses the same one hop
+    plus stale stores as training."""
+
+    metric_name = "f1"
+
+    def __init__(
+        self,
+        label_idx: int,
+        label_dim: int,
+        edge_type: Sequence[int],
+        fanout: int,
+        num_layers: int,
+        dim: int,
+        max_id: int,
+        aggregator: str = "mean",
+        concat: bool = False,
+        feature_idx: int = -1,
+        feature_dim: int = 0,
+        use_id: bool = False,
+        embedding_dim: int = 16,
+        store_learning_rate: float = 0.001,
+        store_init_maxval: float = 0.05,
+        num_classes: Optional[int] = None,
+        sigmoid_loss: bool = True,
+        device_features: bool = False,
+        feature_dtype: Optional[str] = None,
+        device_sampling: bool = False,
+        train_node_type: int = -1,
+    ):
+        base.check_device_mode("ScalableSage", device_features,
+                               device_sampling, feature_idx, max_id)
+        self.feature_dtype = feature_dtype
+        self.label_idx = label_idx
+        self.label_dim = label_dim
+        self.edge_type = list(edge_type)
+        self.fanout = fanout
+        self.num_layers = num_layers
+        self.dim = dim
+        self.max_id = max_id
+        self.feature_idx = feature_idx
+        self.feature_dim = feature_dim
+        self.use_id = use_id
+        self.store_learning_rate = store_learning_rate
+        self.store_init_maxval = store_init_maxval
+        self.train_node_type = train_node_type
+        self._module_kwargs = dict(
+            fanout=fanout,
+            num_layers=num_layers,
+            dim=dim,
+            num_classes=num_classes or label_dim,
+            feature_dim=feature_dim,
+            aggregator=aggregator,
+            concat=concat,
+            sigmoid_loss=sigmoid_loss,
+            max_id=max_id if use_id else -1,
+            embedding_dim=embedding_dim,
+        )
+
+    def make_module(self, generator=None) -> _ScalableSageModule:
+        return _ScalableSageModule(**self._module_kwargs,
+                                   generator=generator)
+
+    def build_consts(self, graph, device) -> dict:
+        consts = super().build_consts(graph, device)
+        return self.add_sampling_consts(consts, graph, [self.edge_type],
+                                        device,
+                                        roots_type=self.train_node_type)
+
+    def _expand_batch(self, batch, consts):
+        """The device expansion: ``fanout`` neighbors of each root drawn
+        from the ``edge_type`` adjacency with the step's Philox words
+        (``batch["u"]``, [B, fanout], injects uniforms in their place)."""
+        if "roots" not in batch:
+            return batch
+        roots = batch["roots"]
+        neigh = device_graph.neighbor_draw(
+            consts["adj"][self.adj_key(self.edge_type)], roots, self.fanout,
+            device_graph.seed_words(batch["seed"]), u=batch.get("u"),
+        ).reshape(-1)
+        return {
+            "node_feats": base.id_feats(roots, self.use_id),
+            "neigh_feats": base.id_feats(neigh, self.use_id),
+            "node_ids": roots,
+            "neigh_ids": neigh,
+        }
+
+    def sample(self, graph, inputs):
+        raise NotImplementedError(
+            "ScalableSage.sample draws on the host through the graph engine "
+            "client, not ported yet; device-sampling batches come from "
+            "device_sample_batch")
 
 
 # The Philox streams of one unsupervised step, in the order of the JAX
@@ -303,8 +443,9 @@ class GraphSage(base.Model):
         device_sampling: bool = False,
         feature_dtype: Optional[str] = None,
     ):
-        _check_device_mode("GraphSage", device_features, device_sampling,
-                           feature_idx, max_id, metapath, fanouts)
+        base.check_device_mode("GraphSage", device_features,
+                               device_sampling, feature_idx, max_id,
+                               metapath, fanouts)
         self.feature_dtype = feature_dtype
         self.node_type = node_type
         self.edge_type = list(edge_type)

@@ -7,6 +7,9 @@ rows of the device feature table). ``SageEncoder`` takes the per-hop
 list; hop h has n * prod(fanouts[:h]) rows, grouped by parent in
 row-major order. ``GCNEncoder`` takes the per-hop list and one padded
 COO adjacency a hop (``graph.device.multi_hop_neighbor``).
+``ScalableSageEncoder`` takes the roots' rows, their fanout's rows and the
+stale neighbor rows read from the stores; ``AttEncoder`` the [B, n, F]
+sequence of each root and its sampled neighbors.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from euler_tpu_torch.nn import aggregators as dense_aggs
@@ -88,6 +92,30 @@ class ShallowEncoder(nn.Module):
         return out
 
 
+def _dense_aggregators(in_dim: int, num_layers: int, dim: int,
+                       aggregator: str, concat: bool) -> nn.ModuleList:
+    """One dense aggregator a layer: layer 0 reads ``in_dim``-wide rows,
+    later layers ``dim``; ReLU on all layers but the last; ``concat``
+    passed to every class but the GCN aggregator, which has no concat
+    form."""
+    agg_cls = dense_aggs.get(aggregator)
+    if agg_cls is None:
+        raise ValueError(
+            f"aggregator {aggregator!r} is not ported; have "
+            f"{sorted(dense_aggs.AGGREGATORS)}"
+        )
+    kw = {} if agg_cls is dense_aggs.GCNAggregator else {"concat": concat}
+    return nn.ModuleList(
+        agg_cls(
+            in_dim if layer == 0 else dim,
+            dim,
+            activation=torch.relu if layer < num_layers - 1 else None,
+            **kw,
+        )
+        for layer in range(num_layers)
+    )
+
+
 class SageEncoder(nn.Module):
     """GraphSAGE aggregation over sampled fanouts: layer l aggregates hop
     h with hop h+1 for every hop still open; ReLU on all layers but the
@@ -96,25 +124,9 @@ class SageEncoder(nn.Module):
     def __init__(self, in_dim: int, fanouts: Sequence[int], dim: int,
                  aggregator: str = "mean", concat: bool = False):
         super().__init__()
-        agg_cls = dense_aggs.get(aggregator)
-        if agg_cls is None:
-            raise ValueError(
-                f"aggregator {aggregator!r} is not ported; have "
-                f"{sorted(dense_aggs.AGGREGATORS)}"
-            )
         self.fanouts = list(fanouts)
-        n = len(self.fanouts)
-        # the GCN aggregator has no concat form
-        kw = {} if agg_cls is dense_aggs.GCNAggregator else {"concat": concat}
-        self.aggregators = nn.ModuleList(
-            agg_cls(
-                in_dim if layer == 0 else dim,
-                dim,
-                activation=torch.relu if layer < n - 1 else None,
-                **kw,
-            )
-            for layer in range(n)
-        )
+        self.aggregators = _dense_aggregators(in_dim, len(self.fanouts), dim,
+                                              aggregator, concat)
 
     def forward(self, hidden: list):
         n = len(self.fanouts)
@@ -175,3 +187,83 @@ class GCNEncoder(nn.Module):
                 next_hidden.append(h)
             hidden = next_hidden
         return hidden[0]
+
+
+class ScalableSageEncoder(nn.Module):
+    """GraphSAGE with historical-embedding stores: layer 0 aggregates the
+    roots' rows with their sampled fanout's; layer l > 0 aggregates the
+    roots' layer l-1 embeddings with the stale neighbor embeddings read
+    from store l-1, so a step samples one hop only. The store reads and
+    writes live in ``models.base.ScalableStoreModel``'s step; this is the
+    pure function."""
+
+    def __init__(self, in_dim: int, fanout: int, num_layers: int, dim: int,
+                 aggregator: str = "mean", concat: bool = False):
+        super().__init__()
+        self.fanout = fanout
+        self.num_layers = num_layers
+        self.aggregators = _dense_aggregators(in_dim, num_layers, dim,
+                                              aggregator, concat)
+
+    def forward(self, node_feat, neigh_feat, store_reads: list):
+        """``node_feat`` [B, d0], ``neigh_feat`` [B*fanout, d0],
+        ``store_reads`` ``num_layers - 1`` tensors [B*fanout, dim].
+        Returns (final [B, dim], the node embeddings of every layer)."""
+        node_emb, neigh_emb = node_feat, neigh_feat
+        node_embeddings = []
+        for layer, agg in enumerate(self.aggregators):
+            d = node_emb.shape[-1]
+            node_emb = agg(node_emb, neigh_emb.reshape(-1, self.fanout, d))
+            node_embeddings.append(node_emb)
+            if layer < self.num_layers - 1:
+                neigh_emb = store_reads[layer]
+        return node_emb, node_embeddings
+
+
+class _AttHead(nn.Module):
+    """One all-pairs attention head over [B, n, F]: ``seq_fts = seq @ W``
+    (no bias), logits ``f1_i + f2_j`` from two width-1 Denses of
+    ``seq_fts``, a row softmax of their leaky ReLU (slope 0.01, flax's),
+    the weighted sum of ``seq_fts`` plus a bias, then ELU.
+
+    The leaky ReLU is flax's ``where(x >= 0, x, 0.01 x)``, whose slope at
+    exactly 0 is 1 (``F.leaky_relu``'s is 0.01). Logits of exactly 0 are
+    common: the default row's features are zeros, and the gates' biases
+    start at zero."""
+
+    def __init__(self, in_dim: int, out_size: int):
+        super().__init__()
+        self.fts = Dense(in_dim, out_size, use_bias=False)
+        self.f1 = Dense(out_size, 1)
+        self.f2 = Dense(out_size, 1)
+        self.bias = nn.Parameter(torch.zeros(out_size))
+
+    def forward(self, seq):
+        seq_fts = self.fts(seq)                                 # [B, n, out]
+        logits = self.f1(seq_fts) + self.f2(seq_fts).transpose(1, 2)
+        logits = torch.where(logits >= 0, logits, 0.01 * logits)
+        coefs = torch.softmax(logits, dim=-1)
+        return F.elu(torch.bmm(coefs, seq_fts) + self.bias)
+
+
+class AttEncoder(nn.Module):
+    """GAT attention over each root's sampled neighborhood, the [B, n, F]
+    sequence (the root at position 0): ``head_num`` hidden heads of
+    ``hidden_dim``, concatenated, then ``head_num`` output heads of
+    ``out_dim``, averaged; returns position 0. ``heads[:head_num]`` are
+    the hidden round and ``heads[head_num:]`` the output round, as flax
+    numbers them ``_AttHead_0`` to ``_AttHead_{2 head_num - 1}``."""
+
+    def __init__(self, in_dim: int, head_num: int = 1, hidden_dim: int = 256,
+                 out_dim: int = 1):
+        super().__init__()
+        self.head_num = head_num
+        self.heads = nn.ModuleList(
+            [_AttHead(in_dim, hidden_dim) for _ in range(head_num)]
+            + [_AttHead(hidden_dim * head_num, out_dim)
+               for _ in range(head_num)])
+
+    def forward(self, seq):
+        hidden, out = self.heads[:self.head_num], self.heads[self.head_num:]
+        h1 = torch.cat([head(seq) for head in hidden], dim=-1)
+        return (sum(head(h1) for head in out) / self.head_num)[:, 0, :]

@@ -9,6 +9,7 @@ import torch
 
 from euler_tpu_torch.device import resolve_device
 from euler_tpu_torch.graph import device as device_graph
+from euler_tpu_torch.nn import metrics
 
 OPTIMIZERS = {
     # optax.adam's defaults are torch's: b1 0.9, b2 0.999, eps 1e-8 added
@@ -25,6 +26,25 @@ def get_optimizer(name: str, lr: float):
             f"optimizer {name!r} is not ported; have {sorted(OPTIMIZERS)}"
         )
     return functools.partial(OPTIMIZERS[name], lr=lr)
+
+
+def _metric_value(name: str, acc) -> float:
+    if name == "f1":
+        return metrics.f1_from_counts(acc)
+    return float(acc[0] / max(acc[1], 1))  # running mean
+
+
+def _metric_accumulate(name: str, acc, value):
+    value = np.asarray(value)
+    if name == "f1":
+        return acc + value
+    return np.array([acc[0] + float(value), acc[1] + 1.0])
+
+
+def _metric_zero(name: str):
+    if name == "f1":
+        return np.zeros(3)
+    return np.zeros(2)
 
 
 def make_scan_train(model, inner_steps: int, batch_size: int):
@@ -52,6 +72,36 @@ def make_scan_train(model, inner_steps: int, batch_size: int):
         return state, torch.stack(losses)
 
     return scan_fn
+
+
+def evaluate(model, graph, source_iter, state, device=None, seed: int = 0,
+             log_fn=None) -> dict:
+    """Streaming evaluation over an iterator of root-id batches, on one
+    device: batch i is ``model.device_sample_batch(ids, seed + i)`` on
+    ``device`` (the card unless ``"cpu"`` is asked for), where ``state``
+    must live, run through ``model.make_eval_step()``. f1 accumulates its
+    [tp, fp, fn] counts over the batches, any other metric (mrr) a running
+    mean of the batch values. Returns ``{metric_name: value, "loss": mean
+    batch loss}`` and passes ``"eval: {...}"`` to ``log_fn`` when given.
+
+    ``graph`` is kept for the JAX package's signature: every port model
+    samples on the device, and host sampling (``model.sample``) waits for
+    the engine client. auc (no port model has it yet) and multi-process
+    evaluation are not ported."""
+    name = model.metric_name
+    dev = resolve_device(device)
+    eval_fn = model.make_eval_step()
+    acc = _metric_zero(name)
+    losses = []
+    for i, ids in enumerate(source_iter):
+        loss, metric = eval_fn(state, model.device_sample_batch(
+            ids, seed + i, device=dev))
+        acc = _metric_accumulate(name, acc, metric.cpu().numpy())
+        losses.append(float(loss))
+    result = {name: _metric_value(name, acc), "loss": float(np.mean(losses))}
+    if log_fn is not None:
+        log_fn(f"eval: {result}")
+    return result
 
 
 def save_embedding(model, max_id: int, state, batch_size: int = 1024,

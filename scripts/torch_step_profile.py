@@ -3,7 +3,7 @@
 
     python3 scripts/torch_step_profile.py [--model graphsage_supervised]
         [--aggregator mean] [--feature_dtype bfloat16] [--alias]
-        [--walk_p 1 --walk_q 1] [--steps 20] [--top 15]
+        [--walk_p 1 --walk_q 1] [--head_num 1] [--steps 20] [--top 15]
 
 ``--model graphsage_supervised`` (the default, the ppi recipe) and
 ``--model graphsage`` build the full synthetic PPI graph and train, at
@@ -28,8 +28,14 @@ with ``--walk_p``/``--walk_q`` (over the sorted slab), and with
 by ``sample_node`` over node type 0 each step (the model builds no roots
 sampler); ``--model scalable_gcn`` trains ``ScalableGCN`` (2 layers, dim
 256, slab rows of 10, store lr 0.001) through ``make_scan_train``.
-``--aggregator`` picks the aggregator of the GCN models (mean, gcn,
-attention) and of the GraphSAGE models (mean, gcn, meanpool, maxpool).
+``--model scalable_sage`` trains ``ScalableSage`` with ``run_loop --model
+scalable_sage --device_sampling``'s defaults (fanout 10, 2 layers, dim
+256, concat, store lr 0.001) and ``--model gat`` trains ``GAT`` with
+``--model gat``'s (``--head_num`` heads of hidden width 256, 5
+neighbors), both on the PPI graph through ``make_scan_train``, one
+single-hop draw a step. ``--aggregator`` picks the aggregator of the GCN
+models (mean, gcn, attention) and of the GraphSAGE models and
+ScalableSage (mean, gcn, meanpool, maxpool).
 
 Runs one warmup chunk of ``train.make_scan_train``, times one chunk, then
 profiles one chunk with ``torch.profiler`` (CPU + CUDA activities).
@@ -41,9 +47,11 @@ of the copies and dtype casts, the kernels by device time and, wherever
 they rank, the port's own draw kernels; then the launches and device
 time of one node-sampler draw alone, for the roots and (graphsage, the
 walk models) the Philox negatives, (node2vec) of one walk alone, (gcn)
-of one full-neighbor expansion alone, and (scalable_gcn) of the store
-bookkeeping's ops alone at the step's shapes (the two store reads, the
-zeroing, the scatter-add of the read gradients, the write-back).
+of one full-neighbor expansion alone, (scalable_gcn, scalable_sage) of
+the store bookkeeping's ops alone at the step's shapes (the two store
+reads, the zeroing, the scatter-add of the read gradients, the
+write-back), and (scalable_sage, gat) of the step's single-hop draw
+alone.
 """
 
 from __future__ import annotations
@@ -64,7 +72,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", default="graphsage_supervised",
                     choices=["graphsage_supervised", "graphsage", "reddit",
-                             "node2vec", "line", "gcn", "scalable_gcn"])
+                             "node2vec", "line", "gcn", "scalable_gcn",
+                             "scalable_sage", "gat"])
     ap.add_argument("--aggregator", default="mean",
                     choices=["mean", "gcn", "attention", "meanpool",
                              "maxpool"])
@@ -75,6 +84,8 @@ def main() -> int:
                     "alias tables")
     ap.add_argument("--walk_p", type=float, default=1.0)
     ap.add_argument("--walk_q", type=float, default=1.0)
+    ap.add_argument("--head_num", type=int, default=1,
+                    help="GAT's attention heads")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args()
@@ -82,9 +93,13 @@ def main() -> int:
         ap.error("--alias goes with --model reddit or node2vec")
     if (args.walk_p, args.walk_q) != (1.0, 1.0) and args.model != "node2vec":
         ap.error("--walk_p/--walk_q go with --model node2vec")
+    if args.head_num != 1 and args.model != "gat":
+        ap.error("--head_num goes with --model gat")
     gcn_family = args.model in ("gcn", "scalable_gcn")
     if args.aggregator in (("meanpool", "maxpool") if gcn_family
-                           else ("attention",)):
+                           else ("attention",)) or (
+                               args.model == "gat" and args.aggregator
+                               != "mean"):
         ap.error(f"--aggregator {args.aggregator} does not go with --model "
                  f"{args.model}")
     if not torch.cuda.is_available():
@@ -96,9 +111,9 @@ def main() -> int:
                                           build_powerlaw, build_synthetic)
     from euler_tpu_torch.graph import Graph
     from euler_tpu_torch.graph import device as device_graph
-    from euler_tpu_torch.models import (LINE, GraphSage, Node2Vec,
-                                        ScalableGCN, SupervisedGCN,
-                                        SupervisedGraphSage)
+    from euler_tpu_torch.models import (GAT, LINE, GraphSage, Node2Vec,
+                                        ScalableGCN, ScalableSage,
+                                        SupervisedGCN, SupervisedGraphSage)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(
@@ -108,7 +123,8 @@ def main() -> int:
     print(f"card: {smi}; torch {torch.__version__}; model {args.model}, "
           f"aggregator {args.aggregator}, "
           f"feature_dtype {args.feature_dtype}, alias {args.alias}, walk_p "
-          f"{args.walk_p}, walk_q {args.walk_q}", flush=True)
+          f"{args.walk_p}, walk_q {args.walk_q}, head_num {args.head_num}",
+          flush=True)
     t0 = time.perf_counter()
     if args.model == "reddit":
         batch, lr = 1000, 0.03
@@ -154,6 +170,20 @@ def main() -> int:
             model = ScalableGCN(edge_type=[0], num_layers=2,
                                 max_neighbors=10, train_node_type=0,
                                 **common)
+    elif args.model in ("scalable_sage", "gat"):
+        batch, lr = 512, 0.01
+        graph = Graph(**build_synthetic(**PPI))
+        common = dict(label_idx=0, label_dim=121, feature_idx=1,
+                      feature_dim=50, max_id=graph.max_node_id,
+                      device_features=True, device_sampling=True,
+                      feature_dtype=args.feature_dtype, train_node_type=0)
+        if args.model == "gat":
+            model = GAT(head_num=args.head_num, hidden_dim=256, nb_num=5,
+                        **common)
+        else:
+            model = ScalableSage(edge_type=[0], fanout=10, num_layers=2,
+                                 dim=256, aggregator=args.aggregator,
+                                 concat=True, **common)
     else:
         batch, lr = 512, 0.01
         graph = Graph(**build_synthetic(**PPI))
@@ -240,8 +270,16 @@ def main() -> int:
         adjs = [state["consts"]["adj"][k] for k in module.hop_adj_keys]
         draws["expansion"] = lambda: device_graph.multi_hop_neighbor(
             adjs, roots, module.node_caps)
-    if args.model == "scalable_gcn":
+    if args.model in ("scalable_sage", "gat"):
+        roots = device_graph.sample_node(
+            sampler, batch, generator=torch.Generator(device="cuda"))
+    if args.model in ("scalable_gcn", "scalable_sage"):
         draws["store bookkeeping"] = _store_ops(model, state, roots)
+    if args.model in ("scalable_sage", "gat"):
+        adj = state["consts"]["adj"]["et0"]
+        count = 10 if args.model == "scalable_sage" else 5
+        draws["single-hop draw"] = lambda: device_graph.neighbor_draw(
+            adj, roots, count, device_graph.seed_words(1))
     for name, draw in draws.items():
         draw()
         torch.cuda.synchronize()
@@ -252,7 +290,8 @@ def main() -> int:
         per = _per_kernel(prof)
         what = {"walk": "one walk",
                 "expansion": "one multi_hop_neighbor expansion",
-                "store bookkeeping": "the store bookkeeping's ops"}.get(
+                "store bookkeeping": "the store bookkeeping's ops",
+                "single-hop draw": "the step's single-hop draw"}.get(
                     name, f"sample_node ({name})")
         print(f"{what}: {sum(n for _, n in per.values())} "
               f"launches, {sum(us for us, _ in per.values()):.3f} device us")
@@ -283,8 +322,12 @@ def _store_ops(model, state, roots):
     """A callable running ScalableStoreModel's store bookkeeping alone on
     the state's stores at one batch's ids: the reads at the neighbors and
     the stale gradients at the nodes, the zeroing, the scatter-add of
-    [neighbors, dim] gradients and the write-back of [nodes, dim] rows."""
-    batch = model._expand_batch({"roots": roots}, state["consts"])
+    [neighbors, dim] gradients and the write-back of [nodes, dim] rows,
+    the last occurrence of a repeated id winning."""
+    from euler_tpu_torch.models.base import write_rows_last_wins
+
+    batch = model._expand_batch({"roots": roots, "seed": 1},
+                                state["consts"])
     node_ids = batch["node_ids"].long()
     neigh_ids = batch["neigh_ids"].long()
     dim = state["stores"][0].shape[1]
@@ -297,7 +340,7 @@ def _store_ops(model, state, roots):
             gs.index_select(0, node_ids)
             gs.index_fill_(0, node_ids, 0.0)
             gs.index_add_(0, neigh_ids, g)
-            s.index_copy_(0, node_ids, emb)
+            write_rows_last_wins(s, node_ids, emb)
 
     return ops
 
