@@ -49,7 +49,17 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    picks are compared (float32 cumsums may round apart: the differing
    picks are counted, every pick must be a legal transition); and
    ``alias_biased_random_walk`` over (k)'s graph's sorted alias tables
-   equals the same walk on CPU tensors bit for bit. Each kernel time is
+   equals the same walk on CPU tensors bit for bit; (n) on a
+   heterogeneous variant of the ppi graph (each edge typed 0 or 1 by a
+   seeded coin, four node types, uint64 slot 0 the node's own id), B1
+   over two distinct slabs of different widths (hop 1 over et0 or et1,
+   hop 2 over et0_1, as the lasgnn path launches it) equals its plain
+   version at [512, 10, 10] and [1,024, 10, 10], and B2 over et0 at
+   lshne's [512, 1] equals its own, with injected and Philox uniforms, on
+   the same kinds of odd roots, each timed as in (c); (o) ``sample_node_with_src`` (plain PyTorch, no kernel) on CUDA
+   tensors equals the same draw on CPU tensors bit for bit at the lshne
+   shape (6,144 sources x 5), every pick of its source's type and sources
+   of unknown type drawing type 0, and is timed. Each kernel time is
    taken warm (``ms``), with the L2 cache flushed by a 128 MiB write
    before each launch (``ms_cold``), and beside ``floor_ms``, an empty
    kernel at the kernel's grid under the same timer, and ``bound_ms``,
@@ -85,8 +95,20 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    neighbors, 121 classes: gat with one head, gat_heads4 with four, the
    hidden widths of the GAT paper's PPI model: B2 at [512, 5]); after
    training, each runs ``train.evaluate`` over 10 batches of 512 roots
-   that were never a training root and prints f1 and loss. Then
-   ``bench.py``'s reddit recipe (batch 1,000,
+   that were never a training root and prints f1 and loss. Then the
+   sparse-feature models on the heterogeneous variant, each after a small
+   CPU/CUDA agreement: ``LsHNE`` at ``run_loop --model lshne
+   --device_sampling``'s defaults (one view of two [[0], [0], [0]]
+   metapaths, dim 128, hidden 256, slot 0 embedded at 16, windows 1/1, 5
+   typed negatives over 20 types, batch 512) through
+   ``train.make_scan_train``: lshne, B2 six times a step at [512, 1], B1
+   never, peak allocated memory under 2 GB; and ``LasGNN`` (the JAX
+   package's target/context metapaths at fanouts [10, 10], dim 256, mean,
+   batch 512) on inputs drawn on the card (half the rows a target with
+   two of its neighbors, label 1; half with two sampled nodes, label 0)
+   through ``make_train_step``: lasgnn, B1 three times a step, B2 never;
+   each then runs ``train.evaluate`` over 10 batches and prints mrr or
+   auc. Then ``bench.py``'s reddit recipe (batch 1,000,
    fanouts [4, 4], dim 64, Adam 0.03, 602 features, 41 one-hot labels,
    sigmoid loss): reddit (B1 once per step), reddit_bf16 (the same with a
    bfloat16 feature table) and reddit_heavytail (the power-law graph at
@@ -152,6 +174,25 @@ SSAGE_FANOUT = PPI_FANOUTS[0]
 GAT_NB = 5
 GAT_HEADS4 = 4
 EVAL_BATCHES = 10
+# the sparse-feature cells' heterogeneous ppi variant: two edge types (a
+# seeded coin an edge), four node types, uint64 slot 0 the node's own id
+HET_NODE_TYPES = 4
+# run_loop --model lshne --device_sampling's defaults (run_loop.py:689-700,
+# 139-192): one view of two 3-step metapaths over edge type 0, windows
+# 1/1, so pair_count(4, 1, 1) = 6 pairs a walk and 12 a root; 5 typed
+# negatives over src_type_num 20 types
+LSHNE_PATTERNS = [[[[0], [0], [0]], [[0], [0], [0]]]]
+LSHNE_DIM = 128
+LSHNE_NEGS = 5
+LSHNE_TYPES = 20
+LSHNE_PAIRS = PPI_BATCH * 12
+# LasGNN's structure in the JAX package's tests (test_device_graph.py:
+# 821-833) at run_loop's widths: the target over [0] then [0, 1], the
+# context (two nodes a row) over that and over [1] then [0, 1]
+LASGNN_METAPATHS = [[[[0], [0, 1]]], [[[0], [0, 1]], [[1], [0, 1]]]]
+LASGNN_GROUP_SIZES = [1, 2]
+# B1's root counts on the lasgnn path: the targets and the context
+HET_B1_ROOTS = (PPI_BATCH, PPI_BATCH * 2)
 # the single-hop draw's shapes: the unsupervised positives, a hop-2 shape
 # of the ppi fanout (512 * 10 rows, 10 draws each), ScalableSage's draw
 # and GAT's, each a hop-0 draw on the roots
@@ -263,6 +304,26 @@ def weighted_variant(data: dict, zero_rows, seed: int) -> dict:
         w[data["indptr"][r]:data["indptr"][r + 1]] = 0.0
     out["weights"] = w
     return out
+
+
+def hetero_variant(data: dict, seed: int) -> dict:
+    """The graph with each edge typed 0 or 1 by a seeded coin (each node's
+    edges re-bucketed into its two (node, edge type) groups), node types
+    drawn uniformly from ``HET_NODE_TYPES``, and a uint64 slot 0 holding
+    each node's own id (so a sparse table of max_id + 2 rows embeds the
+    ids, as run_loop's lshne sizes it)."""
+    rng = np.random.default_rng(seed)
+    n = len(data["node_weights"])
+    rows = np.repeat(np.arange(n), np.diff(data["indptr"]))
+    key = rows * 2 + rng.integers(0, 2, len(rows))
+    order = np.argsort(key, kind="stable")
+    indptr = np.zeros(2 * n + 1, np.int64)
+    np.cumsum(np.bincount(key, minlength=2 * n), out=indptr[1:])
+    return dict(
+        data, indptr=indptr, indices=data["indices"][order],
+        weights=data["weights"][order], edge_type_num=2,
+        node_types=rng.integers(0, HET_NODE_TYPES, n).astype(np.int32),
+        sparse_features=[(np.arange(n + 1), np.arange(n))])
 
 
 def check_members(adj: dict, rows, picks) -> None:
@@ -395,17 +456,197 @@ def phase_kernel(seed: int):
     b2["shapes"].append(check_walks(adj, adj_w, sampler, zero_rows, seed,
                                     flush))
     check_biased(graph_w, pl_graph, zero_rows, seed)
-    return graph, reddit, {"sample_fanout2": b1, "sample_neighbor": b2}
+    t0 = time.perf_counter()
+    hetero = Graph(**hetero_variant(data, seed + 3))
+    hetero_w = Graph(**hetero_variant(weighted_variant(data, zero_rows, seed),
+                                      seed + 3))
+    log(f"(n) heterogeneous ppi variants (2 edge types, {HET_NODE_TYPES} "
+        f"node types, uint64 slot 0 = the node's id) built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    het = check_hetero_draws(hetero, hetero_w, zero_rows, seed, flush)
+    for b, (timed_h, err_h) in zip((b1, b2), het):
+        b["shapes"] += timed_h
+        b["max_abs_err"] = max(b["max_abs_err"], err_h)
+        b["exact_vs_plain"] = b["max_abs_err"] == 0
+    check_typed_negatives(hetero, seed)
+    return graph, hetero, reddit, {"sample_fanout2": b1, "sample_neighbor": b2}
+
+
+def het_slabs(graph, dev) -> dict:
+    """The et0, et1 and et0_1 slabs of a heterogeneous variant on ``dev``."""
+    from euler_tpu_torch.graph import device as device_graph
+
+    return {f"et{'_'.join(map(str, et))}": device_graph.tensors(
+        device_graph.build_adjacency(graph, et, graph.max_node_id), dev)
+        for et in ([0], [1], [0, 1])}
+
+
+def check_hetero_draws(hetero, hetero_w, zero_rows, seed: int, flush):
+    """Phase 3 (n): B1 over two distinct slabs of different widths (hop 1
+    over et0 or et1, hop 2 over et0_1), as the lasgnn path launches it,
+    equals ``sample_fanout2_reference`` exactly at [512, 10, 10] and
+    [1,024, 10, 10], and B2 over et0 at [512, 1] (a step of lshne's
+    walks) equals ``sample_neighbor_reference``, each with injected and
+    Philox uniforms, on the weighted variant's slabs from roots led by a
+    negative id, one past the slabs, the default row and zero-weight
+    rows; then each is timed on the main paths' slabs as in (c). Returns
+    (timing records, max |diff|) for B1, then for B2."""
+    from euler_tpu_torch.graph import sampling_kernels
+    from euler_tpu_torch.graph import device as device_graph
+
+    dev = torch.device("cuda")
+    max_id = hetero.max_node_id
+    slabs, slabs_w = het_slabs(hetero, dev), het_slabs(hetero_w, dev)
+    widths = {k: a["nbr"].shape[1] for k, a in slabs.items()}
+    log(f"(n) slab widths {widths} (weighted variant "
+        f"{ {k: a['nbr'].shape[1] for k, a in slabs_w.items()} })")
+    if widths["et0"] == widths["et0_1"] or widths["et1"] == widths["et0_1"]:
+        raise AssertionError(f"the hop slabs must differ in width: {widths}")
+    gen = torch.Generator(device=dev).manual_seed(seed + 110)
+    words = device_graph.stream_words(seed + 11011, (1 << 8) | 1)
+    f1, f2 = PPI_FANOUTS
+    max_err, timed = 0, []
+    for first in ("et0", "et1"):
+        for m in HET_B1_ROOTS:
+            roots = odd_nodes(m, max_id, zero_rows, gen)
+            max_err = max(max_err, fanout2_exact(
+                slabs_w[first], roots, words, f1, f2, 3 + len(zero_rows),
+                gen, "n", adj2=slabs_w["et0_1"]))
+    sampler = device_graph.tensors(
+        device_graph.build_node_sampler(hetero, -1, max_id), dev)
+    a2 = slabs["et0_1"]
+    probs = {k: torch.diff(a["cum"], dim=1,
+                           prepend=a["cum"].new_zeros(a["cum"].shape[0], 1))
+             for k, a in slabs.items()}
+    for first, m in (("et0", HET_B1_ROOTS[0]), ("et0", HET_B1_ROOTS[1]),
+                     ("et1", HET_B1_ROOTS[1])):
+        a1 = slabs[first]
+        roots_t = device_graph.sample_node(sampler, m, generator=gen)
+        kern = lambda: sampling_kernels.sample_fanout2(  # noqa: E731
+            a1, a2, roots_t, words, f1, f2)
+        plain = lambda: sampling_kernels.sample_fanout2_reference(  # noqa: E731
+            a1, a2, roots_t, words, f1, f2)
+
+        def library():  # one torch.multinomial per hop over gathered rows
+            r1 = roots_t.long()
+            i1 = torch.multinomial(probs[first][r1], f1, replacement=True)
+            hop1 = a1["nbr"][r1].gather(1, i1).reshape(-1).long()
+            i2 = torch.multinomial(probs["et0_1"][hop1], f2,
+                                   replacement=True)
+            return a2["nbr"][hop1].gather(1, i2)
+
+        t = time_draw(kern, plain, library, m * f1, flush)
+        h1, h2 = kern()
+        b = draw_bound(None, ((roots_t, h1), (h1, h2)), m, adjs=(a1, a2))
+        log(f"(n) sample_fanout2 at [{m}, {f1}, {f2}] over {first} "
+            f"(W={widths[first]}) then et0_1 (W={widths['et0_1']}): "
+            f"{describe(t)}, {describe_bound(b)}")
+        timed.append(dict(shape=[m, f1, f2], slabs=[first, "et0_1"],
+                          width=[widths[first], widths["et0_1"]], **t,
+                          bound_ms=b["bound_ms"], bound_by=b["bound_by"]))
+
+    m, a = PPI_BATCH, slabs_w["et0"]
+    nodes = odd_nodes(m, max_id, zero_rows, gen)
+    u = torch.rand((m, 1), generator=gen, device=dev)
+    b2_err = 0
+    for mode, uu in (("injected", u), ("philox", None)):
+        k = sampling_kernels.sample_neighbor(a, nodes, words, 1, hop=2, u=uu)
+        p = sampling_kernels.sample_neighbor_reference(a, nodes, words, 1,
+                                                       hop=2, u=uu)
+        torch.cuda.synchronize()
+        err = int((k - p).abs().max())
+        b2_err = max(b2_err, err)
+        if not torch.equal(k, p):
+            raise AssertionError(f"sample_neighbor != plain over et0 at "
+                                 f"[{m}, 1] ({mode}): max |diff| {err}")
+        if not bool((k[:3 + len(zero_rows)] == max_id + 1).all()):
+            raise AssertionError("unknown, default and zero-weight rows "
+                                 "must draw the default id")
+        check_members(a, nodes, k)
+        log(f"(n) {mode} uniforms: sample_neighbor == plain at [{m}, 1] over "
+            f"et0 (W={widths['et0']}), max |diff| {err}")
+    a = slabs["et0"]
+    nodes = device_graph.sample_node(sampler, m, generator=gen)
+    rows = nodes.long()
+    kern = lambda: sampling_kernels.sample_neighbor(  # noqa: E731
+        a, nodes, words, 1, hop=2)
+    plain = lambda: sampling_kernels.sample_neighbor_reference(  # noqa: E731
+        a, nodes, words, 1, hop=2)
+
+    def library():  # one torch.multinomial over the gathered rows
+        idx = torch.multinomial(probs["et0"][rows], 1, replacement=True)
+        return a["nbr"][rows].gather(1, idx)
+
+    t = time_draw(kern, plain, library, m, flush)
+    b = draw_bound(a, ((nodes, kern()),), m)
+    log(f"(n) sample_neighbor at [{m}, 1] over et0 (W={widths['et0']}): "
+        f"{describe(t)}, {describe_bound(b)}")
+    return (timed, max_err), ([dict(shape=[m, 1], slabs=["et0"],
+                                    width=[widths["et0"]], **t,
+                                    bound_ms=b["bound_ms"],
+                                    bound_by=b["bound_by"])], b2_err)
+
+
+def check_typed_negatives(hetero, seed: int) -> None:
+    """Phase 3 (o): ``sample_node_with_src`` (plain PyTorch, no kernel)
+    on CUDA tensors equals the same draw on CPU tensors bit for bit at
+    the lshne shape (6,144 sources x 5, Philox uniforms), over the typed
+    sampler of ``LSHNE_TYPES`` types; every pick has its source's type,
+    sources of unknown type (a negative id, one past the table, the
+    default row) draw type 0; no kernel launches. Prints its device
+    time."""
+    from euler_tpu_torch.graph import sampling_kernels
+    from euler_tpu_torch.graph import device as device_graph
+
+    max_id = hetero.max_node_id
+    t0 = time.perf_counter()
+    table = device_graph.build_typed_node_sampler(hetero, LSHNE_TYPES, max_id)
+    gpu = device_graph.tensors(table, "cuda")
+    cpu = device_graph.tensors(table, "cpu")
+    log(f"(o) typed node sampler over {LSHNE_TYPES} types built in "
+        f"{time.perf_counter() - t0:.2f} s: {int(table['off'][-1])} nodes, "
+        f"{len(table['seg_cum'])} sub-segments")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 120)
+    src = odd_nodes(LSHNE_PAIRS, max_id, [], gen)
+    words = device_graph.stream_words(seed + 12012, 1)
+    before = dict(sampling_kernels.launches)
+    on_card = device_graph.sample_node_with_src(gpu, src, LSHNE_NEGS, words)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in sampling_kernels.launches.items()}
+    on_cpu = device_graph.sample_node_with_src(cpu, src.cpu(), LSHNE_NEGS,
+                                               words)
+    if not torch.equal(on_card.cpu(), on_cpu):
+        raise AssertionError(
+            f"sample_node_with_src differs between CUDA and CPU in "
+            f"{int((on_card.cpu() != on_cpu).sum())} picks")
+    if any(launched.values()):
+        raise AssertionError(f"sample_node_with_src launched {launched}")
+    types = torch.as_tensor(table["types"])
+    src_t = types[torch.where(src.cpu() < 0, max_id + 1,
+                              src.cpu().clamp(max=max_id + 1)).long()]
+    src_t = src_t.clamp(min=0)
+    pick_t = types[on_cpu.long()]
+    if not bool((pick_t == src_t[:, None]).all()):
+        raise AssertionError("a typed negative is not of its source's type")
+    # one draw a spin: its some 540 launches fill the card's queue
+    ms = cuda_ms(lambda: device_graph.sample_node_with_src(
+        gpu, src, LSHNE_NEGS, words), runs=50, batch=1)
+    log(f"(o) philox uniforms: sample_node_with_src on CUDA == on CPU at "
+        f"[{LSHNE_PAIRS}, {LSHNE_NEGS}], every pick of its source's type "
+        f"(3 unknown-type sources drew type 0), launches {launched}; "
+        f"{ms:.4f} ms on the card (CUDA events, median of 50)")
 
 
 def fanout2_exact(adj_w, roots, words, f1: int, f2: int, n_default: int,
-                  gen, tag: str) -> int:
+                  gen, tag: str, adj2=None) -> int:
     """B1 equals its plain version bit for bit on ``roots``, with Philox
     uniforms and, when ``gen`` is given, first with uniforms drawn from
-    it; the first ``n_default`` roots draw the default id and every pick
-    is a neighbor of its row. Returns the max |diff| (0)."""
+    it; hop 2 draws from ``adj2`` (default: ``adj_w`` again). The first
+    ``n_default`` roots draw the default id and every pick is a neighbor
+    of its row. Returns the max |diff| (0)."""
     from euler_tpu_torch.graph import sampling_kernels
 
+    adj2 = adj_w if adj2 is None else adj2
     m = roots.shape[0]
     default = adj_w["nbr"].shape[0] - 1
     modes = [("philox", (None, None))]
@@ -416,9 +657,9 @@ def fanout2_exact(adj_w, roots, words, f1: int, f2: int, n_default: int,
     max_err = 0
     for mode, (a, b) in modes:
         k1, k2 = sampling_kernels.sample_fanout2(
-            adj_w, adj_w, roots, words, f1, f2, u1=a, u2=b)
+            adj_w, adj2, roots, words, f1, f2, u1=a, u2=b)
         p1, p2 = sampling_kernels.sample_fanout2_reference(
-            adj_w, adj_w, roots, words, f1, f2, u1=a, u2=b)
+            adj_w, adj2, roots, words, f1, f2, u1=a, u2=b)
         torch.cuda.synchronize()
         err = max(int((k1 - p1).abs().max()), int((k2 - p2).abs().max()))
         max_err = max(max_err, err)
@@ -429,9 +670,11 @@ def fanout2_exact(adj_w, roots, words, f1: int, f2: int, n_default: int,
             raise AssertionError("unknown, default and zero-weight roots "
                                  "must draw the default id")
         check_members(adj_w, roots, k1)
-        check_members(adj_w, k1.reshape(-1), k2)
+        check_members(adj2, k1.reshape(-1), k2)
+        widths = (f"W={adj_w['nbr'].shape[1]}" if adj2 is adj_w else
+                  f"W={adj_w['nbr'].shape[1]} then {adj2['nbr'].shape[1]}")
         log(f"({tag}) {mode} uniforms: kernel == plain at [{m}, {f1}] + "
-            f"[{m * f1}, {f2}], W={adj_w['nbr'].shape[1]}, max |diff| {err}")
+            f"[{m * f1}, {f2}], {widths}, max |diff| {err}")
     return max_err
 
 
@@ -824,28 +1067,37 @@ def odd_nodes(m: int, max_id: int, zero_rows, gen) -> torch.Tensor:
     return nodes
 
 
-def draw_bound(adj, hops, ids: int) -> dict:
+def draw_bound(adj, hops, ids: int, adjs=None) -> dict:
     """The least time the card could take for weighted draws over the slab
-    ``adj``, from this run's picks; ``hops`` holds one (rows, picks
-    [len(rows), count]) pair per hop. Bytes: the ``ids`` roots read, the
-    cum row and sampleable flag of each distinct row read once, one 4-byte
-    nbr entry per distinct (row, picked id) of a sampleable row (the draw
-    counts on cum, then reads only the slot it chose), every pick written.
-    Operations: one u >= cum compare per slot and draw."""
-    n_rows, width = adj["nbr"].shape
-    default = n_rows - 1
-    rows = [torch.where(r.reshape(-1) < 0, default,
-                        r.reshape(-1).clamp(max=default)).long()
-            for r, _ in hops]
-    uniq_rows = int(torch.unique(torch.cat(rows)).numel())
-    keys = []
-    for r, (_, p) in zip(rows, hops):
-        key = r[:, None] * n_rows + p.long()
-        keys.append(key[adj["sampleable"][r]])
-    reads = int(torch.unique(torch.cat(keys)).numel())
+    ``adj`` (or hop h over ``adjs[h]``), from this run's picks; ``hops``
+    holds one (rows, picks [len(rows), count]) pair per hop. Bytes: the
+    ``ids`` roots read, the cum row and sampleable flag of each distinct
+    row of each slab read once, one 4-byte nbr entry per distinct (row,
+    picked id) of a sampleable row of each slab (the draw counts on cum,
+    then reads only the slot it chose), every pick written. Operations:
+    one u >= cum compare per slot of its slab and draw."""
+    adjs = list(adjs) if adjs is not None else [adj] * len(hops)
+    by_slab = {}
+    for a, hop in zip(adjs, hops):
+        by_slab.setdefault(id(a), (a, []))[1].append(hop)
+    uniq_rows = reads = row_bytes = ops = 0
+    for a, slab_hops in by_slab.values():
+        n_rows, width = a["nbr"].shape
+        default = n_rows - 1
+        rows = [torch.where(r.reshape(-1) < 0, default,
+                            r.reshape(-1).clamp(max=default)).long()
+                for r, _ in slab_hops]
+        uniq = int(torch.unique(torch.cat(rows)).numel())
+        uniq_rows += uniq
+        row_bytes += uniq * (4 * width + 1)
+        keys = []
+        for r, (_, p) in zip(rows, slab_hops):
+            key = r[:, None] * n_rows + p.long()
+            keys.append(key[a["sampleable"][r]])
+        reads += int(torch.unique(torch.cat(keys)).numel())
+        ops += sum(p.numel() for _, p in slab_hops) * width
     picks = sum(p.numel() for _, p in hops)
-    bytes_moved = 4 * ids + uniq_rows * (4 * width + 1) + 4 * reads + 4 * picks
-    ops = picks * width
+    bytes_moved = 4 * ids + row_bytes + 4 * reads + 4 * picks
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -994,24 +1246,26 @@ def check_single_hop(adj, adj_w, roots, roots_c, zero_rows, seed, flush):
 
 
 def agree_cpu_cuda(model, graph, seed: int, name: str,
-                   lr: float = PPI_LR) -> None:
+                   lr: float = PPI_LR, inputs=None) -> None:
     """Three steps of ``model`` from the same init on the CPU (plain
-    draws) and on the card (kernels), on the same roots and seeds: first
-    loss rtol 1e-5, all losses rtol 1e-3, step-1 gradients within 1e-5 of
-    their scale (max |diff| / max(1, max |grad|): the unsupervised loss is
-    a sum over the batch, so its gradients run to tens)."""
+    draws) and on the card (kernels), on the same roots (or the model's
+    structured ``inputs``) and seeds: first loss rtol 1e-5, all losses
+    rtol 1e-3, step-1 gradients within 1e-5 of their scale (max |diff| /
+    max(1, max |grad|): the unsupervised loss is a sum over the batch, so
+    its gradients run to tens)."""
     from euler_tpu_torch import train
 
     opt = train.get_optimizer("adam", lr)
     st = {d: model.init_state(graph, opt, device=d, seed=seed)
           for d in ("cpu", "cuda")}
     step = model.make_train_step()
-    roots = np.random.default_rng(seed).integers(0, graph.num_nodes, 64)
+    if inputs is None:
+        inputs = np.random.default_rng(seed).integers(0, graph.num_nodes, 64)
     losses = {"cpu": [], "cuda": []}
     grads0 = {}
     for i in range(3):
         for d in ("cpu", "cuda"):
-            batch = model.device_sample_batch(roots, seed * 10 + i, device=d)
+            batch = model.device_sample_batch(inputs, seed * 10 + i, device=d)
             loss, _ = step(st[d], batch)
             losses[d].append(float(loss))
             if i == 0:
@@ -1033,6 +1287,8 @@ def table_bytes(consts) -> int:
     """Bytes of every tensor in a (nested) consts dict."""
     if isinstance(consts, dict):
         return sum(table_bytes(v) for v in consts.values())
+    if isinstance(consts, (list, tuple)):
+        return sum(table_bytes(v) for v in consts)
     return consts.numel() * consts.element_size()
 
 
@@ -1129,7 +1385,8 @@ def train_full(model, graph, seed: int, smi: str, name: str,
             raise AssertionError(f"{name}: the loss of the batches it "
                                  "trained on did not fall")
     step_ms = dt / (CHUNK_STEPS * TIMED_CHUNKS) * 1e3
-    runs = {"steps": steps, "launches": launches, "step_ms": step_ms}
+    runs = {"steps": steps, "launches": launches, "step_ms": step_ms,
+            "peak_bytes": torch.cuda.max_memory_allocated()}
     pairs = (f", {pairs_per_step} pairs/step, "
              f"{pairs_per_step / step_ms * 1e3:.1f} pairs/s"
              if pairs_per_step else "")
@@ -1145,10 +1402,10 @@ def train_full(model, graph, seed: int, smi: str, name: str,
     return runs
 
 
-def phase_train(graph, reddit, seed: int, smi: str) -> dict:
-    """The sixteen main paths; returns {path: {"steps", "launches",
-    "step_ms"}} (and the evaluation of the single-hop models under
-    "after")."""
+def phase_train(graph, hetero, reddit, seed: int, smi: str) -> dict:
+    """The eighteen main paths; returns {path: {"steps", "launches",
+    "step_ms", "peak_bytes"}} (and the held-out evaluation of the
+    single-hop and sparse-feature models under "after")."""
     log("== phase 4: train")
     from euler_tpu_torch.datasets import build_synthetic
     from euler_tpu_torch.graph import Graph
@@ -1196,6 +1453,7 @@ def phase_train(graph, reddit, seed: int, smi: str) -> dict:
             f"{expect}")
     runs.update(train_gcn(graph, small, seed, smi))
     runs.update(train_single_hop(graph, small, seed, smi))
+    runs.update(train_sparse(hetero, seed, smi))
     runs.update(train_walks(graph, small, seed, smi))
     reddit_runs, heavy = train_reddit(reddit, seed, smi)
     runs.update(reddit_runs)
@@ -1403,22 +1661,28 @@ def held_out_roots(sampler, batch: int, n_batches: int, seed: int):
         len(ids) - len(fresh))
 
 
-def evaluate_held_out(model, graph, seed: int, name: str):
+def evaluate_held_out(model, graph, seed: int, name: str, batches=None):
     """``after`` for ``train_full``: ``train.evaluate`` over EVAL_BATCHES
-    batches of held-out roots; f1 must lie in [0, 1] and the loss be
-    finite. Returns the result."""
+    batches of held-out roots (or the given ``batches`` of structured
+    inputs); the metric (f1, mrr or auc) must lie in [0, 1] and the loss
+    be finite. Returns the result."""
     from euler_tpu_torch import train
 
     def run(state):
-        batches, n_seen = held_out_roots(state["consts"]["roots"],
-                                         PPI_BATCH, EVAL_BATCHES, seed)
+        if batches is None:
+            items, n_seen = held_out_roots(state["consts"]["roots"],
+                                           PPI_BATCH, EVAL_BATCHES, seed)
+            what = (f"{PPI_BATCH} roots, none of the {n_seen} distinct "
+                    f"training roots among them")
+        else:
+            items, what = batches, "fresh structured inputs"
         t0 = time.perf_counter()
-        result = train.evaluate(model, graph, batches, state, device="cuda",
+        result = train.evaluate(model, graph, items, state, device="cuda",
                                 seed=10_000 + seed)
         log(f"{name} evaluate: {result} over {EVAL_BATCHES} batches of "
-            f"{PPI_BATCH} roots, none of the {n_seen} distinct training "
-            f"roots among them, in {time.perf_counter() - t0:.2f} s")
-        if not (0.0 <= result["f1"] <= 1.0 and np.isfinite(result["loss"])):
+            f"{what}, in {time.perf_counter() - t0:.2f} s")
+        metric = result[model.metric_name]
+        if not (0.0 <= metric <= 1.0 and np.isfinite(result["loss"])):
             raise AssertionError(f"{name} evaluate: {result}")
         return result
 
@@ -1450,6 +1714,140 @@ def train_single_hop(graph, small, seed: int, smi: str) -> dict:
             raise AssertionError(f"{name} launches {runs[name]['launches']}, "
                                  f"expected {expect}")
         log(f"{name} path: {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
+def lshne(max_id: int, dim: int = LSHNE_DIM):
+    """``run_loop --model lshne --device_sampling``'s model
+    (run_loop.py:689-700): roots of all node types, one view of two
+    [[0], [0], [0]] metapaths, dim 128, hidden 256, a sparse table of
+    max_id + 2 rows of 16 over slot 0 (16 ids a row at most), windows
+    1/1, 5 typed negatives over 20 types, gamma 5."""
+    from euler_tpu_torch.models import LsHNE
+
+    return LsHNE(node_type=-1, path_patterns=LSHNE_PATTERNS, max_id=max_id,
+                 dim=dim, sparse_feature_dims=[max_id + 2], feature_ids=[0],
+                 num_negs=LSHNE_NEGS, src_type_num=LSHNE_TYPES,
+                 device_sampling=True)
+
+
+def lasgnn(max_id: int, dim: int = PPI_DIM):
+    """LasGNN at run_loop's widths: ``LASGNN_METAPATHS``, group sizes
+    [1, 2], fanouts [10, 10], dim 256, mean aggregation, slot 0 over
+    max_id + 1 ids (a table of max_id + 3 rows of 16), 16 ids a row."""
+    from euler_tpu_torch.models import LasGNN
+
+    return LasGNN(LASGNN_METAPATHS, list(PPI_FANOUTS), dim, feature_ixs=[0],
+                  feature_dims=[max_id + 1], group_sizes=LASGNN_GROUP_SIZES,
+                  max_id=max_id, aggregator="mean", device_sampling=True)
+
+
+def lasgnn_inputs(sampler, adj, gen, words, batch: int) -> dict:
+    """LasGNN's structured inputs for one step, drawn on the card: targets
+    from ``sampler``; the first half of the rows positives, their context
+    two neighbors of the target over ``adj`` (the plain draw, no kernel),
+    label 1; the rest negatives, two sampled nodes, label 0."""
+    from euler_tpu_torch.graph import device as device_graph
+
+    roots = device_graph.sample_node(sampler, batch, generator=gen)
+    half = batch // 2
+    pos = device_graph.sample_neighbor(adj, roots[:half], 2, words)
+    neg = device_graph.sample_node(sampler, 2 * (batch - half),
+                                   generator=gen).reshape(-1, 2)
+    label = torch.cat([torch.ones(half, device="cuda"),
+                       torch.zeros(batch - half, device="cuda")])
+    return {"label": label[:, None],
+            "groups": [roots[:, None], torch.cat([pos, neg])]}
+
+
+def lasgnn_scan(model, sampler, adj, batch: int):
+    """The chunk function of ``train_full`` for LasGNN, whose inputs are
+    structured: each step's inputs from ``lasgnn_inputs`` (generator
+    seeded with the chunk's seed), through ``model.make_train_step()``."""
+    from euler_tpu_torch.graph import device as device_graph
+
+    step = model.make_train_step()
+
+    def scan(state, seed: int):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        losses = []
+        for i in range(CHUNK_STEPS):
+            s = seed * CHUNK_STEPS + i
+            inputs = lasgnn_inputs(sampler, adj, gen,
+                                   device_graph.stream_words(s, 1 << 16),
+                                   batch)
+            losses.append(step(state, model.device_sample_batch(
+                inputs, s, device="cuda"))[0])
+        return state, torch.stack(losses)
+
+    return scan
+
+
+def train_sparse(hetero, seed: int, smi: str) -> dict:
+    """The sparse-feature models on the heterogeneous ppi variant, each
+    after a CPU/CUDA agreement on a 2,000-node variant: lshne through
+    ``train.make_scan_train`` (B2 six times a step at [512, 1], B1 never;
+    peak allocated memory under 2 GB, which a weight matrix a tower row
+    alone would pass), then lasgnn through ``make_train_step`` on inputs
+    drawn on the card (B1 three times a step, B2 never). Each then runs
+    ``train.evaluate`` over 10 batches."""
+    from euler_tpu_torch.datasets import build_synthetic
+    from euler_tpu_torch.graph import Graph
+    from euler_tpu_torch.graph import device as device_graph
+
+    max_id = hetero.max_node_id
+    small = Graph(**hetero_variant(build_synthetic(2000, 15, 50, 121,
+                                                   seed=seed + 1), seed + 4))
+    runs = {}
+    t0 = time.perf_counter()
+    agree_cpu_cuda(lshne(small.max_node_id, 32), small, seed, "lshne")
+    model = lshne(max_id)
+    walk_edges = PPI_BATCH * 2 * 3
+    runs["lshne"] = train_full(
+        model, hetero, seed, smi, "lshne", walk_edges,
+        f"{PPI_BATCH} roots x 2 walks of 3 edges; {LSHNE_PAIRS} pairs and "
+        f"{LSHNE_PAIRS * LSHNE_NEGS} typed negatives a step",
+        pairs_per_step=LSHNE_PAIRS,
+        after=evaluate_held_out(model, hetero, seed, "lshne"))
+    if runs["lshne"]["peak_bytes"] >= 2e9:
+        raise AssertionError(f"lshne peak {runs['lshne']['peak_bytes']} B")
+    log(f"lshne path: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    n = small.num_nodes
+    agree_cpu_cuda(lasgnn(small.max_node_id, 32), small, seed, "lasgnn",
+                   inputs={"label": rng.integers(0, 2, (64, 1)),
+                           "groups": [rng.integers(0, n, (64, 1)),
+                                      rng.integers(0, n, (64, 2))]})
+    model = lasgnn(max_id)
+    sampler = device_graph.tensors(
+        device_graph.build_node_sampler(hetero, -1, max_id), "cuda")
+    adj = device_graph.tensors(
+        device_graph.build_adjacency(hetero, [0, 1], max_id), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(10_000 + seed)
+    held_out = [lasgnn_inputs(sampler, adj, gen,
+                              device_graph.stream_words(10_000 + i, 1 << 16),
+                              PPI_BATCH) for i in range(EVAL_BATCHES)]
+    f1, f2 = PPI_FANOUTS
+    # one fanout a (group, metapath): 512 targets once, 1,024 context
+    # nodes twice
+    roots = sum(PPI_BATCH * n * len(m)
+                for n, m in zip(LASGNN_GROUP_SIZES, LASGNN_METAPATHS))
+    runs["lasgnn"] = train_full(
+        model, hetero, seed, smi, "lasgnn", roots * (f1 + f1 * f2),
+        f"{roots} fanout roots (the 512 targets once, the 1,024 context "
+        f"nodes once a metapath) * ({f1} + {f1}*{f2}) sampled edges/step",
+        scan=lasgnn_scan(model, sampler, adj, PPI_BATCH),
+        after=evaluate_held_out(model, hetero, seed, "lasgnn", held_out))
+    log(f"lasgnn path: {time.perf_counter() - t0:.1f} s")
+    steps = runs["lshne"]["steps"]
+    for name, expect in (
+            ("lshne", {"sample_fanout2": 0, "sample_neighbor": 6 * steps}),
+            ("lasgnn", {"sample_fanout2": 3 * steps, "sample_neighbor": 0})):
+        if runs[name]["launches"] != expect:
+            raise AssertionError(f"{name} launches {runs[name]['launches']}, "
+                                 f"expected {expect}")
     return runs
 
 
@@ -1619,10 +2017,10 @@ def main() -> int:
     phase_build()
     t1 = time.perf_counter()
     log(f"phases 1-2: {t1 - t0:.1f} s")
-    graph, reddit, k = phase_kernel(args.seed)
+    graph, hetero, reddit, k = phase_kernel(args.seed)
     t2 = time.perf_counter()
     log(f"phase 3: {t2 - t1:.1f} s")
-    runs = phase_train(graph, reddit, args.seed, smi)
+    runs = phase_train(graph, hetero, reddit, args.seed, smi)
     log(f"phase 4: {time.perf_counter() - t2:.1f} s")
     log("== phase 5: kernels")
     meta = {

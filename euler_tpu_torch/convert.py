@@ -94,17 +94,69 @@ def _scalable_aggregator_class(tree) -> str:
     return "MeanAggregator" if "Dense_1" in tree else "GCNAggregator"
 
 
+def _array(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a))
+
+
 def _shallow(enc, prefix: str) -> dict:
     """A ShallowEncoder: ``Embedding_0/embeddings`` is the id table as it
-    stands ([num, dim] on both sides), ``Dense_0/Dense_0/kernel`` the
-    features' Dense ("add") or the projection ("concat")."""
+    stands ([num, dim] on both sides), ``SparseEmbedding_{k}`` slot k's
+    table, ``Dense_0/Dense_0/kernel`` the features' Dense ("add") or the
+    projection ("concat")."""
     sd = {}
     if "Embedding_0" in enc:
-        sd[f"{prefix}.embedding.embeddings"] = torch.from_numpy(
-            np.array(enc["Embedding_0"]["embeddings"]))
+        sd[f"{prefix}.embedding.embeddings"] = _array(
+            enc["Embedding_0"]["embeddings"])
+    for key, tree in enc.items():
+        m = re.fullmatch(r"SparseEmbedding_(\d+)", key)
+        if m:
+            sd[f"{prefix}.sparse_embeddings.{m.group(1)}.embeddings"] = (
+                _array(tree["embeddings"]))
     if "Dense_0" in enc:
         sd[f"{prefix}.dense.linear.weight"] = _kernel(
             enc["Dense_0"]["Dense_0"]["kernel"])
+    return sd
+
+
+def _typed_dense(tree, prefix: str) -> dict:
+    """An LsHNE ``TypedDense``: ``kernel [T, in, out]`` and ``bias [T,
+    out]``, as they stand."""
+    return {f"{prefix}.kernel": _array(tree["kernel"]),
+            f"{prefix}.bias": _array(tree["bias"])}
+
+
+def _sparse_models(params) -> dict:
+    """The LsHNE and LasGNN trees, and a SparseSageEncoder's own:
+    ``feature_embeddings_{k}``/``sparse_embeddings_{k}`` (the shared
+    tables, once) become ``{name}.{k}.embeddings``; ``src_hidden_{v}``,
+    ``src_out_{v}``, ``tar_hidden``, ``tar_out`` the TypedDenses;
+    ``att_vec`` as it stands; ``towers_{g}_{m}/sage`` (or ``sage``) a
+    SparseSageEncoder's SageEncoder; ``attentions_{g}/kernel`` a
+    DotAttention's; ``target_ff`` and ``context_ff`` flax Denses."""
+    sd = {}
+    for key, tree in params.items():
+        m = re.fullmatch(r"(feature_embeddings|sparse_embeddings)_(\d+)", key)
+        if m:
+            sd[f"{m.group(1)}.{m.group(2)}.embeddings"] = _array(
+                tree["embeddings"])
+        m = re.fullmatch(r"(src_hidden|src_out)_(\d+)", key)
+        if m:
+            sd.update(_typed_dense(tree, f"{m.group(1)}.{m.group(2)}"))
+        if key in ("tar_hidden", "tar_out"):
+            sd.update(_typed_dense(tree, key))
+        if key == "att_vec":
+            sd[key] = _array(tree)
+        m = re.fullmatch(r"towers_(\d+)_(\d+)", key)
+        if m:
+            sd.update(_encoder(tree["sage"],
+                               f"towers.{m.group(1)}.{m.group(2)}.sage"))
+        if key == "sage":
+            sd.update(_encoder(tree, "sage"))
+        m = re.fullmatch(r"attentions_(\d+)", key)
+        if m:
+            sd[f"attentions.{m.group(1)}.kernel"] = _array(tree["kernel"])
+        if key in ("target_ff", "context_ff"):
+            sd.update(_linear(tree, key))
     return sd
 
 
@@ -114,9 +166,10 @@ def params_from_flax(params) -> dict:
     ScalableSageEncoder or AttEncoder towers ``encoder`` (and
     ``context_encoder`` of the unsupervised GraphSAGE), the classifier
     ``predict/{kernel,bias}``, the ShallowEncoders ``node_encoder`` (GCN,
-    ScalableSage), ``target`` and ``context`` (LINE, Node2Vec), and
-    ScalableGCN's layers ``aggs_{l}``."""
-    sd = {}
+    GraphSAGE, ScalableSage), ``target`` and ``context`` (LINE, Node2Vec),
+    ScalableGCN's layers ``aggs_{l}``, and the trees of LsHNE, LasGNN and
+    SparseSageEncoder (``_sparse_models``)."""
+    sd = _sparse_models(params)
     for tower in ("encoder", "context_encoder"):
         if tower in params:
             sd.update(_encoder(params[tower], tower))

@@ -19,7 +19,10 @@ PyTorch on those tensors, with the JAX package's semantics:
   draw, which has no kernel: it is plain PyTorch on every device.
 - ``build_node_sampler`` / ``sample_node`` draw roots weight-
   proportionally through the two-level (segment, then within-segment)
-  cumulative that stays exact beyond float32's resolution (see ``SEG``).
+  cumulative that stays exact beyond float32's resolution (see ``SEG``);
+  ``build_typed_node_sampler`` / ``sample_node_with_src`` draw each
+  source's negatives from its own node type's sampler in the same
+  layout, plain PyTorch on every device.
 - ``sample_fanout`` chains the hops; a two-hop fanout over two slabs runs
   as ONE call of ``sampling_kernels.sample_fanout2``, other fanouts hop by
   hop through ``neighbor_draw``: ``sampling_kernels.sample_neighbor`` for
@@ -220,6 +223,58 @@ def build_node_sampler(graph, node_type: int = -1, max_id: int = 0) -> dict:
         "ids": ids.astype(np.int32),
         "cum": within,
         "seg_cum": seg_cum,
+    }
+
+
+def build_typed_node_sampler(graph, num_types: int, max_id: int) -> dict:
+    """Per-node-type weighted samplers packed into one flat layout, for
+    ``sample_node_with_src``: each source draws negatives from its own
+    node type's sampler.
+
+    Returns {"ids": [M] int32 (the nodes of positive weight, by type, then
+    id), "cum": [M] float32 (normalized within SEG-node sub-segments of
+    each type, the two-level layout of ``build_node_sampler``, so a type
+    beyond ~16M nodes keeps exact float32 draws), "off": [T+1] int32 type
+    offsets into ids, "seg_cum": [G] float32 (each type's normalized
+    cumulative over its sub-segment totals), "tseg_off": [T+1] int32 type
+    offsets into seg_cum, "types": [N+2] int32 node-type lookup (-1 for
+    the default row)}. A type whose nodes all have weight 0 warns: its
+    sources draw the default node."""
+    all_ids = np.arange(max_id + 1, dtype=np.int64)
+    weights = graph.node_weights(all_ids)
+    types = graph.node_types(all_ids)
+    type_table = np.full(max_id + 2, -1, dtype=np.int32)
+    type_table[:max_id + 1] = types
+    ids_out, cum_out, seg_out = [], [], []
+    off, tseg_off = [0], [0]
+    empty_types = []
+    for t in range(num_types):
+        mask = (types == t) & (weights > 0)
+        tids, tw = all_ids[mask], weights[mask]
+        if len(tids):
+            seg_cum, within = _segment_cum(tw)
+        else:
+            seg_cum, within = np.zeros(0, np.float32), np.zeros(0, np.float32)
+            if (types == t).any():
+                empty_types.append(t)
+        ids_out.append(tids)
+        cum_out.append(within)
+        seg_out.append(seg_cum)
+        off.append(off[-1] + len(tids))
+        tseg_off.append(tseg_off[-1] + len(seg_cum))
+    if empty_types:
+        warnings.warn(
+            f"build_typed_node_sampler: node types {empty_types} exist "
+            "but have no weight>0 nodes; sources of these types will "
+            "draw the default (zero-feature) node as negatives — give "
+            "those nodes sampling weight or use host-side negatives")
+    return {
+        "ids": np.concatenate(ids_out).astype(np.int32),
+        "cum": np.concatenate(cum_out).astype(np.float32),
+        "off": np.asarray(off, dtype=np.int32),
+        "seg_cum": np.concatenate(seg_out).astype(np.float32),
+        "tseg_off": np.asarray(tseg_off, dtype=np.int32),
+        "types": type_table,
     }
 
 
@@ -456,6 +511,52 @@ def sample_node(sampler: dict, count: int, generator=None, u=None,
     steps = max(min(m, SEG).bit_length(), 1)
     idx = _bisect_first_ge(sampler["cum"], lo, hi, u2, steps)
     return ids[idx]
+
+
+def sample_node_with_src(tsampler: dict, src, count: int, seed_words=None,
+                         u=None):
+    """[len(src), count] int32 negatives: each source draws ``count``
+    nodes from its own node type's weighted sampler
+    (``build_typed_node_sampler``), plain PyTorch on every device (the
+    JAX package has no kernel for it). Types are clamped into [0, T-1], so
+    a source of unknown type (the default row; negative and past-the-table
+    ids read it) draws from type 0; a type with no node of positive weight
+    yields the default node. Two bisections a draw: u1 picks a SEG
+    sub-segment of the type's ``seg_cum`` span, u2 a node within it. The
+    uniforms are ``u`` = (u1, u2), each [len(src), count] float32, when
+    given, else words 0 and 1 of ``philox_uniforms(seed_words, 0,
+    len(src), count, 2)``, the same on every device."""
+    types = tsampler["types"]
+    dev = types.device
+    default = types.shape[0] - 1
+    src = _default_clamped(src.reshape(-1), default).long()
+    m = src.shape[0]
+    ids, cum, seg_cum = tsampler["ids"], tsampler["cum"], tsampler["seg_cum"]
+    if ids.shape[0] == 0:  # no node of positive weight at all
+        return torch.full((m, count), default, dtype=torch.int32, device=dev)
+    if u is None:
+        u1, u2 = philox_uniforms(seed_words, 0, m, count, 2, device=dev)
+    else:
+        u1, u2 = (torch.as_tensor(x, dtype=torch.float32, device=dev)
+                  .reshape(m, count) for x in u)
+    num_types = tsampler["off"].shape[0] - 1
+    t = types.index_select(0, src).long().clamp(0, num_types - 1)
+    off = tsampler["off"].long()
+    tseg_off = tsampler["tseg_off"].long()
+    node_lo, node_hi = off[t][:, None], off[t + 1][:, None]
+    empty = (node_hi <= node_lo).expand(m, count)
+    g_lo = tseg_off[t][:, None]
+    g_hi = tseg_off[t + 1][:, None]
+    n_seg = max(int(seg_cum.shape[0]), 1)
+    g = _bisect_first_ge(seg_cum, g_lo.expand(m, count),
+                         g_hi.expand(m, count), u1, max(n_seg.bit_length(), 1))
+    # a type's sub-segments are SEG-aligned from its node offset
+    lo = node_lo + (g - g_lo) * SEG
+    hi = torch.minimum(lo + SEG, node_hi)
+    n_ids = int(ids.shape[0])
+    idx = _bisect_first_ge(cum, lo, hi, u2,
+                           max(min(n_ids, SEG).bit_length(), 1))
+    return torch.where(empty, default, ids[idx]).to(torch.int32)
 
 
 def _alias_sample_neighbor(adj: dict, nodes, count: int, seed_words=None,

@@ -23,7 +23,9 @@ class Graph:
     edge_type_num + 1] delimits the (node, edge type) groups in node-major
     order over ``indices`` (neighbor ids) and ``weights``.
     ``dense_features`` holds one ``[num_nodes, dim]`` float32 array per
-    dense feature slot."""
+    dense feature slot, ``sparse_features`` one ragged uint64 slot per
+    entry as CSR ``(indptr [num_nodes + 1], values)`` (the values held as
+    int64, as the engine client returns them)."""
 
     def __init__(
         self,
@@ -34,6 +36,7 @@ class Graph:
         node_types,
         dense_features=(),
         edge_type_num: int = 1,
+        sparse_features=(),
     ):
         indptr = np.asarray(indptr, np.int64)
         indices = np.asarray(indices, np.int64)
@@ -58,6 +61,15 @@ class Graph:
         self._node_weights = np.asarray(node_weights, np.float32)
         self._node_types = np.asarray(node_types, np.int32)
         self._dense = [np.asarray(f, np.float32) for f in dense_features]
+        self._sparse = []
+        for ptr, values in sparse_features:
+            ptr = np.asarray(ptr, np.int64)
+            values = np.asarray(values).astype(np.int64)
+            if len(ptr) != self.num_nodes + 1 or ptr[-1] != len(values):
+                raise ValueError(
+                    "a sparse feature slot needs indptr of num_nodes + 1 "
+                    "entries ending at len(values)")
+            self._sparse.append((ptr, values))
 
     @property
     def max_node_id(self) -> int:
@@ -127,4 +139,25 @@ class Graph:
                 w = min(d, table.shape[1])
                 out[known, col:col + w] = table[ids[known], :w]
             col += d
+        return out
+
+    def get_sparse_feature(self, ids, fids):
+        """Per slot ``fids[k]``: ``(values int64, the ids' rows
+        concatenated in order; row_counts int32 [n])``. Unknown ids and
+        slots give a count of 0."""
+        ids, known = self._known(ids)
+        out = []
+        for f in map(int, fids):
+            starts = np.zeros(len(ids), np.int64)
+            counts = np.zeros(len(ids), np.int64)
+            if 0 <= f < len(self._sparse):
+                ptr, values = self._sparse[f]
+                starts[known] = ptr[ids[known]]
+                counts[known] = ptr[ids[known] + 1] - starts[known]
+            else:
+                values = np.zeros(0, np.int64)
+            out_off = np.cumsum(counts) - counts
+            src = (np.arange(counts.sum()) - np.repeat(out_off, counts)
+                   + np.repeat(starts, counts))
+            out.append((values[src], counts.astype(np.int32)))
         return out

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from euler_tpu_torch.device import resolve_device
 from euler_tpu_torch.graph import device as device_graph
 from euler_tpu_torch.nn import metrics
+from euler_tpu_torch.ops import feature as feature_ops
 
 
 @dataclasses.dataclass
@@ -71,18 +72,45 @@ def unsupervised_decoder(emb, emb_pos, emb_negs, xent_loss: bool):
     return loss, mrr
 
 
+def upload_sparse_tables(graph, max_id: int, feature_idxs, max_len: int,
+                         default_values, device) -> list:
+    """Padded sparse-feature tables of every node (rows 0..max_id+1, row
+    max_id+1 the default/padding row) on ``device``: one ``{"ids": [N+2,
+    max_len] int32, "mask": [N+2, max_len] float32}`` a slot, for the
+    device gathers of ``gather_consts`` (every model family that reads
+    sparse features on the device shares them)."""
+    all_ids = np.arange(max_id + 2, dtype=np.int64)
+    tables = feature_ops.get_sparse_feature(
+        graph, all_ids, list(feature_idxs), max_len,
+        default_values=list(default_values))
+    return [
+        {"ids": torch.as_tensor(ids.astype(np.int32), device=device),
+         "mask": torch.as_tensor(mask, device=device)}
+        for ids, mask in tables
+    ]
+
+
+def sparse_rows(consts: dict, ids) -> list:
+    """The ``(ids, mask)`` rows at ``ids`` of every sparse table."""
+    return [(t["ids"].index_select(0, ids), t["mask"].index_select(0, ids))
+            for t in consts["sparse"]]
+
+
 def gather_consts(feats: dict, consts: dict) -> dict:
     """Replace one node set's ``'gids'`` indices with rows gathered from
-    the device feature table. A reduced-precision table
-    (``feature_dtype="bfloat16"``) is cast back to float32 after the
-    gather, so the module's math is unchanged and only the table's bytes
-    and the gather traffic shrink."""
+    the device tables: the dense feature rows and, when the consts hold
+    sparse tables, the padded ``(ids, mask)`` rows of each slot. A
+    reduced-precision table (``feature_dtype="bfloat16"``) is cast back
+    to float32 after the gather, so the module's math is unchanged and
+    only the table's bytes and the gather traffic shrink."""
     if not consts or "gids" not in feats:
         return feats
     feats = dict(feats)
     if "features" in consts:
         feats["dense"] = consts["features"].index_select(
             0, feats["gids"]).to(torch.float32)
+    if "sparse" in consts and "sparse" not in feats:
+        feats["sparse"] = sparse_rows(consts, feats["gids"])
     return feats
 
 
@@ -99,20 +127,21 @@ def _feature_table_dtype(name: str) -> torch.dtype:
 
 
 def check_device_mode(name, device_features, device_sampling, feature_idx,
-                      max_id, metapath=(), fanouts=()) -> None:
+                      max_id, metapath=(), fanouts=(),
+                      has_sparse: bool = False) -> None:
     """The configuration the GraphSAGE models and GAT run: device
-    features and device sampling, a feature table of max_id+2 rows, one
-    edge-type set a hop."""
+    features and device sampling, a dense (or, with ``has_sparse``,
+    sparse) feature table of max_id+2 rows, one edge-type set a hop."""
     if not (device_features and device_sampling):
         raise NotImplementedError(
             f"euler_tpu_torch runs {name} with device_features=True and "
             "device_sampling=True; host sampling needs the graph engine "
             "client, not ported yet"
         )
-    if feature_idx < 0 or max_id < 0:
+    if (feature_idx < 0 and not has_sparse) or max_id < 0:
         raise ValueError(
-            "device features need feature_idx >= 0 and max_id >= 0 (the "
-            "feature/label tables are sized max_id+2)"
+            "device features need feature_idx >= 0 (or sparse slots) and "
+            "max_id >= 0 (the feature/label tables are sized max_id+2)"
         )
     if len(metapath) != len(fanouts):
         raise ValueError("metapath needs one edge-type set per fanout")
@@ -160,6 +189,10 @@ class Model:
     feature_dim: int = 0
     label_idx: int = -1
     label_dim: int = 0
+    # sparse (uint64 id-list) slots, their max ids and the pad length
+    sparse_feature_idx: tuple = ()
+    sparse_feature_max_ids: tuple = ()
+    sparse_max_len: int = 16
     use_id: bool = False  # an id-embedding input ("ids") per node set
     # the feature table's dtype name (None: float32), e.g. "bfloat16"
     feature_dtype: Optional[str] = None
@@ -296,9 +329,9 @@ class Model:
         """One node set's encoder inputs from its ids, on ``device`` (the
         card unless ``"cpu"`` is asked for): ``"ids"`` for the
         id-embedding path (``use_id``) and ``"gids"`` for the device
-        feature table (``feature_idx >= 0``), both clipped into the
-        tables' max_id+2 rows. Host-gathered features (``"dense"``,
-        ``"sparse"``) come with the engine client."""
+        feature tables (``feature_idx >= 0`` or sparse slots), both
+        clipped into the tables' max_id+2 rows. Host-gathered features
+        (``"dense"``, ``"sparse"``) come with the engine client."""
         ids = np.asarray(ids, dtype=np.int64).reshape(-1)
         clipped = torch.as_tensor(
             np.clip(ids, 0, self.max_id + 1).astype(np.int32),
@@ -306,7 +339,7 @@ class Model:
         feats = {}
         if self.use_id:
             feats["ids"] = clipped
-        if self.feature_idx >= 0:
+        if self.feature_idx >= 0 or self.sparse_feature_idx:
             feats["gids"] = clipped
         return feats
 
@@ -314,7 +347,9 @@ class Model:
         """Device-resident lookup tables, uploaded once at init. Row
         max_id+1 is the default/padding node (zeros). The feature table
         takes ``feature_dtype`` (converted on the host, so the upload
-        moves the narrow bytes); labels stay float32, as loss targets."""
+        moves the narrow bytes); labels stay float32, as loss targets.
+        Sparse slots (``sparse_feature_idx``) get padded tables whose
+        padding id is each slot's max id + 1."""
         n = self.max_id + 2
         ids = np.arange(n, dtype=np.int64)
         consts = {}
@@ -330,6 +365,11 @@ class Model:
                                         [self.label_dim]),
                 device=device,
             )
+        if self.sparse_feature_idx:
+            consts["sparse"] = upload_sparse_tables(
+                graph, self.max_id, self.sparse_feature_idx,
+                self.sparse_max_len,
+                [m + 1 for m in self.sparse_feature_max_ids], device)
         return consts
 
     def init_state(self, graph, optimizer, device=None, seed: int = 0):

@@ -30,25 +30,24 @@ from euler_tpu_torch.nn.encoders import GCNEncoder, ShallowEncoder
 from euler_tpu_torch.nn.layers import Dense, Embedding
 
 
-def _check_device_mode(name, device_features, device_sampling,
-                       sparse_feature_idx=()) -> None:
+def _check_device_mode(name, device_features, device_sampling) -> None:
     if not (device_features and device_sampling):
         raise NotImplementedError(
             f"euler_tpu_torch runs {name} with device_features=True and "
             "device_sampling=True; host sampling needs the graph engine "
             "client, not ported yet")
-    if sparse_feature_idx:
-        raise NotImplementedError(
-            f"{name}: sparse-feature slots (SparseEmbedding) are not ported")
 
 
-def _node_encoder(dim, use_residual, feature_dim, max_id, embedding_dim):
+def _node_encoder(dim, use_residual, feature_dim, max_id, embedding_dim,
+                  sparse_feature_max_ids=()):
     """The ShallowEncoder of both GCN modules: at ``dim`` with the "add"
     combiner under ``use_residual`` (the residual adds rows of equal
-    width), else "concat" without a projection."""
+    width), else "concat" without a projection; one SparseEmbedding a
+    sparse slot."""
     return ShallowEncoder(
         dim=dim if use_residual else None, feature_dim=feature_dim,
         max_id=max_id, embedding_dim=embedding_dim,
+        sparse_feature_max_ids=sparse_feature_max_ids,
         combiner="add" if use_residual else "concat")
 
 
@@ -72,6 +71,7 @@ class _SupervisedGCNModule(nn.Module):
         embedding_dim: int = 16,
         hop_adj_keys: Sequence[str] = (),
         node_caps: Sequence[int] = (),
+        sparse_feature_max_ids: Sequence[int] = (),
         generator=None,
     ):
         super().__init__()
@@ -80,7 +80,8 @@ class _SupervisedGCNModule(nn.Module):
         self.hop_adj_keys = list(hop_adj_keys)
         self.node_caps = list(node_caps)
         self.node_encoder = _node_encoder(dim, use_residual, feature_dim,
-                                          max_id, embedding_dim)
+                                          max_id, embedding_dim,
+                                          sparse_feature_max_ids)
         self.encoder = GCNEncoder(self.node_encoder.output_dim, num_layers,
                                   dim, aggregator, use_residual)
         self.predict = Dense(dim, num_classes)
@@ -159,8 +160,7 @@ class SupervisedGCN(base.Model):
         device_sampling: bool = False,
         max_degree: Optional[int] = None,
     ):
-        _check_device_mode("SupervisedGCN", device_features, device_sampling,
-                           sparse_feature_idx)
+        _check_device_mode("SupervisedGCN", device_features, device_sampling)
         if max_id < 0:
             raise ValueError("SupervisedGCN needs max_id >= 0 (its tables "
                              "are sized max_id+2)")
@@ -177,6 +177,9 @@ class SupervisedGCN(base.Model):
         self.feature_dim = feature_dim
         self.max_id = max_id
         self.use_id = use_id
+        self.sparse_feature_idx = list(sparse_feature_idx)
+        self.sparse_feature_max_ids = list(sparse_feature_max_ids)
+        self.sparse_max_len = sparse_max_len
         self._module_kwargs = dict(
             num_layers=len(self.metapath),
             dim=dim,
@@ -189,6 +192,7 @@ class SupervisedGCN(base.Model):
             embedding_dim=embedding_dim,
             hop_adj_keys=tuple(self.adj_key(m) for m in self.metapath),
             node_caps=tuple(self.max_nodes_per_hop),
+            sparse_feature_max_ids=tuple(sparse_feature_max_ids),
         )
 
     def make_module(self, generator=None) -> _SupervisedGCNModule:

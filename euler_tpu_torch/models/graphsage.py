@@ -52,19 +52,22 @@ class _SupervisedSageModule(nn.Module):
         concat: bool = False,
         sigmoid_loss: bool = True,
         hop_adj_keys: Sequence[str] = (),
+        sparse_feature_max_ids: Sequence[int] = (),
         generator=None,
     ):
         super().__init__()
         self.fanouts = list(fanouts)
         self.sigmoid_loss = sigmoid_loss
         self.hop_adj_keys = list(hop_adj_keys)
-        self.node_encoder = ShallowEncoder(feature_dim=feature_dim)
+        self.node_encoder = ShallowEncoder(
+            feature_dim=feature_dim,
+            sparse_feature_max_ids=sparse_feature_max_ids)
         self.encoder = SageEncoder(
             self.node_encoder.output_dim, fanouts, dim, aggregator, concat
         )
         self.predict = Dense(dim, num_classes)
         for m in self.modules():
-            if isinstance(m, Dense):
+            if isinstance(m, (Dense, Embedding)):
                 m.reset_parameters(generator)
 
     def _hops(self, batch, consts):
@@ -105,7 +108,10 @@ class SupervisedGraphSage(base.Model):
     labels and adjacency (``device_features=True, device_sampling=True``,
     the JAX package's flagship configuration). ``feature_dtype``
     ("bfloat16") narrows the feature table; ``set_sampling_options``
-    chooses capped slabs or alias tables."""
+    chooses capped slabs or alias tables. Sparse slots
+    (``sparse_feature_idx``, with their max ids) add one
+    ``SparseEmbedding`` each to the node encoder, over padded device
+    tables."""
 
     metric_name = "f1"
 
@@ -127,10 +133,17 @@ class SupervisedGraphSage(base.Model):
         device_sampling: bool = False,
         train_node_type: int = -1,
         feature_dtype: Optional[str] = None,
+        sparse_feature_idx: Sequence[int] = (),
+        sparse_feature_max_ids: Sequence[int] = (),
+        sparse_max_len: int = 16,
     ):
         base.check_device_mode("SupervisedGraphSage", device_features,
                                device_sampling, feature_idx, max_id,
-                               metapath, fanouts)
+                               metapath, fanouts,
+                               has_sparse=bool(sparse_feature_idx))
+        self.sparse_feature_idx = list(sparse_feature_idx)
+        self.sparse_feature_max_ids = list(sparse_feature_max_ids)
+        self.sparse_max_len = sparse_max_len
         self.feature_dtype = feature_dtype
         self.label_idx = label_idx
         self.label_dim = label_dim
@@ -144,11 +157,12 @@ class SupervisedGraphSage(base.Model):
             fanouts=tuple(fanouts),
             dim=dim,
             num_classes=num_classes or label_dim,
-            feature_dim=feature_dim,
+            feature_dim=feature_dim if feature_idx >= 0 else 0,
             aggregator=aggregator,
             concat=concat,
             sigmoid_loss=sigmoid_loss,
             hop_adj_keys=tuple(self.adj_key(m) for m in self.metapath),
+            sparse_feature_max_ids=tuple(sparse_feature_max_ids),
         )
 
     def make_module(self, generator=None) -> _SupervisedSageModule:

@@ -1,15 +1,17 @@
 """Node encoders (counterpart of ``euler_tpu/nn/encoders.py``).
 
 Feature dicts per node set: ``'ids'`` [n] int ids for the id-embedding
-path, ``'dense'`` [n, feature_dim] float32 (after
+path, ``'dense'`` [n, feature_dim] float32 and ``'sparse'``, one
+padded ``(ids [n, L], mask [n, L])`` pair a sparse slot (after
 ``models.base.gather_consts`` has replaced the ``'gids'`` indices with
-rows of the device feature table). ``SageEncoder`` takes the per-hop
+rows of the device tables). ``SageEncoder`` takes the per-hop
 list; hop h has n * prod(fanouts[:h]) rows, grouped by parent in
 row-major order. ``GCNEncoder`` takes the per-hop list and one padded
 COO adjacency a hop (``graph.device.multi_hop_neighbor``).
 ``ScalableSageEncoder`` takes the roots' rows, their fanout's rows and the
 stale neighbor rows read from the stores; ``AttEncoder`` the [B, n, F]
-sequence of each root and its sampled neighbors.
+sequence of each root and its sampled neighbors; ``SparseSageEncoder``
+the per-hop lists of sparse ``(ids, mask)`` pairs.
 """
 
 from __future__ import annotations
@@ -22,27 +24,25 @@ from torch import nn
 
 from euler_tpu_torch.nn import aggregators as dense_aggs
 from euler_tpu_torch.nn import sparse_aggregators as sparse_aggs
-from euler_tpu_torch.nn.layers import Dense, Embedding
+from euler_tpu_torch.nn.layers import Dense, Embedding, SparseEmbedding
 
 
 class ShallowEncoder(nn.Module):
-    """An id embedding (``max_id >= 0``: ``Embedding(max_id + 2, ...)``)
-    and the dense features, combined by ``"add"`` (the embedding at
-    ``dim`` plus a bias-free Dense of the features to ``dim``) or
-    ``"concat"`` (the embedding at ``embedding_dim`` beside the features,
-    then a bias-free Dense to ``dim`` when ``dim`` is set). With neither
-    an id path nor ``dim`` it is the features themselves, without
-    parameters: the GraphSAGE towers' input. Sparse-feature slots
-    (``SparseEmbedding``) are not ported."""
+    """An id embedding (``max_id >= 0``: ``Embedding(max_id + 2, ...)``),
+    the dense features and one ``SparseEmbedding(max_id_k + 2, ...)`` a
+    sparse slot (``sparse_feature_max_ids``), combined by ``"add"`` (the
+    embeddings at ``dim`` plus a bias-free Dense of the features to
+    ``dim``) or ``"concat"`` (the embeddings at ``embedding_dim``, in the
+    order id, features, sparse slots, then a bias-free Dense to ``dim``
+    when ``dim`` is set). With no embedding and no ``dim`` it is the
+    features themselves, without parameters: the GraphSAGE towers'
+    input."""
 
     def __init__(self, dim: Optional[int] = None, feature_dim: int = 0,
                  max_id: int = -1, embedding_dim: int = 16,
                  sparse_feature_max_ids: Sequence[int] = (),
                  combiner: str = "concat"):
         super().__init__()
-        if sparse_feature_max_ids:
-            raise NotImplementedError(
-                "sparse-feature slots (SparseEmbedding) are not ported")
         if combiner not in ("add", "concat"):
             raise ValueError(f"combiner must be 'add' or 'concat', got "
                              f"{combiner!r}")
@@ -56,6 +56,8 @@ class ShallowEncoder(nn.Module):
         emb_dim = dim if combiner == "add" else embedding_dim
         self.embedding = (Embedding(max_id + 2, emb_dim) if max_id >= 0
                           else None)
+        self.sparse_embeddings = nn.ModuleList(
+            SparseEmbedding(m + 2, emb_dim) for m in sparse_feature_max_ids)
         # flax's single Dense_0: the features' Dense under "add", the
         # projection of the concatenation under "concat"
         if combiner == "add":
@@ -67,8 +69,8 @@ class ShallowEncoder(nn.Module):
 
     @property
     def _concat_dim(self) -> int:
-        return self.feature_dim + (self.embedding_dim if self.max_id >= 0
-                                   else 0)
+        n_emb = (self.max_id >= 0) + len(self.sparse_embeddings)
+        return self.feature_dim + self.embedding_dim * n_emb
 
     @property
     def output_dim(self) -> int:
@@ -83,6 +85,9 @@ class ShallowEncoder(nn.Module):
             if self.combiner == "add":
                 dense = self.dense(dense)
             embeddings.append(dense)
+        for emb, (ids, mask) in zip(self.sparse_embeddings,
+                                    feats.get("sparse", ())):
+            embeddings.append(emb(ids, mask))
         if self.combiner == "add":
             return sum(embeddings)
         out = (torch.cat(embeddings, dim=-1) if len(embeddings) > 1
@@ -143,6 +148,48 @@ class SageEncoder(nn.Module):
                 next_hidden.append(agg(hidden[hop], neigh))
             hidden = next_hidden
         return hidden[0]
+
+
+class SparseSageEncoder(nn.Module):
+    """Sparse-feature GraphSAGE: per-slot ``SparseEmbedding`` lookups,
+    concatenated, feed a ``SageEncoder``. ``forward`` takes the per-hop
+    list of per-slot ``(ids, mask)`` rows (hop h sized batch *
+    prod(fanouts[:h])). Each slot's table has ``feature_dims[k] + 2``
+    rows (the feature's ids, its padding id and one spare), unless
+    ``shared_embeddings`` passes modules built and registered by the
+    caller: then every tower given them looks up the same tables, and
+    this module holds them without registering them again, so the
+    parameters (and their optimizer moments) exist once."""
+
+    def __init__(self, fanouts: Sequence[int], dim: int,
+                 feature_dims: Sequence[int] = (), aggregator: str = "mean",
+                 concat: bool = False, embedding_dim: int = 16,
+                 shared_embeddings: Optional[Sequence[SparseEmbedding]]
+                 = None):
+        super().__init__()
+        if shared_embeddings is not None:
+            self.sparse_embeddings = None
+            self._shared = tuple(shared_embeddings)  # a tuple registers none
+        else:
+            self.sparse_embeddings = nn.ModuleList(
+                SparseEmbedding(d + 2, embedding_dim) for d in feature_dims)
+        in_dim = sum(e.dim for e in self.embeddings)
+        self.sage = SageEncoder(in_dim, fanouts, dim, aggregator, concat)
+
+    @property
+    def embeddings(self):
+        if self.sparse_embeddings is None:
+            return self._shared
+        return tuple(self.sparse_embeddings)
+
+    def forward(self, hops: list):
+        hidden = [
+            torch.cat([emb(ids, mask)
+                       for emb, (ids, mask) in zip(self.embeddings, hop)],
+                      dim=-1)
+            for hop in hops
+        ]
+        return self.sage(hidden)
 
 
 class GCNEncoder(nn.Module):

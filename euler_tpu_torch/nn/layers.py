@@ -70,3 +70,44 @@ class Embedding(nn.Module):
     def forward(self, ids):
         ids = ids.clamp(0, self.embeddings.shape[0] - 1)
         return F.embedding(ids, self.embeddings)
+
+
+class SparseEmbedding(Embedding):
+    """Masked combine over padded sparse-id features
+    (``ops.feature.get_sparse_feature``'s ``(ids [n, L], mask [n, L])``):
+    each row's ``table[ids]`` weighted by the mask and summed over L
+    (``combiner="sum"``, the reference's default) or divided by
+    ``max(sum(mask), 1)`` (``"mean"``). Ids are clipped into
+    ``[0, num-1]``. Init as ``Embedding``'s, at flax's stddev 0.0002."""
+
+    def __init__(self, num: int, dim: int, combiner: str = "sum",
+                 stddev: float = 0.0002):
+        if combiner not in ("sum", "mean"):
+            raise ValueError(f"unknown combiner {combiner}")
+        super().__init__(num, dim, stddev)
+        self.combiner = combiner
+
+    @property
+    def dim(self) -> int:
+        return self.embeddings.shape[1]
+
+    def forward(self, ids, mask):
+        num = self.embeddings.shape[0]
+        shape = ids.shape
+        ids = ids.clamp(0, num - 1).reshape(-1, shape[-1])
+        mask = mask.reshape(-1, shape[-1])
+        # a masked position adds 0 whatever row it reads: row i's go to
+        # row i mod num, not to the padding id, which every padded
+        # position of a batch shares and whose one segment would
+        # serialize the backward's segmented sum on CUDA
+        spread = torch.arange(ids.shape[0], dtype=ids.dtype,
+                              device=ids.device)[:, None] % num
+        ids = torch.where(mask != 0, ids, spread)
+        # one bag of L a row, weighted by the mask: no [n, L, dim] tensor
+        total = F.embedding_bag(ids, self.embeddings, mode="sum",
+                                per_sample_weights=mask)
+        mask = mask.reshape(shape)
+        total = total.reshape(*shape[:-1], -1)
+        if self.combiner == "mean":
+            total = total / mask.sum(-1, keepdim=True).clamp(min=1.0)
+        return total

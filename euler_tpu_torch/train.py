@@ -31,12 +31,14 @@ def get_optimizer(name: str, lr: float):
 def _metric_value(name: str, acc) -> float:
     if name == "f1":
         return metrics.f1_from_counts(acc)
+    if name == "auc":
+        return metrics.auc_from_counts(acc)
     return float(acc[0] / max(acc[1], 1))  # running mean
 
 
 def _metric_accumulate(name: str, acc, value):
     value = np.asarray(value)
-    if name == "f1":
+    if name in ("f1", "auc"):
         return acc + value
     return np.array([acc[0] + float(value), acc[1] + 1.0])
 
@@ -44,6 +46,8 @@ def _metric_accumulate(name: str, acc, value):
 def _metric_zero(name: str):
     if name == "f1":
         return np.zeros(3)
+    if name == "auc":
+        return np.zeros((2, metrics.AUC_BINS))
     return np.zeros(2)
 
 
@@ -76,18 +80,20 @@ def make_scan_train(model, inner_steps: int, batch_size: int):
 
 def evaluate(model, graph, source_iter, state, device=None, seed: int = 0,
              log_fn=None) -> dict:
-    """Streaming evaluation over an iterator of root-id batches, on one
-    device: batch i is ``model.device_sample_batch(ids, seed + i)`` on
-    ``device`` (the card unless ``"cpu"`` is asked for), where ``state``
-    must live, run through ``model.make_eval_step()``. f1 accumulates its
-    [tp, fp, fn] counts over the batches, any other metric (mrr) a running
-    mean of the batch values. Returns ``{metric_name: value, "loss": mean
-    batch loss}`` and passes ``"eval: {...}"`` to ``log_fn`` when given.
+    """Streaming evaluation over an iterator of batches of model inputs
+    (root ids, or a structured item such as LasGNN's ``{"label",
+    "groups"}``), on one device: batch i is ``model.device_sample_batch(
+    item, seed + i)`` on ``device`` (the card unless ``"cpu"`` is asked
+    for), where ``state`` must live, run through
+    ``model.make_eval_step()``. f1 accumulates its [tp, fp, fn] counts over
+    the batches and auc its score histograms, any other metric (mrr) a
+    running mean of the batch values. Returns ``{metric_name: value,
+    "loss": mean batch loss}`` and passes ``"eval: {...}"`` to ``log_fn``
+    when given.
 
     ``graph`` is kept for the JAX package's signature: every port model
     samples on the device, and host sampling (``model.sample``) waits for
-    the engine client. auc (no port model has it yet) and multi-process
-    evaluation are not ported."""
+    the engine client. Multi-process evaluation is not ported."""
     name = model.metric_name
     dev = resolve_device(device)
     eval_fn = model.make_eval_step()

@@ -33,9 +33,16 @@ scalable_sage --device_sampling``'s defaults (fanout 10, 2 layers, dim
 256, concat, store lr 0.001) and ``--model gat`` trains ``GAT`` with
 ``--model gat``'s (``--head_num`` heads of hidden width 256, 5
 neighbors), both on the PPI graph through ``make_scan_train``, one
-single-hop draw a step. ``--aggregator`` picks the aggregator of the GCN
-models (mean, gcn, attention) and of the GraphSAGE models and
-ScalableSage (mean, gcn, meanpool, maxpool).
+single-hop draw a step. ``--model lshne`` and ``--model lasgnn`` train
+the sparse-feature models of ``chip_smoke.py`` on its heterogeneous
+variant of the PPI graph (two edge types, four node types, uint64 slot 0
+the node's id): ``LsHNE`` at ``run_loop --model lshne
+--device_sampling``'s defaults through ``make_scan_train`` (six
+single-hop draws a step), and ``LasGNN`` (fanouts [10, 10], dim 256,
+batch 512) on inputs drawn on the card (three chained draws a step).
+``--aggregator`` picks the aggregator of the GCN models (mean, gcn,
+attention) and of the GraphSAGE models and ScalableSage (mean, gcn,
+meanpool, maxpool).
 
 Runs one warmup chunk of ``train.make_scan_train``, times one chunk, then
 profiles one chunk with ``torch.profiler`` (CPU + CUDA activities).
@@ -50,8 +57,12 @@ walk models) the Philox negatives, (node2vec) of one walk alone, (gcn)
 of one full-neighbor expansion alone, (scalable_gcn, scalable_sage) of
 the store bookkeeping's ops alone at the step's shapes (the two store
 reads, the zeroing, the scatter-add of the read gradients, the
-write-back), and (scalable_sage, gat) of the step's single-hop draw
-alone.
+write-back), (scalable_sage, gat) of the step's single-hop draw alone,
+(lshne) of the step's typed negatives (``sample_node_with_src`` at
+[6,144, 5]), the sparse gathers of its 43,520 tower rows and one
+``TypedDense`` forward and backward over the negatives' 30,720 rows, and
+(lasgnn) of the step's three chained fanouts and the sparse gathers of
+their hops.
 """
 
 from __future__ import annotations
@@ -73,7 +84,7 @@ def main() -> int:
     ap.add_argument("--model", default="graphsage_supervised",
                     choices=["graphsage_supervised", "graphsage", "reddit",
                              "node2vec", "line", "gcn", "scalable_gcn",
-                             "scalable_sage", "gat"])
+                             "scalable_sage", "gat", "lshne", "lasgnn"])
     ap.add_argument("--aggregator", default="mean",
                     choices=["mean", "gcn", "attention", "meanpool",
                              "maxpool"])
@@ -98,8 +109,8 @@ def main() -> int:
     gcn_family = args.model in ("gcn", "scalable_gcn")
     if args.aggregator in (("meanpool", "maxpool") if gcn_family
                            else ("attention",)) or (
-                               args.model == "gat" and args.aggregator
-                               != "mean"):
+                               args.model in ("gat", "lshne", "lasgnn")
+                               and args.aggregator != "mean"):
         ap.error(f"--aggregator {args.aggregator} does not go with --model "
                  f"{args.model}")
     if not torch.cuda.is_available():
@@ -170,6 +181,12 @@ def main() -> int:
             model = ScalableGCN(edge_type=[0], num_layers=2,
                                 max_neighbors=10, train_node_type=0,
                                 **common)
+    elif args.model in ("lshne", "lasgnn"):
+        import chip_smoke
+
+        batch, lr = 512, 0.01
+        graph = Graph(**chip_smoke.hetero_variant(build_synthetic(**PPI), 3))
+        model = getattr(chip_smoke, args.model)(graph.max_node_id)
     elif args.model in ("scalable_sage", "gat"):
         batch, lr = 512, 0.01
         graph = Graph(**build_synthetic(**PPI))
@@ -205,6 +222,14 @@ def main() -> int:
             device_graph.build_node_sampler(graph, 0, graph.max_node_id),
             "cuda")
         scan = _roots_scan(model, sampler, args.steps, batch)
+    elif args.model == "lasgnn":
+        sampler = device_graph.tensors(
+            device_graph.build_node_sampler(graph, -1, graph.max_node_id),
+            "cuda")
+        adj01 = device_graph.tensors(
+            device_graph.build_adjacency(graph, [0, 1], graph.max_node_id),
+            "cuda")
+        scan = _lasgnn_scan(model, sampler, adj01, args.steps, batch)
     else:
         sampler = state["consts"]["roots"]
         scan = train.make_scan_train(model, args.steps, batch)
@@ -280,18 +305,31 @@ def main() -> int:
         count = 10 if args.model == "scalable_sage" else 5
         draws["single-hop draw"] = lambda: device_graph.neighbor_draw(
             adj, roots, count, device_graph.seed_words(1))
+    if args.model == "lshne":
+        draws.update(_lshne_parts(state, batch))
+    if args.model == "lasgnn":
+        draws.update(_lasgnn_parts(model, state, sampler, adj01, batch))
     for name, draw in draws.items():
         draw()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            # the trace can miss the first kernel after it starts: a spin
+            # kernel goes first and is left out of the count
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             draw()
             torch.cuda.synchronize()
-        per = _per_kernel(prof)
+        per = {k: v for k, v in _per_kernel(prof).items()
+               if "spin_kernel" not in k}
         what = {"walk": "one walk",
                 "expansion": "one multi_hop_neighbor expansion",
                 "store bookkeeping": "the store bookkeeping's ops",
-                "single-hop draw": "the step's single-hop draw"}.get(
+                "single-hop draw": "the step's single-hop draw",
+                "typed negatives": "the step's sample_node_with_src",
+                "sparse gathers": "the step's sparse gathers",
+                "typed dense": "one TypedDense forward and backward",
+                "fanouts": "the step's three chained fanouts"}.get(
                     name, f"sample_node ({name})")
         print(f"{what}: {sum(n for _, n in per.values())} "
               f"launches, {sum(us for us, _ in per.values()):.3f} device us")
@@ -316,6 +354,86 @@ def _roots_scan(model, sampler, steps: int, batch: int):
         return state, torch.stack(losses)
 
     return scan
+
+
+def _lasgnn_scan(model, sampler, adj, steps: int, batch: int):
+    """``make_scan_train``'s loop for LasGNN's structured inputs, drawn
+    on the card each step (``chip_smoke.lasgnn_inputs``)."""
+    import chip_smoke
+    from euler_tpu_torch.graph import device as device_graph
+
+    step = model.make_train_step()
+
+    def scan(state, seed: int):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        losses = []
+        for i in range(steps):
+            s = seed * steps + i
+            inputs = chip_smoke.lasgnn_inputs(
+                sampler, adj, gen, device_graph.stream_words(s, 1 << 16),
+                batch)
+            losses.append(step(state, model.device_sample_batch(
+                inputs, s, device="cuda"))[0])
+        return state, torch.stack(losses)
+
+    return scan
+
+
+def _lshne_parts(state, batch: int) -> dict:
+    """Callables running parts of an LsHNE step alone at its shapes: the
+    typed negatives of its 12 pairs a root, the sparse gathers of its
+    sources, positives, negatives and roots, and the target tower's
+    hidden TypedDense forward and backward over the negatives' rows."""
+    from euler_tpu_torch.graph import device as device_graph
+    from euler_tpu_torch.models import base
+
+    consts, module = state["consts"], state["module"]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    src = device_graph.sample_node(consts["roots"], 12 * batch,
+                                   generator=gen)
+    negs = device_graph.sample_node(consts["roots"], 60 * batch,
+                                    generator=gen)
+    rows = torch.cat([src, src, negs,
+                      device_graph.sample_node(consts["roots"], batch,
+                                               generator=gen)])
+    x = torch.randn(negs.shape[0], 16, device="cuda")
+    types = consts["tsampler"]["types"].index_select(0, negs)
+
+    def typed_dense():
+        module.tar_hidden(x, types).sum().backward()
+
+    return {
+        "typed negatives": lambda: device_graph.sample_node_with_src(
+            consts["tsampler"], src, 5, device_graph.stream_words(1, 1)),
+        "sparse gathers": lambda: base.sparse_rows(consts, rows),
+        "typed dense": typed_dense,
+    }
+
+
+def _lasgnn_parts(model, state, sampler, adj, batch: int) -> dict:
+    """Callables running parts of a LasGNN step alone at its shapes: the
+    three chained fanouts of one batch, and the sparse gathers of their
+    hops."""
+    import chip_smoke
+    from euler_tpu_torch.graph import device as device_graph
+    from euler_tpu_torch.models import base
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b = model.device_sample_batch(chip_smoke.lasgnn_inputs(
+        sampler, adj, gen, device_graph.stream_words(1, 1 << 16), batch), 1,
+        device="cuda")
+    consts, module = state["consts"], state["module"]
+
+    def fanouts():
+        return [device_graph.sample_fanout(
+            [consts["adj"][k] for k in keys], b[f"group{g}"].reshape(-1),
+            module.fanouts, device_graph.stream_words(1, (g << 8) | m))
+            for g, group in enumerate(module.group_adj_keys)
+            for m, keys in enumerate(group)]
+
+    hops = torch.cat([h for ids in fanouts() for h in ids])
+    return {"fanouts": fanouts,
+            "sparse gathers": lambda: base.sparse_rows(consts, hops)}
 
 
 def _store_ops(model, state, roots):
