@@ -7,7 +7,8 @@ Phases, each of which raises on failure (nonzero exit, no result line):
 
 1. Environment: torch, CUDA, nvcc, triton, the card's name and power
    limit. TF32 is switched off for matmuls and cuDNN.
-2. Build: the port's CUDA kernels from ``euler_tpu_torch/csrc/``.
+2. Build: the port's CUDA kernels from ``euler_tpu_torch/csrc/`` and,
+   beside them, the graph engine from ``euler_tpu_torch/graph/_native/``.
 3. Kernels vs plain, on the full synthetic PPI graph (56,944 nodes), for
    the chained two-hop draw ``sample_fanout2`` (B1) and the single-hop
    draw ``sample_neighbor`` (B2):
@@ -125,7 +126,29 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    recipe on reddit_heavytail's graph over sorted alias tables: the exact
    rejection walk, no kernel), each printing walk edges and pairs a step
    with their rates and the launches a step.
-5. The ``kernels`` line; then the final ``ok`` line. Each phase prints
+5. Engine and run_loop, on the full synthetic ppi graph: (a) the
+   engine's build time (phase 2); (b) ``datasets.build_ppi`` writes it
+   as ``.dat`` files (seconds, bytes); (c) ``graph.Graph(directory=...)``
+   loads them (seconds, nodes, edges); (d) the slab, root sampler,
+   feature and label tables built from the engine equal, on the card, bit
+   for bit, those built from ``MemoryGraph`` over the same seed's arrays;
+   (e) ``run_loop.main`` trains ``--model graphsage_supervised
+   --device_sampling 1`` at the ppi widths for one epoch (``--max_id
+   56943``: 111 steps, B1 exactly once a step), the loss finite and
+   falling, the checkpoint at step 111, then ``--mode evaluate`` writes
+   eval.json with f1 in [0, 1] and ``--mode save_embedding`` writes
+   embedding.npy [56,944, 256] equal to ``train.save_embedding`` of the
+   restored state; (f) the same with host sampling (the engine's
+   ``sample_fanout`` through ``prefetch``, no kernel launched in any of
+   the three modes; its export, drawn on the engine's OpenMP threads,
+   is held to a fresh export of the same state by row cosine), then one
+   ``torch.profiler`` window of 10 host-sampled ``train.train`` steps for
+   the device busy share; (g) the device run's checkpoint restored into a
+   fresh model gives the trained state's forward bit for bit. Each run
+   prints its step ms (median of steps 11-111), edges/s, the batch build
+   ms in a prefetch worker, the input stall and the steps that waited
+   on prefetch, and the peak of allocated device memory.
+6. The ``kernels`` line; then the final ``ok`` line. Each phase prints
    its wall time.
 """
 
@@ -133,9 +156,14 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
+import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -207,6 +235,21 @@ B1_ROOTS = (PPI_BATCH, PPI_BATCH * SAGE_NEGS)
 WIDE_WIDTHS = (128, 1024)
 # a write of this many bytes evicts the slab from the H100's 50 MB L2
 FLUSH_BYTES = 128 << 20
+# the host-sampled export against a second export of the same restored
+# state over fresh draws: the least margin of their rows' median cosine
+# over that of unrelated rows (0.91 against 0.54 on a 12,000-node CPU
+# rehearsal)
+EXPORT_COSINE_MARGIN = 0.2
+# run_loop's flags of the ppi path (bench.py's ppi widths, as phase 4's
+# ppi): --max_id, --data_dir and --model_dir are added per run
+RUN_LOOP_ARGS = [
+    "--model", "graphsage_supervised", "--feature_idx", "1",
+    "--feature_dim", "50", "--label_idx", "0", "--label_dim", "121",
+    "--train_edge_type", "0", "--all_edge_type", "0",
+    "--fanouts", ",".join(map(str, PPI_FANOUTS)), "--dim", str(PPI_DIM),
+    "--batch_size", str(PPI_BATCH), "--learning_rate", str(PPI_LR),
+    "--num_epochs", "1", "--log_steps", "1",
+]
 # NVIDIA H100 SXM data-sheet peaks (700 W): HBM bytes/s and
 # float32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -281,13 +324,34 @@ def phase_env() -> str:
 
 
 def phase_build() -> None:
+    """The CUDA kernels (nvcc) and, beside them on the host's cores, the
+    graph engine (make), from the checkout's sources."""
     log("== phase 2: build")
     from euler_tpu_torch import _build
+    from euler_tpu_torch.graph import native
 
+    engine = {}
+
+    def build_engine():
+        t = time.perf_counter()
+        try:
+            native.build_native()
+            engine["s"] = time.perf_counter() - t
+        except Exception as e:  # raised below, on the main thread
+            engine["error"] = e
+
+    builder = threading.Thread(target=build_engine)
+    builder.start()
     t0 = time.perf_counter()
     _build.load_library()
     log(f"built {_build.library_path()} in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_build.build_seconds:.2f} s)")
+    builder.join()
+    if "error" in engine:
+        raise engine["error"]
+    log(f"graph engine {native.library_path()} in {engine['s']:.2f} s "
+        f"(make {native.build_seconds:.2f} s, 0 when it was built already; "
+        "built beside nvcc)")
     for line in _build.build_log.splitlines():
         if any(w in line for w in ("Compiling entry", "registers", "spill",
                                    "error")):
@@ -343,13 +407,13 @@ def check_members(adj: dict, rows, picks) -> None:
 def phase_kernel(seed: int):
     log("== phase 3: kernel vs plain")
     from euler_tpu_torch.datasets import PPI, build_synthetic
-    from euler_tpu_torch.graph import Graph, sampling_kernels
+    from euler_tpu_torch.graph import MemoryGraph, sampling_kernels
     from euler_tpu_torch.graph import device as device_graph
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     data = build_synthetic(**PPI)
-    graph = Graph(**data)
+    graph = MemoryGraph(**data)
     max_id = graph.max_node_id
     adj = device_graph.tensors(
         device_graph.build_adjacency(graph, [0], max_id), dev)
@@ -364,7 +428,7 @@ def phase_kernel(seed: int):
 
     # (a) exactness on a weighted variant with zero-weight rows
     zero_rows = [5, 77]
-    graph_w = Graph(**weighted_variant(data, zero_rows, seed))
+    graph_w = MemoryGraph(**weighted_variant(data, zero_rows, seed))
     adj_w = device_graph.tensors(
         device_graph.build_adjacency(graph_w, [0], max_id), dev)
     if bool(adj_w["sampleable"][zero_rows].any()):
@@ -457,8 +521,8 @@ def phase_kernel(seed: int):
                                     flush))
     check_biased(graph_w, pl_graph, zero_rows, seed)
     t0 = time.perf_counter()
-    hetero = Graph(**hetero_variant(data, seed + 3))
-    hetero_w = Graph(**hetero_variant(weighted_variant(data, zero_rows, seed),
+    hetero = MemoryGraph(**hetero_variant(data, seed + 3))
+    hetero_w = MemoryGraph(**hetero_variant(weighted_variant(data, zero_rows, seed),
                                       seed + 3))
     log(f"(n) heterogeneous ppi variants (2 edge types, {HET_NODE_TYPES} "
         f"node types, uint64 slot 0 = the node's id) built in "
@@ -686,13 +750,13 @@ def check_reddit_fanout(seed: int, flush):
     slab. Returns (the graph and its build seconds, the timing record,
     the max |diff|)."""
     from euler_tpu_torch.datasets import REDDIT, build_synthetic
-    from euler_tpu_torch.graph import Graph, sampling_kernels
+    from euler_tpu_torch.graph import MemoryGraph, sampling_kernels
     from euler_tpu_torch.graph import device as device_graph
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     data = build_synthetic(**REDDIT)
-    graph = Graph(**data)
+    graph = MemoryGraph(**data)
     build_s = time.perf_counter() - t0
     max_id = graph.max_node_id
     t0 = time.perf_counter()
@@ -704,7 +768,7 @@ def check_reddit_fanout(seed: int, flush):
         f"{time.perf_counter() - t0:.2f} s")
     zero_rows = [5, 77]
     adj_w = device_graph.tensors(device_graph.build_adjacency(
-        Graph(**weighted_variant(data, zero_rows, seed)), [0], max_id), dev)
+        MemoryGraph(**weighted_variant(data, zero_rows, seed)), [0], max_id), dev)
     del data
     m, (f1, f2) = REDDIT_BATCH, REDDIT_FANOUTS
     gen = torch.Generator(device=dev).manual_seed(seed + 60)
@@ -751,11 +815,11 @@ def check_alias(seed: int) -> None:
     Philox ops and the float32 slot arithmetic on the card; no kernel
     may launch."""
     from euler_tpu_torch.datasets import build_powerlaw
-    from euler_tpu_torch.graph import Graph, sampling_kernels
+    from euler_tpu_torch.graph import MemoryGraph, sampling_kernels
     from euler_tpu_torch.graph import device as device_graph
 
     zero_rows = [5, 77]
-    graph = Graph(**weighted_variant(build_powerlaw(**ALIAS_CHECK),
+    graph = MemoryGraph(**weighted_variant(build_powerlaw(**ALIAS_CHECK),
                                      zero_rows, seed))
     max_id = graph.max_node_id
     t0 = time.perf_counter()
@@ -1408,7 +1472,7 @@ def phase_train(graph, hetero, reddit, seed: int, smi: str) -> dict:
     single-hop and sparse-feature models under "after")."""
     log("== phase 4: train")
     from euler_tpu_torch.datasets import build_synthetic
-    from euler_tpu_torch.graph import Graph
+    from euler_tpu_torch.graph import MemoryGraph
     from euler_tpu_torch.models import GraphSage, SupervisedGraphSage
 
     def sage(max_id, dim):
@@ -1425,7 +1489,7 @@ def phase_train(graph, hetero, reddit, seed: int, smi: str) -> dict:
             feature_idx=1, feature_dim=50, aggregator="mean", concat=True,
             xent_loss=True, device_features=True, device_sampling=True)
 
-    small = Graph(**build_synthetic(2000, 15, 50, 121, seed=seed + 1))
+    small = MemoryGraph(**build_synthetic(2000, 15, 50, 121, seed=seed + 1))
     f1, f2 = PPI_FANOUTS
     runs = {}
     agree_cpu_cuda(sage(small.max_node_id, 32), small, seed, "ppi")
@@ -1792,11 +1856,11 @@ def train_sparse(hetero, seed: int, smi: str) -> dict:
     drawn on the card (B1 three times a step, B2 never). Each then runs
     ``train.evaluate`` over 10 batches."""
     from euler_tpu_torch.datasets import build_synthetic
-    from euler_tpu_torch.graph import Graph
+    from euler_tpu_torch.graph import MemoryGraph
     from euler_tpu_torch.graph import device as device_graph
 
     max_id = hetero.max_node_id
-    small = Graph(**hetero_variant(build_synthetic(2000, 15, 50, 121,
+    small = MemoryGraph(**hetero_variant(build_synthetic(2000, 15, 50, 121,
                                                    seed=seed + 1), seed + 4))
     runs = {}
     t0 = time.perf_counter()
@@ -1960,7 +2024,7 @@ def train_reddit(reddit, seed: int, smi: str):
     the heavy-tail graph."""
     from euler_tpu_torch.datasets import (REDDIT, REDDIT_HEAVYTAIL,
                                           build_powerlaw, build_synthetic)
-    from euler_tpu_torch.graph import Graph
+    from euler_tpu_torch.graph import MemoryGraph
 
     graph, build_s = reddit
     f1, f2 = REDDIT_FANOUTS
@@ -1968,9 +2032,9 @@ def train_reddit(reddit, seed: int, smi: str):
     note = f"{REDDIT_BATCH} * ({f1} + {f1}*{f2}) sampled edges/step"
     width = dict(feature_dim=REDDIT["feature_dim"],
                  label_dim=REDDIT["label_dim"])
-    small = Graph(**build_synthetic(2000, REDDIT["avg_degree"], **width,
+    small = MemoryGraph(**build_synthetic(2000, REDDIT["avg_degree"], **width,
                                     multilabel=False, seed=seed + 2))
-    small_pl = Graph(**build_powerlaw(3000, 90_000, **width, seed=seed + 3))
+    small_pl = MemoryGraph(**build_powerlaw(3000, 90_000, **width, seed=seed + 3))
     runs = {}
     for name, feature_dtype, alias in (("reddit", None, False),
                                        ("reddit_bf16", "bfloat16", False),
@@ -1980,13 +2044,13 @@ def train_reddit(reddit, seed: int, smi: str):
             t0 = time.perf_counter()
             data = build_powerlaw(**REDDIT_HEAVYTAIL)
             t1 = time.perf_counter()
-            graph = Graph(**data)
+            graph = MemoryGraph(**data)
             t2 = time.perf_counter()
             log(f"{name} graph {graph.num_nodes} nodes, "
                 f"{len(data['indices'])} edges (REDDIT_HEAVYTAIL, no cut), "
                 f"max degree {np.diff(data['indptr']).max()}, built in "
                 f"{t2 - t0:.2f} s ({t1 - t0:.2f} s build_powerlaw, "
-                f"{t2 - t1:.2f} s Graph with its sort); its alias tables "
+                f"{t2 - t1:.2f} s MemoryGraph with its sort); its alias tables "
                 f"are built in init_state")
             del data
         else:
@@ -2008,6 +2072,310 @@ def train_reddit(reddit, seed: int, smi: str):
     return runs, graph
 
 
+class _LogLines(logging.Handler):
+    """The run_loop's log lines, kept for parsing."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+_STEP_LINE = re.compile(
+    r"step=(\d+) loss=(\S+) \S+=\S+ steps/s=(\S+) input_stall_ms=(\S+) "
+    r"stalled=(\d+)/\d+ sample_ms=(\S+)")
+
+
+def run_loop_main(argv, device: str) -> list:
+    """``run_loop.main(argv)`` on ``device``; returns its per-window
+    ``(step, loss, step_ms, input_stall_ms, stalled, sample_ms)``."""
+    from euler_tpu_torch import run_loop
+
+    lines = _LogLines()
+    logger = logging.getLogger("euler_tpu_torch")
+    logger.addHandler(lines)
+    try:
+        if run_loop.main(argv, device=device) != 0:
+            raise AssertionError(f"run_loop.main({argv}) failed")
+    finally:
+        logger.removeHandler(lines)
+    out = []
+    for line in lines.lines:
+        m = _STEP_LINE.search(line)
+        if m:
+            step, loss, sps, stall, stalled, sample = m.groups()
+            out.append((int(step), float(loss), 1e3 / float(sps),
+                        float(stall), int(stalled), float(sample)))
+    return out
+
+
+def device_busy_us(prof) -> float:
+    """Device microseconds of a profile: device-side events only, no user
+    annotations (as scripts/torch_step_profile.py counts them)."""
+    from torch.autograd import DeviceType
+
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation)
+
+
+def run_loop_path(name: str, data_dir: str, model_dir: str, extra,
+                  seed: int, smi: str, device: str, max_id: int) -> dict:
+    """One run_loop path: train one epoch, evaluate, save_embedding, with
+    the launch counts set to 0 just before training and read just after.
+    Checks the loss (finite, falling), the checkpoint's latest step,
+    eval.json's f1 and that embedding.npy is ``train.save_embedding`` of
+    the restored state. Returns the launches, the steps' numbers and the
+    trained state (captured from ``train.train``)."""
+    from euler_tpu_torch import run_loop
+    from euler_tpu_torch import train as train_lib
+    from euler_tpu_torch.checkpoint import Checkpointer
+    from euler_tpu_torch.graph import sampling_kernels
+
+    argv = ["--data_dir", data_dir, "--model_dir", model_dir,
+            "--max_id", str(max_id), "--seed", str(seed), *RUN_LOOP_ARGS,
+            *extra]
+    steps = (max_id + 1) // PPI_BATCH
+    trained = {}
+    real_train = train_lib.train
+
+    def keep_state(*a, **k):  # the trained state, for phase (g)
+        trained["state"], history = real_train(*a, **k)
+        return trained["state"], history
+
+    torch.cuda.reset_peak_memory_stats()
+    for k in sampling_kernels.launches:
+        sampling_kernels.launches[k] = 0
+    train_lib.train = keep_state
+    try:
+        t0 = time.perf_counter()
+        windows = run_loop_main(argv, device)
+        wall = time.perf_counter() - t0
+    finally:
+        train_lib.train = real_train
+    launches = dict(sampling_kernels.launches)
+    peak = torch.cuda.max_memory_allocated()
+    losses = np.array([w[1] for w in windows])
+    if len(windows) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"{name}: {len(windows)} logged steps of "
+                             f"{steps}, losses {losses}")
+    head, tail = losses[:10].mean(), losses[-10:].mean()
+    if not tail < head:
+        raise AssertionError(f"{name}: loss did not fall ({head} -> {tail})")
+    latest = Checkpointer(model_dir).latest_step()
+    if latest != steps:
+        raise AssertionError(f"{name}: latest checkpoint {latest}, "
+                             f"expected {steps}")
+    step_ms = statistics.median(w[2] for w in windows[10:])
+    stall_ms = float(np.mean([w[3] for w in windows[10:]]))
+    stalled = sum(w[4] for w in windows)
+    sample_ms = float(np.mean([w[5] for w in windows]))
+    edges = PPI_BATCH * (PPI_FANOUTS[0] + PPI_FANOUTS[0] * PPI_FANOUTS[1])
+    log(f"{name} train: run_loop.main {wall:.2f} s, {steps} steps, launches "
+        f"{launches}, loss {head:.5f} (first 10) -> {tail:.5f} (last 10), "
+        f"step {step_ms:.4f} ms (median of steps 11-{steps}, each step "
+        f"synced by --log_steps 1), {edges} edges/step, "
+        f"{edges / step_ms * 1e3:.1f} edges/s, batch build "
+        f"{sample_ms:.4f} ms in a prefetch worker, input stall "
+        f"{stall_ms:.4f} ms a step, {stalled} of {steps} steps waited over "
+        f"1 ms on prefetch, max_memory_allocated {peak} B, latest "
+        f"checkpoint {latest} (card: {smi})")
+    after = dict(sampling_kernels.launches)
+    t0 = time.perf_counter()
+    run_loop_main(argv + ["--mode", "evaluate"], device)
+    with open(os.path.join(model_dir, "eval.json")) as f:
+        result = json.load(f)
+    if not 0.0 <= result["f1"] <= 1.0:
+        raise AssertionError(f"{name}: eval f1 {result['f1']}")
+    run_loop_main(argv + ["--mode", "save_embedding"], device)
+    emb = np.load(os.path.join(model_dir, "embedding.npy"))
+    args = run_loop.define_flags().parse_args(
+        argv + ["--mode", "save_embedding"])
+    graph = run_loop.build_graph(args)
+    model = run_loop.build_model(args, graph)
+    restored = run_loop._restore_state(model, graph, args, device)
+    want = train_lib.save_embedding(model, max_id, restored,
+                                    batch_size=PPI_BATCH, device=device,
+                                    graph=graph)
+    if emb.shape != (max_id + 1, PPI_DIM) or not np.isfinite(emb).all():
+        raise AssertionError(f"{name}: embedding.npy {emb.shape}")
+    def row_cosine(a, b):
+        return (a * b).sum(1) / np.maximum(
+            np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1), 1e-12)
+
+    cos = row_cosine(emb, want)
+    # the same rows against other nodes' rows: what no relation scores
+    cos_other = row_cosine(emb, np.roll(want, 1, axis=0))
+    if model.device_sampling:
+        # the draws are keyed by the embed batches' seeds: bit-equal
+        same = bool(np.array_equal(emb, want))
+    else:
+        # the engine's OpenMP threads draw from their own RNG streams,
+        # which --seed does not reach: the same model over fresh samples
+        same = np.median(cos) > np.median(cos_other) + EXPORT_COSINE_MARGIN
+    if not same:
+        raise AssertionError(f"{name}: embedding.npy is not "
+                             "train.save_embedding of the restored state "
+                             f"(median row cosine {np.median(cos)})")
+    log(f"{name} evaluate and save_embedding: {time.perf_counter() - t0:.2f}"
+        f" s, eval {result}, embedding.npy {emb.shape} against "
+        f"train.save_embedding of the restored state: "
+        f"{'bit-equal' if model.device_sampling else 'resampled'}, row "
+        f"cosine median {np.median(cos):.6f} min {cos.min():.6f} (against "
+        f"the next node's row: median {np.median(cos_other):.6f}); tables "
+        f"{table_bytes(restored['consts'])} B; launches while evaluating "
+        f"and exporting {dict((k, sampling_kernels.launches[k] - after[k]) for k in after)}")
+    graph.close()
+    return {"launches": launches, "steps": steps, "step_ms": step_ms,
+            "peak_bytes": peak, "state": trained["state"],
+            "restored": restored, "model": model}
+
+
+def phase_engine(seed: int, smi: str, device: str = "cuda",
+                 ppi: dict | None = None) -> dict:
+    """The engine client and run_loop on the full synthetic ppi graph:
+    (a) the engine's build (phase 2), (b) ``datasets.build_ppi`` writes
+    the .dat files, (c) ``Graph(directory=...)`` loads them, (d) the
+    device tables from the engine equal those from ``MemoryGraph`` over
+    the same seed's arrays, on the card, (e) ``run_loop`` trains
+    graphsage_supervised with --device_sampling 1 (B1 once a step), then
+    evaluates and exports embeddings, (f) the same with host sampling (no
+    kernel launch), plus one torch.profiler window of 10 host-sampled
+    steps of ``train.train``, (g) the device run's checkpoint restored
+    into a fresh model gives its trained state's forward bit for bit."""
+    log("== phase 5: engine and run_loop")
+    from euler_tpu_torch import datasets, train
+    from euler_tpu_torch.graph import Graph, MemoryGraph, sampling_kernels
+    from euler_tpu_torch.models import SupervisedGraphSage
+
+    ppi = ppi or datasets.PPI
+    max_id = ppi["num_nodes"] - 1
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(work, exist_ok=True)
+    runs = {}
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        data_dir = os.path.join(tmp, "ppi")
+        t0 = time.perf_counter()
+        datasets.build_ppi(data_dir, **ppi)
+        t1 = time.perf_counter()
+        nbytes = sum(os.path.getsize(os.path.join(data_dir, n))
+                     for n in os.listdir(data_dir))
+        graph = Graph(directory=data_dir)
+        t2 = time.perf_counter()
+        nbrs = int(graph.get_full_neighbor(np.arange(max_id + 1), [0])[3]
+                   .sum())
+        log(f"(b) build_ppi wrote {sorted(os.listdir(data_dir))}, {nbytes} "
+            f"B in {t1 - t0:.2f} s; (c) Graph(directory=...) loaded "
+            f"{graph.num_nodes} nodes, {graph.num_edges} edges ({nbrs} "
+            f"neighbor entries; the files carry no edge records) in "
+            f"{t2 - t1:.2f} s (card: {smi})")
+        mem = MemoryGraph(**datasets.build_synthetic(**ppi))
+        model = SupervisedGraphSage(
+            label_idx=0, label_dim=ppi["label_dim"], metapath=[[0], [0]],
+            fanouts=list(PPI_FANOUTS), dim=PPI_DIM, feature_idx=1,
+            feature_dim=ppi["feature_dim"], max_id=max_id,
+            device_features=True, device_sampling=True)
+        t0 = time.perf_counter()
+        tables = [model.build_consts(g, device) for g in (graph, mem)]
+        flat = [[], []]
+        for i, c in enumerate(tables):
+            stack = [c]
+            while stack:
+                x = stack.pop()
+                if isinstance(x, dict):
+                    stack += [x[k] for k in sorted(x, reverse=True)]
+                else:
+                    flat[i].append(x)
+        if len(flat[0]) != len(flat[1]) or not all(
+                a.dtype == b.dtype and torch.equal(a, b)
+                for a, b in zip(*flat)):
+            raise AssertionError("device tables from the engine differ from "
+                                 "those from MemoryGraph")
+        log(f"(d) slab, root sampler, feature and label tables from the "
+            f"engine and from MemoryGraph: bit-equal on {device} "
+            f"({len(flat[0])} tensors, {table_bytes(tables[0])} B; both "
+            f"built in {time.perf_counter() - t0:.2f} s)")
+        del tables, flat, mem
+        graph.close()
+
+        dev_run = run_loop_path("run_loop_device", data_dir,
+                                os.path.join(tmp, "m1"),
+                                ["--device_sampling", "1"], seed, smi,
+                                device, max_id)
+        if dev_run["launches"] != {"sample_fanout2": dev_run["steps"],
+                                   "sample_neighbor": 0}:
+            raise AssertionError(f"run_loop_device launches "
+                                 f"{dev_run['launches']}")
+        host_run = run_loop_path("run_loop_host", data_dir,
+                                 os.path.join(tmp, "m2"), [], seed, smi,
+                                 device, max_id)
+        moved = {k: v for k, v in sampling_kernels.launches.items() if v}
+        if host_run["launches"] != {"sample_fanout2": 0,
+                                    "sample_neighbor": 0} or moved:
+            raise AssertionError(f"run_loop_host launched {moved}")
+
+        # (f) one profiler window of 10 host-sampled steps
+        from torch.profiler import ProfilerActivity, profile
+
+        graph = Graph(directory=data_dir)
+        host_model = host_run["model"]
+        acts = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if device == "cuda" else [])
+        prof = profile(activities=acts)
+        window = {}
+
+        def hook(step):
+            if step == 10:
+                torch.cuda.synchronize()
+                prof.start()
+                window["t0"] = time.perf_counter()
+            elif step == 20:
+                torch.cuda.synchronize()
+                window["wall"] = time.perf_counter() - window["t0"]
+                prof.stop()
+
+        _, history = train.train(
+            host_model, graph,
+            lambda step: graph.sample_node(PPI_BATCH, 0), num_steps=21,
+            learning_rate=PPI_LR, log_every=1, seed=seed, device=device,
+            step_hook=hook, log_fn=lambda msg: None)
+        busy = device_busy_us(prof) / 1e6
+        log(f"(f) host-sampled train.train profiled over steps 11-20: wall "
+            f"{window['wall'] / 10 * 1e3:.4f} ms/step, device busy "
+            f"{busy / 10 * 1e3:.4f} ms/step, busy share "
+            f"{busy / window['wall']:.4f}; batch build "
+            f"{np.mean([h['sample_ms'] for h in history[10:20]]):.4f} ms, "
+            f"input stall "
+            f"{np.mean([h['input_stall_ms'] for h in history[10:20]]):.4f}"
+            f" ms a step (card: {smi})")
+        graph.close()
+
+        # (g) restore round trip
+        fixed = np.random.default_rng(seed).integers(0, max_id + 1,
+                                                      PPI_BATCH)
+        m = dev_run["model"]
+        outs = []
+        for st in (dev_run["state"], dev_run["restored"]):
+            with torch.no_grad():
+                out = st["module"](m.device_sample_batch(fixed, 99, device),
+                                   st["consts"])
+            outs.append((out.embedding, out.loss))
+        if not (torch.equal(outs[0][0], outs[1][0])
+                and torch.equal(outs[0][1], outs[1][1])):
+            raise AssertionError("the restored checkpoint's forward differs "
+                                 "from the trained state's")
+        log(f"(g) m1 restored into a fresh model: forward on {PPI_BATCH} "
+            f"fixed roots bit-equal to the trained state's (loss "
+            f"{float(outs[0][1]):.6f})")
+    for name, r in (("run_loop_device", dev_run), ("run_loop_host",
+                                                   host_run)):
+        runs[name] = {k: r[k] for k in ("launches", "steps", "step_ms",
+                                        "peak_bytes")}
+    return runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2021,8 +2389,12 @@ def main() -> int:
     t2 = time.perf_counter()
     log(f"phase 3: {t2 - t1:.1f} s")
     runs = phase_train(graph, hetero, reddit, args.seed, smi)
-    log(f"phase 4: {time.perf_counter() - t2:.1f} s")
-    log("== phase 5: kernels")
+    t3 = time.perf_counter()
+    log(f"phase 4: {t3 - t2:.1f} s")
+    del graph, hetero, reddit
+    runs.update(phase_engine(args.seed, smi))
+    log(f"phase 5: {time.perf_counter() - t3:.1f} s")
+    log("== phase 6: kernels")
     meta = {
         "sample_fanout2": dict(
             source="euler_tpu_torch/csrc/sample_fanout2.cu",

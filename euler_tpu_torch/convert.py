@@ -197,3 +197,18 @@ def load_stores(state: dict, stores, grad_stores) -> None:
         with torch.no_grad():
             for t, a in zip(state[name], arrays):
                 t.copy_(torch.from_numpy(np.array(a, np.float32)))
+
+
+def state_from_checkpoint_arrays(restored: dict, state: dict) -> dict:
+    """Load a JAX ``Checkpointer.restore`` turned to numpy (its
+    ``params`` tree and, for a ScalableStoreModel, its ``stores`` and
+    ``grad_stores``) into a port training state of the same model, in
+    place, and return it: the parameters strictly into the module
+    (``params_from_flax``), the stores with ``load_stores``. The
+    optimizer's moments stay as they are: evaluating a JAX-trained model
+    or exporting its embeddings reads only the parameters."""
+    state["module"].load_state_dict(params_from_flax(restored["params"]),
+                                    strict=True)
+    if "stores" in restored:
+        load_stores(state, restored["stores"], restored["grad_stores"])
+    return state

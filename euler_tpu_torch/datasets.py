@@ -1,16 +1,20 @@
-"""Synthetic benchmark graphs at the reference's scales, built in memory.
+"""Synthetic benchmark graphs at the reference's scales.
 
 The port's copies of ``euler_tpu.datasets.build_synthetic`` and
 ``build_powerlaw``: the same numpy RNG calls in the same order, so one
-seed gives the same graph in both packages. Where the JAX package writes
-``.dat`` partitions for its C++ engine, these return the arrays that
-``graph.Graph`` takes.
+seed gives the same graph in both packages. They return the arrays that
+``graph.MemoryGraph`` takes; ``build_ppi`` and ``build_reddit`` write the
+same graphs as ``.dat`` partitions and ``meta.json`` for the engine
+client (``graph.Graph``), byte for byte the JAX package's files.
 
 Layout convention (matches the examples' training flags): dense feature
 slot 0 = labels (multi-/one-hot), slot 1 = input features.
 """
 
 from __future__ import annotations
+
+import json
+import os
 
 import numpy as np
 
@@ -26,6 +30,134 @@ REDDIT_HEAVYTAIL = dict(
 )
 
 
+def _cache_begin(out_dir: str, params: str,
+                 protect_unmarked: bool = False) -> bool:
+    """The builders' done-marker protocol. True: a finished build with
+    the same params is there (the caller returns at once). False: stale,
+    partial or absent; stale outputs are cleared, the in-progress marker
+    is written (an interrupted build is detected and redone next time),
+    and the caller generates, then calls ``_cache_finish``.
+    ``protect_unmarked``: ``.dat`` partitions with no marker at all are a
+    real converted dataset, kept rather than overwritten."""
+    os.makedirs(out_dir, exist_ok=True)
+    marker = os.path.join(out_dir, "done")
+    wip = os.path.join(out_dir, "synthetic-in-progress")
+    if os.path.exists(marker):
+        with open(marker) as f:
+            if f.read() == params:
+                return True
+    elif (
+        protect_unmarked
+        and not os.path.exists(wip)
+        and any(n.endswith(".dat") for n in os.listdir(out_dir))
+    ):
+        return True
+    with open(wip, "w") as f:
+        f.write(params)
+    for name in os.listdir(out_dir):
+        if name.endswith(".dat") or name in ("done", "meta.json"):
+            os.unlink(os.path.join(out_dir, name))
+    return False
+
+
+def _cache_finish(out_dir: str, params: str) -> None:
+    with open(os.path.join(out_dir, "done"), "w") as f:
+        f.write(params)
+    os.unlink(os.path.join(out_dir, "synthetic-in-progress"))
+
+
+def write_dat(arrays: dict, out_dir: str, num_partitions: int = 1) -> None:
+    """Write ``MemoryGraph`` arrays (dense feature slots only) as
+    ``meta.json`` and ``part_<p>.dat`` partitions (node id %
+    ``num_partitions``), through ``graph.convert``'s block packer: each
+    node's neighbors in the order the arrays hold them, its dense slots
+    as float features."""
+    from euler_tpu_torch.graph.convert import convert_dicts
+
+    indptr = np.asarray(arrays["indptr"], np.int64)
+    indices = np.asarray(arrays["indices"], np.int64)
+    weights = np.asarray(arrays["weights"], np.float32)
+    node_weights = np.asarray(arrays["node_weights"], np.float32)
+    node_types = np.asarray(arrays["node_types"], np.int32)
+    dense = list(arrays.get("dense_features", ()))
+    n_et = int(arrays.get("edge_type_num", 1))
+    meta = {
+        "node_type_num": int(node_types.max(initial=0)) + 1,
+        "edge_type_num": n_et,
+        "node_uint64_feature_num": 0,
+        "node_float_feature_num": len(dense),
+        "node_binary_feature_num": 0,
+        "edge_uint64_feature_num": 0,
+        "edge_float_feature_num": 0,
+        "edge_binary_feature_num": 0,
+    }
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "meta.json"), "w") as f:
+        json.dump(meta, f)
+
+    def nodes():
+        for nid in range(len(node_weights)):
+            neighbor = {}
+            for t in range(n_et):
+                a, b = indptr[nid * n_et + t], indptr[nid * n_et + t + 1]
+                neighbor[str(t)] = dict(zip(
+                    map(str, indices[a:b].tolist()), weights[a:b].tolist()))
+            yield {
+                "node_id": nid,
+                "node_type": int(node_types[nid]),
+                "node_weight": float(node_weights[nid]),
+                "neighbor": neighbor,
+                "uint64_feature": {},
+                "float_feature": {
+                    str(k): table[nid].tolist()
+                    for k, table in enumerate(dense)},
+                "binary_feature": {},
+                "edge": [],
+            }
+
+    convert_dicts(nodes(), meta, os.path.join(out_dir, "part"),
+                  num_partitions)
+
+
+def write_synthetic(
+    out_dir: str,
+    num_nodes: int,
+    avg_degree: int,
+    feature_dim: int,
+    label_dim: int,
+    multilabel: bool = True,
+    num_partitions: int = 4,
+    max_degree: int = 60,
+    seed: int = 7,
+) -> str:
+    """``build_synthetic``'s graph written as ``.dat`` partitions and
+    ``meta.json`` (cached: a ``done`` marker records the parameters and
+    skips the work only when they match), the same files as the JAX
+    package's ``build_synthetic(out_dir, ...)``. Returns out_dir."""
+    params = json.dumps(
+        dict(num_nodes=num_nodes, avg_degree=avg_degree,
+             feature_dim=feature_dim, label_dim=label_dim,
+             multilabel=multilabel, num_partitions=num_partitions,
+             max_degree=max_degree, seed=seed),
+        sort_keys=True,
+    )
+    if _cache_begin(out_dir, params, protect_unmarked=True):
+        return out_dir
+    write_dat(build_synthetic(num_nodes, avg_degree, feature_dim, label_dim,
+                              multilabel, max_degree, seed),
+              out_dir, num_partitions)
+    _cache_finish(out_dir, params)
+    return out_dir
+
+
+def build_ppi(out_dir: str, **overrides) -> str:
+    return write_synthetic(out_dir, **{**PPI, **overrides})
+
+
+def build_reddit(out_dir: str, **overrides) -> str:
+    return write_synthetic(out_dir, **{**REDDIT, **overrides})
+
+
 def build_synthetic(
     num_nodes: int,
     avg_degree: int,
@@ -35,7 +167,7 @@ def build_synthetic(
     max_degree: int = 60,
     seed: int = 7,
 ) -> dict:
-    """Graph arrays for ``graph.Graph(**arrays)``: one node type, one edge
+    """Graph arrays for ``graph.MemoryGraph(**arrays)``: one node type, one edge
     type, node weight 1.0, neighbors deduplicated in first-seen order with
     weight 1.0 (the JAX builder's ``{str(d): 1.0}`` dict), labels in dense
     slot 0 and ``standard_normal().round(3)`` features in slot 1."""
@@ -150,7 +282,7 @@ def _draw_labels(rng, row: np.ndarray, multilabel: bool) -> None:
 
 
 def _graph_arrays(nbr_rows, labels, features) -> dict:
-    """``graph.Graph`` arguments: one node type, one edge type, weights
+    """``graph.MemoryGraph`` arguments: one node type, one edge type, weights
     1.0, labels in dense slot 0 and features in slot 1."""
     num_nodes = len(nbr_rows)
     indptr = np.zeros(num_nodes + 1, np.int64)

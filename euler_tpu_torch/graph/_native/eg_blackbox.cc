@@ -1,0 +1,660 @@
+#include "eg_blackbox.h"
+
+#include <dirent.h>
+#include <execinfo.h>
+#include <fcntl.h>
+#include <signal.h>
+#include <sys/syscall.h>
+#include <time.h>
+#include <unistd.h>
+
+#include <algorithm>
+#include <chrono>
+#include <cstdio>
+#include <cstring>
+#include <mutex>
+#include <thread>
+
+#include "eg_cache.h"
+#include "eg_devprof.h"
+#include "eg_stats.h"
+
+namespace eg {
+
+namespace {
+
+// ---- tiny append helpers for the NON-signal JSON builders ----------------
+
+void AppendU64(std::string* out, uint64_t v) {
+  char buf[24];
+  int n = 0;
+  do {
+    buf[n++] = static_cast<char>('0' + v % 10);
+    v /= 10;
+  } while (v);
+  while (n) out->push_back(buf[--n]);
+}
+
+void AppendI64(std::string* out, int64_t v) {
+  if (v < 0) {
+    out->push_back('-');
+    AppendU64(out, static_cast<uint64_t>(-v));
+  } else {
+    AppendU64(out, static_cast<uint64_t>(v));
+  }
+}
+
+void AppendKey(std::string* out, const char* k) {
+  out->push_back('"');
+  out->append(k);
+  out->append("\":");
+}
+
+int64_t MonotonicUs() {
+  timespec ts;
+  clock_gettime(CLOCK_MONOTONIC, &ts);
+  return static_cast<int64_t>(ts.tv_sec) * 1000000 + ts.tv_nsec / 1000;
+}
+
+// ---- async-signal-safe writer --------------------------------------------
+// The ONLY primitives the dump path may touch: a fixed stack/static
+// buffer, hand-rolled integer formatting, and write(2). No malloc, no
+// stdio, no locks — the handler may be running on a corrupted heap.
+struct SafeWriter {
+  int fd;
+  char buf[4096];
+  size_t n = 0;
+
+  explicit SafeWriter(int f) : fd(f) {}
+  void Flush() {
+    size_t off = 0;
+    while (off < n) {
+      ssize_t w = ::write(fd, buf + off, n - off);
+      if (w <= 0) break;  // best effort: a failed write must not loop
+      off += static_cast<size_t>(w);
+    }
+    n = 0;
+  }
+  void Ch(char c) {
+    if (n >= sizeof(buf)) Flush();
+    buf[n++] = c;
+  }
+  void Raw(const char* s) {
+    while (*s) Ch(*s++);
+  }
+  void U64(uint64_t v) {
+    char d[24];
+    int k = 0;
+    do {
+      d[k++] = static_cast<char>('0' + v % 10);
+      v /= 10;
+    } while (v);
+    while (k) Ch(d[--k]);
+  }
+  void I64(int64_t v) {
+    if (v < 0) {
+      Ch('-');
+      U64(static_cast<uint64_t>(-v));
+    } else {
+      U64(static_cast<uint64_t>(v));
+    }
+  }
+  void Hex(uint64_t v) {
+    Raw("0x");
+    char d[18];
+    int k = 0;
+    do {
+      int nib = static_cast<int>(v & 0xF);
+      d[k++] = static_cast<char>(nib < 10 ? '0' + nib : 'a' + nib - 10);
+      v >>= 4;
+    } while (v);
+    while (k) Ch(d[--k]);
+  }
+  void Key(const char* k) {
+    Ch('"');
+    Raw(k);
+    Raw("\":");
+  }
+  void Str(const char* s) {
+    Ch('"');
+    Raw(s);
+    Ch('"');
+  }
+};
+
+const char* SignalName(int sig) {
+  switch (sig) {
+    case SIGSEGV: return "SIGSEGV";
+    case SIGBUS:  return "SIGBUS";
+    case SIGABRT: return "SIGABRT";
+    case SIGFPE:  return "SIGFPE";
+    case 0:       return "none";
+    default:      return "signal";
+  }
+}
+
+// First fatal signal wins the dump; later ones (including the re-raise
+// and any secondary fault INSIDE the dump path) go straight to the
+// default disposition.
+std::atomic<int> g_dumping{0};
+
+void FatalHandler(int sig) {
+  int expected = 0;
+  Blackbox& bb = Blackbox::Global();
+  if (g_dumping.compare_exchange_strong(expected, 1) && bb.enabled() &&
+      bb.postmortem_path()[0] != '\0') {
+    int fd = ::open(bb.postmortem_path(), O_WRONLY | O_CREAT | O_TRUNC,
+                    0644);
+    if (fd >= 0) {
+      bb.DumpToFd(fd, sig);
+      ::close(fd);
+    }
+  }
+  // default disposition + re-raise: the exit status must still name the
+  // signal (the driver, the shell, and the chaos harness all key on it)
+  ::signal(sig, SIG_DFL);
+  ::raise(sig);
+}
+
+}  // namespace
+
+AdmissionSnap& AdmissionGaugeSnap() {
+  static AdmissionSnap s;
+  return s;
+}
+
+Blackbox& Blackbox::Global() {
+  static Blackbox* bb = new Blackbox();  // never destroyed: the signal
+  return *bb;  // handler may fire during (or after) static teardown
+}
+
+BlackboxRing* Blackbox::ThreadRing() {
+  thread_local BlackboxRing* ring = nullptr;
+  thread_local bool exhausted = false;
+  if (ring || exhausted) return ring;
+  int idx = next_ring_.fetch_add(1, std::memory_order_relaxed);
+  if (idx >= kBbMaxRings) {
+    // fixed pool spent: later threads drop events (counted) rather than
+    // share a ring (two writers would corrupt the single-writer seam)
+    exhausted = true;
+    return nullptr;
+  }
+  ring = &rings_[idx];
+  ring->tid.store(static_cast<uint64_t>(::syscall(SYS_gettid)),
+                  std::memory_order_relaxed);
+  return ring;
+}
+
+void Blackbox::Record(uint8_t point, uint8_t op, int32_t shard,
+                      uint64_t trace, uint64_t value, uint8_t outcome) {
+  if (!enabled()) return;
+  BlackboxRing* r = ThreadRing();
+  if (!r) {
+    dropped_.fetch_add(1, std::memory_order_relaxed);
+    return;
+  }
+  uint64_t h = r->head.load(std::memory_order_relaxed);
+  BlackboxEvent& e = r->slots[h % kBbRingSlots];
+  e.t_us.store(MonotonicUs(), std::memory_order_relaxed);
+  e.trace.store(trace, std::memory_order_relaxed);
+  e.value.store(value, std::memory_order_relaxed);
+  e.shard.store(shard, std::memory_order_relaxed);
+  e.point.store(point, std::memory_order_relaxed);
+  e.op.store(op, std::memory_order_relaxed);
+  e.outcome.store(outcome, std::memory_order_relaxed);
+  r->head.store(h + 1, std::memory_order_release);
+}
+
+ResourceSample Blackbox::SampleResources() {
+  ResourceSample s;
+  s.t_us = MonotonicUs();
+  // RSS: /proc/self/statm field 2 (resident pages)
+  if (FILE* f = std::fopen("/proc/self/statm", "r")) {
+    long size = 0, resident = 0;
+    if (std::fscanf(f, "%ld %ld", &size, &resident) == 2)
+      s.rss_bytes = static_cast<int64_t>(resident) *
+                    ::sysconf(_SC_PAGESIZE);
+    std::fclose(f);
+  }
+  // open fds: entries in /proc/self/fd (minus . and ..)
+  if (DIR* d = ::opendir("/proc/self/fd")) {
+    while (dirent* ent = ::readdir(d))
+      if (ent->d_name[0] != '.') ++s.open_fds;
+    ::closedir(d);
+  }
+  // live threads: /proc/self/status "Threads:\tN"
+  if (FILE* f = std::fopen("/proc/self/status", "r")) {
+    char line[128];
+    while (std::fgets(line, sizeof(line), f)) {
+      if (std::strncmp(line, "Threads:", 8) == 0) {
+        s.threads = std::strtol(line + 8, nullptr, 10);
+        break;
+      }
+    }
+    std::fclose(f);
+  }
+  s.cache_bytes = GlobalCacheBytes().load(std::memory_order_relaxed);
+  s.nbr_cache_bytes =
+      GlobalNbrCacheBytes().load(std::memory_order_relaxed);
+  s.device_mem_bytes = Devprof::Global().mem_bytes();
+  s.device_buffers = Devprof::Global().buffers();
+  return s;
+}
+
+void Blackbox::AppendHistory(const ResourceSample& s) {
+  uint64_t h = hist_head_.load(std::memory_order_relaxed);
+  history_[h % kBbHistorySlots].Store(s);
+  hist_head_.store(h + 1, std::memory_order_release);
+}
+
+void Blackbox::SamplerLoop() {
+  while (true) {
+    AppendHistory(SampleResources());
+    int ms = sample_ms_.load(std::memory_order_relaxed);
+    for (int slept = 0; slept < ms; slept += 50)
+      std::this_thread::sleep_for(std::chrono::milliseconds(
+          std::min(50, ms - slept)));
+  }
+}
+
+bool Blackbox::Install(const std::string& postmortem_dir, int shard,
+                       int sample_ms) {
+  std::lock_guard<std::mutex> l(install_mu_);  // cold path (init only)
+  shard_.store(shard, std::memory_order_relaxed);
+  if (sample_ms > 0)
+    sample_ms_.store(sample_ms < 50 ? 50 : sample_ms,
+                     std::memory_order_relaxed);
+  if (!postmortem_dir.empty()) {
+    // probe writability NOW: a typo'd dir must fail at init, not stay
+    // silent until the one crash that needed it
+    std::string probe = postmortem_dir + "/.postmortem_probe";
+    int fd = ::open(probe.c_str(), O_WRONLY | O_CREAT | O_TRUNC, 0644);
+    if (fd < 0) {
+      error_ = "postmortem dir not writable: " + postmortem_dir;
+      return false;
+    }
+    ::close(fd);
+    ::unlink(probe.c_str());
+    dir_ = postmortem_dir;
+    std::string path = dir_ + "/postmortem." + std::to_string(::getpid()) +
+                       ".json";
+    if (path.size() >= sizeof(dump_path_)) {
+      error_ = "postmortem dir path too long";
+      return false;
+    }
+    std::memcpy(dump_path_, path.c_str(), path.size() + 1);
+  }
+  if (!installed_.exchange(true)) {
+    // pre-warm backtrace: glibc lazily loads libgcc on the first call,
+    // which allocates — do it here so the in-handler call does not
+    void* warm[4];
+    ::backtrace(warm, 4);
+    struct sigaction sa;
+    std::memset(&sa, 0, sizeof(sa));
+    sa.sa_handler = FatalHandler;
+    sigemptyset(&sa.sa_mask);
+    for (int sig : {SIGSEGV, SIGBUS, SIGABRT, SIGFPE})
+      ::sigaction(sig, &sa, nullptr);
+  }
+  if (!sampler_running_.exchange(true)) {
+    std::thread([this] {
+      try {
+        SamplerLoop();
+      } catch (...) {
+        // std::terminate barrier (eg-lint: thread-catch): a dead
+        // sampler freezes the resource history; the postmortem still
+        // dumps rings + counters
+      }
+    }).detach();  // process-lifetime thread; never joined
+    // seed the history immediately so a crash (or scrape) right after
+    // init already has one sample
+    AppendHistory(SampleResources());
+  }
+  return true;
+}
+
+void Blackbox::DumpToFd(int fd, int sig) {
+  SafeWriter w(fd);
+  w.Ch('{');
+  w.Key("kind");
+  w.Str("postmortem");
+  w.Ch(',');
+  w.Key("signal");
+  w.I64(sig);
+  w.Ch(',');
+  w.Key("signal_name");
+  w.Str(sig == 0 ? "exception" : SignalName(sig));
+  w.Ch(',');
+  w.Key("pid");
+  w.I64(::getpid());
+  w.Ch(',');
+  w.Key("shard");
+  w.I64(shard_.load(std::memory_order_relaxed));
+  w.Ch(',');
+  w.Key("t_us");
+  w.I64(MonotonicUs());
+  w.Ch(',');
+  w.Key("dropped");
+  w.U64(dropped_.load(std::memory_order_relaxed));
+
+  // full eg_counters ledger — names are static strings, cells atomics
+  w.Ch(',');
+  w.Key("counters");
+  w.Ch('{');
+  for (int i = 0; i < kCtrCount; ++i) {
+    if (i) w.Ch(',');
+    w.Key(kCounterNames[i]);
+    w.U64(Counters::Global().Get(static_cast<CounterId>(i)));
+  }
+  w.Ch('}');
+
+  // admission gauges: the PollerLoop-refreshed POD snapshot (<=250 ms
+  // stale), never a call into a possibly-mid-teardown server object
+  AdmissionSnap& g = AdmissionGaugeSnap();
+  if (g.registered.load(std::memory_order_relaxed)) {
+    w.Ch(',');
+    w.Key("gauges");
+    w.Ch('{');
+    w.Key("workers");
+    w.I64(g.workers.load(std::memory_order_relaxed));
+    w.Ch(',');
+    w.Key("workers_active");
+    w.I64(g.active.load(std::memory_order_relaxed));
+    w.Ch(',');
+    w.Key("queue_depth");
+    w.I64(g.queue_depth.load(std::memory_order_relaxed));
+    w.Ch(',');
+    w.Key("conns");
+    w.I64(g.conns.load(std::memory_order_relaxed));
+    w.Ch(',');
+    w.Key("draining");
+    w.I64(g.draining.load(std::memory_order_relaxed));
+    w.Ch('}');
+  }
+
+  // resource history (sampler-thread writes, read via the atomic head;
+  // the handler reads memory only — no /proc parsing in signal context)
+  uint64_t hh = hist_head_.load(std::memory_order_acquire);
+  uint64_t hstart = hh > kBbHistorySlots ? hh - kBbHistorySlots : 0;
+  w.Ch(',');
+  w.Key("resource_history");
+  w.Ch('[');
+  for (uint64_t i = hstart; i < hh; ++i) {
+    ResourceSample s = history_[i % kBbHistorySlots].Load();
+    if (i != hstart) w.Ch(',');
+    w.Ch('{');
+    w.Key("t_us");
+    w.I64(s.t_us);
+    w.Ch(',');
+    w.Key("rss_bytes");
+    w.I64(s.rss_bytes);
+    w.Ch(',');
+    w.Key("open_fds");
+    w.I64(s.open_fds);
+    w.Ch(',');
+    w.Key("threads");
+    w.I64(s.threads);
+    w.Ch(',');
+    w.Key("cache_bytes");
+    w.I64(s.cache_bytes);
+    w.Ch(',');
+    w.Key("device_mem_bytes");
+    w.I64(s.device_mem_bytes);
+    w.Ch('}');
+  }
+  w.Ch(']');
+
+  // raw flight-recorder rings, oldest-first per ring
+  w.Ch(',');
+  w.Key("rings");
+  w.Ch('[');
+  bool first_ring = true;
+  for (int r = 0; r < kBbMaxRings; ++r) {
+    const BlackboxRing& ring = rings_[r];
+    uint64_t tid = ring.tid.load(std::memory_order_relaxed);
+    if (tid == 0) continue;
+    uint64_t head = ring.head.load(std::memory_order_acquire);
+    if (!first_ring) w.Ch(',');
+    first_ring = false;
+    w.Ch('{');
+    w.Key("tid");
+    w.U64(tid);
+    w.Ch(',');
+    w.Key("head");
+    w.U64(head);
+    w.Ch(',');
+    w.Key("events");
+    w.Ch('[');
+    uint64_t start = head > kBbRingSlots ? head - kBbRingSlots : 0;
+    for (uint64_t i = start; i < head; ++i) {
+      const BlackboxEvent& e = ring.slots[i % kBbRingSlots];
+      if (i != start) w.Ch(',');
+      w.Ch('{');
+      w.Key("t_us");
+      w.I64(e.t_us.load(std::memory_order_relaxed));
+      w.Ch(',');
+      w.Key("point");
+      uint8_t pt = e.point.load(std::memory_order_relaxed);
+      w.Str(pt < kBbPointCount ? kBbPointNames[pt] : "?");
+      w.Ch(',');
+      w.Key("op");
+      w.U64(e.op.load(std::memory_order_relaxed));
+      w.Ch(',');
+      w.Key("shard");
+      w.I64(e.shard.load(std::memory_order_relaxed));
+      w.Ch(',');
+      w.Key("trace");
+      w.Ch('"');
+      w.U64(e.trace.load(std::memory_order_relaxed));
+      w.Ch('"');
+      w.Ch(',');
+      w.Key("value");
+      w.U64(e.value.load(std::memory_order_relaxed));
+      w.Ch(',');
+      w.Key("outcome");
+      w.U64(e.outcome.load(std::memory_order_relaxed));
+      w.Ch('}');
+    }
+    w.Raw("]}");
+  }
+  w.Ch(']');
+
+  // backtrace addresses inside the JSON; readable frames follow the
+  // JSON line via backtrace_symbols_fd (symbolizing in-handler would
+  // allocate — the split keeps line 1 strictly parseable)
+  static void* frames[64];
+  int depth = sig == 0 ? 0 : ::backtrace(frames, 64);
+  w.Ch(',');
+  w.Key("backtrace");
+  w.Ch('[');
+  for (int i = 0; i < depth; ++i) {
+    if (i) w.Ch(',');
+    w.Ch('"');
+    w.Hex(reinterpret_cast<uint64_t>(frames[i]));
+    w.Ch('"');
+  }
+  w.Raw("]}");
+  w.Ch('\n');
+  w.Flush();
+  if (depth > 0) ::backtrace_symbols_fd(frames, depth, fd);
+}
+
+bool Blackbox::WriteDump(const char* path, int sig) {
+  if (!enabled()) return false;
+  int fd = ::open(path, O_WRONLY | O_CREAT | O_TRUNC, 0644);
+  if (fd < 0) return false;
+  DumpToFd(fd, sig);
+  ::close(fd);
+  return true;
+}
+
+std::string Blackbox::LiveJson() {
+  std::string o;
+  o.reserve(8192);
+  o.push_back('{');
+  AppendKey(&o, "enabled");
+  AppendI64(&o, enabled() ? 1 : 0);
+  o.push_back(',');
+  AppendKey(&o, "shard");
+  AppendI64(&o, shard_.load(std::memory_order_relaxed));
+  o.push_back(',');
+  AppendKey(&o, "postmortem_dir");
+  o.push_back('"');
+  {
+    // a concurrent (re-)Install may be swapping dir_ — copy under the
+    // same lock that guards its writes
+    std::lock_guard<std::mutex> l(install_mu_);
+    o.append(dir_);
+  }
+  o.push_back('"');
+  o.push_back(',');
+  AppendKey(&o, "dropped");
+  AppendU64(&o, dropped_.load(std::memory_order_relaxed));
+  o.push_back(',');
+  AppendKey(&o, "rings");
+  o.push_back('[');
+  bool first_ring = true;
+  for (int r = 0; r < kBbMaxRings; ++r) {
+    const BlackboxRing& ring = rings_[r];
+    uint64_t tid = ring.tid.load(std::memory_order_relaxed);
+    if (tid == 0) continue;
+    uint64_t head = ring.head.load(std::memory_order_acquire);
+    if (!first_ring) o.push_back(',');
+    first_ring = false;
+    o.push_back('{');
+    AppendKey(&o, "tid");
+    AppendU64(&o, tid);
+    o.push_back(',');
+    AppendKey(&o, "head");
+    AppendU64(&o, head);
+    o.push_back(',');
+    AppendKey(&o, "events");
+    o.push_back('[');
+    uint64_t start = head > kBbRingSlots ? head - kBbRingSlots : 0;
+    for (uint64_t i = start; i < head; ++i) {
+      const BlackboxEvent& e = ring.slots[i % kBbRingSlots];
+      if (i != start) o.push_back(',');
+      o.push_back('{');
+      AppendKey(&o, "t_us");
+      AppendI64(&o, e.t_us.load(std::memory_order_relaxed));
+      o.push_back(',');
+      AppendKey(&o, "point");
+      o.push_back('"');
+      uint8_t pt = e.point.load(std::memory_order_relaxed);
+      o.append(pt < kBbPointCount ? kBbPointNames[pt] : "?");
+      o.push_back('"');
+      o.push_back(',');
+      AppendKey(&o, "op");
+      AppendU64(&o, e.op.load(std::memory_order_relaxed));
+      o.push_back(',');
+      AppendKey(&o, "shard");
+      AppendI64(&o, e.shard.load(std::memory_order_relaxed));
+      o.push_back(',');
+      AppendKey(&o, "trace");
+      o.push_back('"');
+      AppendU64(&o, e.trace.load(std::memory_order_relaxed));
+      o.push_back('"');
+      o.push_back(',');
+      AppendKey(&o, "value");
+      AppendU64(&o, e.value.load(std::memory_order_relaxed));
+      o.push_back(',');
+      AppendKey(&o, "outcome");
+      AppendU64(&o, e.outcome.load(std::memory_order_relaxed));
+      o.push_back('}');
+    }
+    o.append("]}");
+  }
+  o.push_back(']');
+  o.push_back(',');
+  AppendKey(&o, "resource");
+  ResourceJsonBody(&o);
+  o.push_back('}');
+  return o;
+}
+
+void Blackbox::ResourceJsonBody(std::string* out) {
+  ResourceSample s = SampleResources();
+  out->push_back('{');
+  AppendKey(out, "rss_bytes");
+  AppendI64(out, s.rss_bytes);
+  out->push_back(',');
+  AppendKey(out, "open_fds");
+  AppendI64(out, s.open_fds);
+  out->push_back(',');
+  AppendKey(out, "threads");
+  AppendI64(out, s.threads);
+  out->push_back(',');
+  AppendKey(out, "cache_bytes");
+  AppendI64(out, s.cache_bytes);
+  out->push_back(',');
+  AppendKey(out, "nbr_cache_bytes");
+  AppendI64(out, s.nbr_cache_bytes);
+  out->push_back(',');
+  AppendKey(out, "device_mem_bytes");
+  AppendI64(out, s.device_mem_bytes);
+  out->push_back(',');
+  AppendKey(out, "device_mem_peak_bytes");
+  AppendI64(out, Devprof::Global().mem_peak_bytes());
+  out->push_back(',');
+  AppendKey(out, "device_buffers");
+  AppendI64(out, s.device_buffers);
+  out->push_back(',');
+  AppendKey(out, "history_depth");
+  uint64_t hh = hist_head_.load(std::memory_order_acquire);
+  AppendU64(out, hh > kBbHistorySlots ? kBbHistorySlots : hh);
+  out->push_back('}');
+}
+
+void Blackbox::ResourceJsonInto(std::string* out) {
+  out->push_back(',');
+  AppendKey(out, "resource");
+  ResourceJsonBody(out);
+}
+
+std::string Blackbox::HistoryJson(int shard) {
+  std::string o;
+  o.reserve(4096);
+  o.push_back('{');
+  AppendKey(&o, "shard");
+  AppendI64(&o, shard);
+  o.push_back(',');
+  AppendKey(&o, "resource");
+  ResourceJsonBody(&o);
+  o.push_back(',');
+  AppendKey(&o, "history");
+  o.push_back('[');
+  uint64_t hh = hist_head_.load(std::memory_order_acquire);
+  uint64_t hstart = hh > kBbHistorySlots ? hh - kBbHistorySlots : 0;
+  for (uint64_t i = hstart; i < hh; ++i) {
+    ResourceSample s = history_[i % kBbHistorySlots].Load();
+    if (i != hstart) o.push_back(',');
+    o.push_back('{');
+    AppendKey(&o, "t_us");
+    AppendI64(&o, s.t_us);
+    o.push_back(',');
+    AppendKey(&o, "rss_bytes");
+    AppendI64(&o, s.rss_bytes);
+    o.push_back(',');
+    AppendKey(&o, "open_fds");
+    AppendI64(&o, s.open_fds);
+    o.push_back(',');
+    AppendKey(&o, "threads");
+    AppendI64(&o, s.threads);
+    o.push_back(',');
+    AppendKey(&o, "cache_bytes");
+    AppendI64(&o, s.cache_bytes);
+    o.push_back(',');
+    AppendKey(&o, "device_mem_bytes");
+    AppendI64(&o, s.device_mem_bytes);
+    o.push_back('}');
+  }
+  o.append("]}");
+  return o;
+}
+
+void Blackbox::Reset() {
+  for (auto& ring : rings_) ring.head.store(0, std::memory_order_relaxed);
+  dropped_.store(0, std::memory_order_relaxed);
+}
+
+}  // namespace eg

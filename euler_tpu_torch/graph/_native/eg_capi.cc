@@ -1,0 +1,1268 @@
+// C ABI for the euler_tpu graph engine, consumed from Python via ctypes.
+//
+// Role equivalent to the reference's ctypes surface
+// (reference tf_euler/utils/create_graph.cc:47 CreateGraph and
+// euler/service/python_api.cc StartService), generalized to a handle-based
+// batch API: fixed-shape calls write into caller-allocated numpy buffers;
+// variable-shape calls return an EGResult handle the caller drains and frees.
+#include <cstdint>
+#include <cstring>
+#include <map>
+#include <memory>
+#include <string>
+#include <vector>
+
+#include "eg_blackbox.h"
+#include "eg_devprof.h"
+#include "eg_engine.h"
+#include "eg_epoch.h"
+#include "eg_fault.h"
+#include "eg_heat.h"
+#include "eg_phase.h"
+#include "eg_registry.h"
+#include "eg_sampling.h"
+#include "eg_stats.h"
+#include "eg_telemetry.h"
+#include "eg_remote.h"
+#include "eg_service.h"
+
+using eg::EGResult;
+using eg::Engine;
+using eg::GraphAPI;
+using eg::RegistryList;
+using eg::RegistryServer;
+using eg::RemoteGraph;
+using eg::Service;
+
+namespace {
+thread_local std::string g_last_error;
+
+inline GraphAPI* API(void* h) { return static_cast<GraphAPI*>(h); }
+inline Engine* Local(void* h) { return static_cast<Engine*>(API(h)); }
+}  // namespace
+
+// Exception barrier for the C ABI (eg-lint rule abi-barrier): an exception
+// unwinding past extern "C" into ctypes frames is std::terminate (SIGABRT)
+// for the host Python process, so every entry point runs its body inside
+//   try { ... } EG_API_GUARD(<sentinel>)
+// and failures land in g_last_error + the sentinel return instead.
+#define EG_API_GUARD(...)                      \
+  catch (const std::exception& ex) {           \
+    g_last_error = ex.what();                  \
+    return __VA_ARGS__;                        \
+  } catch (...) {                              \
+    g_last_error = "unknown native exception"; \
+    return __VA_ARGS__;                        \
+  }
+
+extern "C" {
+
+// eg-lint: allow(abi-barrier) the error reporter itself: returns a
+// thread_local buffer, cannot throw, and must never clobber the error state
+const char* eg_last_error() { return g_last_error.c_str(); }
+
+void* eg_create() {
+  try {
+    return static_cast<GraphAPI*>(new Engine());
+  }
+  EG_API_GUARD(nullptr)
+}
+
+void eg_destroy(void* h) {
+  try {
+    delete API(h);
+  }
+  EG_API_GUARD()
+}
+
+int eg_load(void* h, const char* dir, int shard_idx, int shard_num) {
+  auto* e = Local(h);
+  try {
+    if (!e->Load(dir, shard_idx, shard_num)) {
+      g_last_error = e->error();
+      return -1;
+    }
+  } catch (const std::exception& ex) {
+    // corrupt input must surface as a Python error, never cross the C
+    // ABI as an exception (std::terminate -> SIGABRT)
+    g_last_error = std::string("graph load failed: ") + ex.what();
+    return -1;
+  }
+  return 0;
+}
+
+int eg_load_files(void* h, const char** files, int nfiles) {
+  auto* e = Local(h);
+  try {
+    std::vector<std::string> fs(files, files + nfiles);
+    if (!e->LoadFiles(std::move(fs))) {
+      g_last_error = e->error();
+      return -1;
+    }
+  } catch (const std::exception& ex) {
+    g_last_error = std::string("graph load failed: ") + ex.what();
+    return -1;
+  }
+  return 0;
+}
+
+// Streaming ingest: partition bytes fetched by the caller (e.g. off an
+// object store) parse straight into the store — no local staging file.
+// The buffers only need to live for the duration of this call.
+int eg_load_buffers(void* h, const void* const* bufs, const uint64_t* lens,
+                    const char* const* names, int n) {
+  auto* e = Local(h);
+  try {
+    std::vector<size_t> sz(n);
+    for (int i = 0; i < n; ++i) sz[i] = static_cast<size_t>(lens[i]);
+    if (!e->LoadBuffers(reinterpret_cast<const char* const*>(bufs),
+                        sz.data(), names, n)) {
+      g_last_error = e->error();
+      return -1;
+    }
+  } catch (const std::exception& ex) {
+    g_last_error = std::string("graph load failed: ") + ex.what();
+    return -1;
+  }
+  return 0;
+}
+
+// ---- snapshot epochs (eg_epoch.h; FAULTS.md "Graph refresh") ----
+// Apply `<prefix>.delta.<n>` files to an embedded (local) graph:
+// `paths` is ';'-joined; the engine rebuilds base + all deltas into a
+// fresh immutable snapshot and adopts it in place (handle identity
+// stable, epoch advances to the delta count). Remote handles must use
+// eg_remote_load_delta — the Python layer enforces the split. -1 +
+// eg_last_error on parse/validation/merge failure (the serving snapshot
+// is untouched).
+int eg_load_deltas(void* h, const char* paths) {
+  auto* e = Local(h);
+  try {
+    std::vector<std::string> ps;
+    std::string joined = paths ? paths : "";
+    size_t pos = 0;
+    while (pos <= joined.size()) {
+      size_t semi = joined.find(';', pos);
+      if (semi == std::string::npos) semi = joined.size();
+      if (semi > pos) ps.emplace_back(joined.substr(pos, semi - pos));
+      pos = semi + 1;
+    }
+    if (ps.empty()) {
+      g_last_error = "load_deltas: no delta paths given";
+      return -1;
+    }
+    std::string err;
+    if (!eg::LoadEngineWithDeltas(e, e->source_files(), ps, &err)) {
+      // same ledger entry as Service::LoadDelta refusals: the operator
+      // watches ONE counter for refused deltas on any leg (FAULTS.md)
+      eg::Counters::Global().Add(eg::kCtrDeltaLoadFail);
+      g_last_error = err;
+      return -1;
+    }
+    return 0;
+  }
+  EG_API_GUARD(-1)
+}
+
+// Serving epoch of the handle: a local engine reports the epoch its
+// current snapshot was built at (0 = base load, N = after N deltas); a
+// remote graph reports the max epoch announced by any shard so far
+// (passively learned from v4 reply stamps and registry heartbeats).
+uint64_t eg_graph_epoch(void* h) {
+  try {
+    return API(h)->Epoch();
+  }
+  EG_API_GUARD(0)
+}
+
+void eg_seed(uint64_t seed) {
+  try {
+    eg::SeedThreadRng(seed);
+  }
+  EG_API_GUARD()
+}
+
+// ---- remote mode (Graph::NewGraph(mode=Remote) equivalent,
+// reference euler/client/graph.cc:157-185) ----
+// Config: "registry=<dir>" or "shards=h:p|h:p,..." (+ retries/timeout_ms/
+// quarantine_ms). Returns a handle usable with every query function below,
+// or nullptr (see eg_last_error). A config that fails to parse (e.g.
+// "retries=x", std::stoi throws) lands in the guard, not std::terminate.
+void* eg_remote_create(const char* config) {
+  try {
+    auto g = std::make_unique<RemoteGraph>();
+    if (!g->Init(config ? config : "")) {
+      g_last_error = g->error();
+      return nullptr;
+    }
+    return static_cast<GraphAPI*>(g.release());
+  }
+  EG_API_GUARD(nullptr)
+}
+
+int eg_remote_shards(void* h) {
+  try {
+    return static_cast<RemoteGraph*>(API(h))->num_shards();
+  }
+  EG_API_GUARD(-1)
+}
+int eg_remote_partitions(void* h) {
+  try {
+    return static_cast<RemoteGraph*>(API(h))->num_partitions();
+  }
+  EG_API_GUARD(-1)
+}
+// Current replica count of one shard's pool — observability for the
+// mid-run re-discovery path (and its tests).
+int eg_remote_replica_count(void* h, int shard) {
+  try {
+    return static_cast<int>(
+        static_cast<RemoteGraph*>(API(h))->num_replicas(shard));
+  }
+  EG_API_GUARD(-1)
+}
+// 1 when the remote graph routes ids through a placement map fetched at
+// init (kPlacement), 0 when it hash-routes (old server / hash-sharded
+// data / placement=0) — observability for the locality A/B and the
+// compat tests.
+int eg_remote_has_placement(void* h) {
+  try {
+    return static_cast<RemoteGraph*>(API(h))->has_placement() ? 1 : 0;
+  }
+  EG_API_GUARD(-1)
+}
+// Resolve the serving shard of each id through the client's ACTUAL
+// routing (placement map when loaded, hash fallback otherwise) — the
+// edge-cut instrument scripts/heat_dump.py measures locality with must
+// see the same routing the data plane uses, not re-derive the hash rule.
+void eg_remote_route(void* h, const uint64_t* ids, int n, int32_t* out) {
+  try {
+    static_cast<RemoteGraph*>(API(h))->RouteShards(ids, n, out);
+  }
+  EG_API_GUARD()
+}
+// Pending strict-mode failure of a remote graph (strict=1 config key):
+// copies the first recorded message into buf (NUL-terminated, truncated
+// to cap) and clears it, returning 1; 0 when nothing is pending. The
+// fixed-shape query entry points return void, so a shard that failed
+// after every transport retry surfaces here — the Python client polls
+// this after each remote call and raises instead of training on the
+// default-filled rows.
+int eg_remote_strict_error(void* h, char* buf, int cap) {
+  try {
+    std::string err = static_cast<RemoteGraph*>(API(h))->TakeStrictError();
+    if (err.empty()) return 0;
+    if (cap > 0) {
+      size_t m = std::min(err.size(), static_cast<size_t>(cap - 1));
+      memcpy(buf, err.data(), m);
+      buf[m] = '\0';
+    }
+    return 1;
+  }
+  EG_API_GUARD(-1)
+}
+
+// Last epoch announced by one shard (0 = never flipped or unknown) —
+// the per-shard view behind eg_graph_epoch's max, for the drill script
+// and metrics_dump's per-shard epoch column.
+uint64_t eg_remote_epoch(void* h, int shard) {
+  try {
+    return static_cast<RemoteGraph*>(API(h))->ShardEpoch(shard);
+  }
+  EG_API_GUARD(0)
+}
+// The client's cache generation: bumped once per observed epoch raise
+// on any shard. Python-side caches (serving/microbatch.py) key their
+// entries by this exactly like the native feature/neighbor caches.
+uint64_t eg_remote_cache_gen(void* h) {
+  try {
+    return static_cast<RemoteGraph*>(API(h))->cache_gen();
+  }
+  EG_API_GUARD(0)
+}
+// Ask shard `shard` to merge delta file `path` (a path on the SHARD's
+// filesystem) and flip its serving epoch (kLoadDelta). Returns the new
+// epoch (>= 1), or -1 with the shard's own error message in
+// eg_last_error (the shard keeps serving its old snapshot on failure).
+int64_t eg_remote_load_delta(void* h, int shard, const char* path) {
+  try {
+    uint64_t ep = 0;
+    std::string err;
+    if (!static_cast<RemoteGraph*>(API(h))->LoadDelta(
+            shard, path ? path : "", &ep, &err)) {
+      g_last_error = err.empty() ? "load_delta failed" : err;
+      return -1;
+    }
+    return static_cast<int64_t>(ep);
+  }
+  EG_API_GUARD(-1)
+}
+
+// ---- async whole-step sampling (remote graphs only) ----
+// Submit one whole SampleFanout as an in-flight async op on the remote
+// client's dispatcher pool: the hop chain runs as completion
+// continuations (hop h+1's shard jobs are enqueued by hop h's last
+// completing worker), so the calling thread returns immediately and the
+// depth-N step pipeline (euler_tpu/parallel/prefetch.py pipeline(),
+// `sampler_depth=`) can overlap steps k+1..k+N's sampling with step k's
+// H2D + device compute. Same argument shape as eg_sample_fanout; the
+// out_* buffers must stay pinned until eg_remote_async_take returns
+// (graph.py's handle object owns the numpy arrays). Returns a slot
+// handle >= 0, or -1 when the op pool is full / the handle is not a
+// remote graph — callers fall back to the sync eg_sample_fanout.
+int eg_remote_sample_async(void* h, const uint64_t* ids, int n,
+                           const int32_t* etypes_flat,
+                           const int32_t* etype_counts,
+                           const int32_t* counts, int nhops,
+                           uint64_t default_id, uint64_t** out_ids,
+                           float** out_w, int32_t** out_t) {
+  try {
+    return static_cast<RemoteGraph*>(API(h))->SampleFanoutAsync(
+        ids, n, etypes_flat, etype_counts, counts, nhops, default_id,
+        out_ids, out_w, out_t);
+  }
+  EG_API_GUARD(-1)
+}
+// 1 = op complete (take will not block), 0 = still running, -1 = bad or
+// free slot. Non-blocking — the pipeline driver polls this to finish
+// steps in submission order without stalling the submit side.
+int eg_remote_async_poll(void* h, int slot) {
+  try {
+    return static_cast<RemoteGraph*>(API(h))->PollAsync(slot);
+  }
+  EG_API_GUARD(-1)
+}
+// Block until the op completes, then recycle its slot (0; -1 on a bad
+// or free slot). After this returns the out_* buffers hold the step's
+// sample; shard failures inside the op degraded exactly like the sync
+// path (default rows + rpc_errors, and under strict= the pending
+// eg_remote_strict_error the Python client polls after the take).
+int eg_remote_async_take(void* h, int slot) {
+  try {
+    return static_cast<RemoteGraph*>(API(h))->TakeAsync(slot);
+  }
+  EG_API_GUARD(-1)
+}
+
+// ---- graph service (StartService equivalent,
+// reference euler/service/python_api.cc:26-52) ----
+// `options` is the "k=v;k=v" admission spec (workers/pending/max_conns/
+// io_timeout_ms/idle_timeout_ms/linger_ms/drain_ms/wire_version/
+// telemetry/slow_spans/blackbox/postmortem_dir — see eg_admission.h);
+// NULL/empty = defaults. Unknown keys fail loudly.
+void* eg_service_start(const char* data_dir, int shard_idx, int shard_num,
+                       const char* host, int port, const char* registry_dir,
+                       const char* options) {
+  try {
+    auto s = std::make_unique<Service>();
+    if (!s->Start(data_dir, shard_idx, shard_num, host ? host : "",
+                  port, registry_dir ? registry_dir : "",
+                  options ? options : "")) {
+      g_last_error = s->error();
+      return nullptr;
+    }
+    return s.release();
+  }
+  EG_API_GUARD(nullptr)
+}
+
+int eg_service_port(void* s) {
+  try {
+    return static_cast<Service*>(s)->port();
+  }
+  EG_API_GUARD(-1)
+}
+
+// Drain-before-stop (the SIGTERM half of a rolling restart, DEPLOY.md):
+// deregister from discovery, stop accepting, let in-flight requests
+// finish (up to grace_ms; <=0 = the service's drain_ms option), close
+// every connection. The handle stays valid; call eg_service_stop to
+// free it.
+void eg_service_drain(void* s, int grace_ms) {
+  try {
+    static_cast<Service*>(s)->Drain(grace_ms > 0 ? grace_ms : -1);
+  }
+  EG_API_GUARD()
+}
+
+// In-process delta load + epoch flip (the embedded-service twin of the
+// kLoadDelta wire op; service.py --load_delta and the drill script use
+// the wire path). Returns the new epoch, -1 + eg_last_error on failure.
+int64_t eg_service_load_delta(void* s, const char* path) {
+  try {
+    uint64_t ep = 0;
+    std::string err;
+    if (!static_cast<Service*>(s)->LoadDelta(path ? path : "", &ep,
+                                             &err)) {
+      g_last_error = err.empty() ? "load_delta failed" : err;
+      return -1;
+    }
+    return static_cast<int64_t>(ep);
+  }
+  EG_API_GUARD(-1)
+}
+
+// Current serving epoch of an in-process service (0 until first flip).
+uint64_t eg_service_epoch(void* s) {
+  try {
+    return static_cast<Service*>(s)->epoch();
+  }
+  EG_API_GUARD(0)
+}
+
+void eg_service_stop(void* s) {
+  try {
+    delete static_cast<Service*>(s);
+  }
+  EG_API_GUARD()
+}
+
+// ---- TCP shard registry (ZooKeeper discovery equivalent,
+// reference euler/common/zk_server_register.cc + zk_server_monitor.cc) ----
+void* eg_registry_start(const char* host, int port, int ttl_ms) {
+  try {
+    auto r = std::make_unique<RegistryServer>();
+    if (!r->Start(host ? host : "", port, ttl_ms)) {
+      g_last_error = r->error();
+      return nullptr;
+    }
+    return r.release();
+  }
+  EG_API_GUARD(nullptr)
+}
+
+int eg_registry_port(void* r) {
+  try {
+    return static_cast<RegistryServer*>(r)->port();
+  }
+  EG_API_GUARD(-1)
+}
+
+void eg_registry_stop(void* r) {
+  try {
+    delete static_cast<RegistryServer*>(r);
+  }
+  EG_API_GUARD()
+}
+
+// LIST a registry at host:port into caller-supplied buf as
+// "<shard> <host>:<port>\n" lines. Returns bytes written, or -1 when the
+// registry is unreachable. A listing larger than cap is truncated at the
+// last complete line (never mid-entry, so the result always parses).
+int eg_registry_query(const char* host, int port, int timeout_ms, char* buf,
+                      int cap) {
+  try {
+    std::map<int, std::vector<std::string>> listed;
+    if (!RegistryList(host ? host : "127.0.0.1", port, timeout_ms, &listed))
+      return -1;
+    std::string out;
+    for (auto& [shard, addrs] : listed)
+      for (auto& a : addrs)
+        out += std::to_string(shard) + " " + a + "\n";
+    size_t n = out.size();
+    if (n > static_cast<size_t>(cap)) {
+      size_t nl = out.rfind('\n', static_cast<size_t>(cap) - 1);
+      n = nl == std::string::npos ? 0 : nl + 1;
+    }
+    if (n > 0) memcpy(buf, out.data(), n);
+    return static_cast<int>(n);
+  }
+  EG_API_GUARD(-1)
+}
+
+// ---- introspection ----
+int64_t eg_num_nodes(void* h) {
+  try {
+    return API(h)->NumNodes();
+  }
+  EG_API_GUARD(-1)
+}
+int64_t eg_num_edges(void* h) {
+  try {
+    return API(h)->NumEdges();
+  }
+  EG_API_GUARD(-1)
+}
+int32_t eg_node_type_num(void* h) {
+  try {
+    return API(h)->NodeTypeNum();
+  }
+  EG_API_GUARD(-1)
+}
+int32_t eg_edge_type_num(void* h) {
+  try {
+    return API(h)->EdgeTypeNum();
+  }
+  EG_API_GUARD(-1)
+}
+// kind: 0=node u64, 1=node f32, 2=node binary, 3=edge u64, 4=edge f32,
+// 5=edge binary.
+int32_t eg_feature_num(void* h, int kind) {
+  try {
+    return API(h)->FeatureNum(kind);
+  }
+  EG_API_GUARD(-1)
+}
+// Per-type weight sums for cross-shard weighted sampling; out has
+// node_type_num (kind 0) or edge_type_num (kind 1) floats.
+void eg_type_weight_sums(void* h, int kind, float* out) {
+  try {
+    API(h)->TypeWeightSums(kind, out);
+  }
+  EG_API_GUARD()
+}
+
+// ---- sampling ----
+void eg_sample_node(void* h, int count, int32_t type, uint64_t* out) {
+  try {
+    eg::SpanTimer span(eg::kStatSampleNode);
+    API(h)->SampleNode(count, type, out);
+  }
+  EG_API_GUARD()
+}
+
+void eg_sample_edge(void* h, int count, int32_t type, uint64_t* out_src,
+                    uint64_t* out_dst, int32_t* out_type) {
+  try {
+    eg::SpanTimer span(eg::kStatSampleEdge);
+    API(h)->SampleEdge(count, type, out_src, out_dst, out_type);
+  }
+  EG_API_GUARD()
+}
+
+void eg_sample_node_with_src(void* h, const uint64_t* src, int n, int count,
+                             uint64_t* out) {
+  try {
+    eg::SpanTimer span(eg::kStatSampleNode);
+    API(h)->SampleNodeWithSrc(src, n, count, out);
+  }
+  EG_API_GUARD()
+}
+
+// Per-node sampling weights for the device-graph exporter; works in both
+// modes (remote scatters a kNodeWeight RPC per shard). Returns 0 on
+// success, -1 when any shard could not answer (the exporter must not
+// build a sampler from silently-zero weights).
+int eg_get_node_weight(void* h, const uint64_t* ids, int n, float* out) {
+  try {
+    if (API(h)->GetNodeWeight(ids, n, out)) return 0;
+    g_last_error = "node_weights: one or more shards unreachable";
+    return -1;
+  }
+  EG_API_GUARD(-1)
+}
+
+void eg_get_node_type(void* h, const uint64_t* ids, int n, int32_t* out) {
+  try {
+    eg::SpanTimer span(eg::kStatNodeType);
+    API(h)->GetNodeType(ids, n, out);
+  }
+  EG_API_GUARD()
+}
+
+void eg_sample_neighbor(void* h, const uint64_t* ids, int n,
+                        const int32_t* etypes, int net, int count,
+                        uint64_t default_id, uint64_t* out_ids, float* out_w,
+                        int32_t* out_t) {
+  try {
+    eg::SpanTimer span(eg::kStatSampleNeighbor);
+    API(h)->SampleNeighbor(ids, n, etypes, net, count, default_id, out_ids,
+                           out_w, out_t);
+  }
+  EG_API_GUARD()
+}
+
+// etypes_flat: concatenated per-hop edge-type lists; etype_counts[h] =
+// number of edge types for hop h; counts[h] = fanout of hop h.
+// out_*: per-hop caller buffers, hop h sized n * prod(counts[:h+1]).
+void eg_sample_fanout(void* h, const uint64_t* ids, int n,
+                      const int32_t* etypes_flat, const int32_t* etype_counts,
+                      const int32_t* counts, int nhops, uint64_t default_id,
+                      uint64_t** out_ids, float** out_w, int32_t** out_t) {
+  try {
+    eg::SpanTimer span(eg::kStatSampleFanout);
+    API(h)->SampleFanout(ids, n, etypes_flat, etype_counts, counts, nhops,
+                         default_id, out_ids, out_w, out_t);
+  }
+  EG_API_GUARD()
+}
+
+// Flat-CSR alias-table build for the device-side exact sampler (pure
+// function, no engine handle): offsets [num_rows+1], weights/prob
+// [offsets[num_rows]], alias row-LOCAL int32 indices. See
+// eg::BuildAliasRows.
+void eg_build_alias_csr(const int64_t* offsets, int64_t num_rows,
+                        const float* weights, float* prob, int32_t* alias) {
+  try {
+    eg::BuildAliasRows(offsets, num_rows, weights, prob, alias);
+  }
+  EG_API_GUARD()
+}
+
+void* eg_get_full_neighbor(void* h, const uint64_t* ids, int n,
+                           const int32_t* etypes, int net, int sorted) {
+  try {
+    eg::SpanTimer span(eg::kStatFullNeighbor);
+    return API(h)->GetFullNeighbor(ids, n, etypes, net, sorted != 0);
+  }
+  EG_API_GUARD(nullptr)
+}
+
+void eg_get_top_k_neighbor(void* h, const uint64_t* ids, int n,
+                           const int32_t* etypes, int net, int k,
+                           uint64_t default_id, uint64_t* out_ids,
+                           float* out_w, int32_t* out_t) {
+  try {
+    eg::SpanTimer span(eg::kStatTopKNeighbor);
+    API(h)->GetTopKNeighbor(ids, n, etypes, net, k, default_id, out_ids,
+                            out_w, out_t);
+  }
+  EG_API_GUARD()
+}
+
+// etypes_flat/etype_counts: per-step edge-type segments (walk_len segments).
+void eg_random_walk(void* h, const uint64_t* ids, int n,
+                    const int32_t* etypes_flat, const int32_t* etype_counts,
+                    int walk_len, float p, float q, uint64_t default_id,
+                    uint64_t* out) {
+  try {
+    eg::SpanTimer span(eg::kStatRandomWalk);
+    API(h)->RandomWalk(ids, n, etypes_flat, etype_counts, walk_len, p, q,
+                       default_id, out);
+  }
+  EG_API_GUARD()
+}
+
+// ---- features ----
+void eg_get_dense_feature(void* h, const uint64_t* ids, int n,
+                          const int32_t* fids, const int32_t* dims, int nf,
+                          float* out) {
+  try {
+    eg::SpanTimer span(eg::kStatDenseFeature);
+    API(h)->GetDenseFeature(ids, n, fids, dims, nf, out);
+  }
+  EG_API_GUARD()
+}
+
+void eg_get_edge_dense_feature(void* h, const uint64_t* src,
+                               const uint64_t* dst, const int32_t* types,
+                               int n, const int32_t* fids,
+                               const int32_t* dims, int nf, float* out) {
+  try {
+    eg::SpanTimer span(eg::kStatDenseFeature);
+    API(h)->GetEdgeDenseFeature(src, dst, types, n, fids, dims, nf, out);
+  }
+  EG_API_GUARD()
+}
+
+void* eg_get_sparse_feature(void* h, const uint64_t* ids, int n,
+                            const int32_t* fids, int nf) {
+  try {
+    eg::SpanTimer span(eg::kStatSparseFeature);
+    return API(h)->GetSparseFeature(ids, n, fids, nf);
+  }
+  EG_API_GUARD(nullptr)
+}
+
+void* eg_get_edge_sparse_feature(void* h, const uint64_t* src,
+                                 const uint64_t* dst, const int32_t* types,
+                                 int n, const int32_t* fids, int nf) {
+  try {
+    eg::SpanTimer span(eg::kStatSparseFeature);
+    return API(h)->GetEdgeSparseFeature(src, dst, types, n, fids, nf);
+  }
+  EG_API_GUARD(nullptr)
+}
+
+void* eg_get_binary_feature(void* h, const uint64_t* ids, int n,
+                            const int32_t* fids, int nf) {
+  try {
+    eg::SpanTimer span(eg::kStatBinaryFeature);
+    return API(h)->GetBinaryFeature(ids, n, fids, nf);
+  }
+  EG_API_GUARD(nullptr)
+}
+
+void* eg_get_edge_binary_feature(void* h, const uint64_t* src,
+                                 const uint64_t* dst, const int32_t* types,
+                                 int n, const int32_t* fids, int nf) {
+  try {
+    eg::SpanTimer span(eg::kStatBinaryFeature);
+    return API(h)->GetEdgeBinaryFeature(src, dst, types, n, fids, nf);
+  }
+  EG_API_GUARD(nullptr)
+}
+
+// ---- result access ----
+// kind: 0=u64, 1=f32, 2=i32, 3=bytes; slot indexes within that kind.
+int64_t eg_result_size(void* r, int kind, int slot) {
+  try {
+    auto* res = static_cast<EGResult*>(r);
+    switch (kind) {
+      case 0:
+        return slot < static_cast<int>(res->u64.size())
+                   ? static_cast<int64_t>(res->u64[slot].size())
+                   : -1;
+      case 1:
+        return slot < static_cast<int>(res->f32.size())
+                   ? static_cast<int64_t>(res->f32[slot].size())
+                   : -1;
+      case 2:
+        return slot < static_cast<int>(res->i32.size())
+                   ? static_cast<int64_t>(res->i32[slot].size())
+                   : -1;
+      case 3:
+        return slot < static_cast<int>(res->bytes.size())
+                   ? static_cast<int64_t>(res->bytes[slot].size())
+                   : -1;
+      default:
+        return -1;
+    }
+  }
+  EG_API_GUARD(-1)
+}
+
+void eg_result_copy(void* r, int kind, int slot, void* out) {
+  try {
+    auto* res = static_cast<EGResult*>(r);
+    switch (kind) {
+      case 0:
+        std::memcpy(out, res->u64[slot].data(),
+                    res->u64[slot].size() * sizeof(uint64_t));
+        break;
+      case 1:
+        std::memcpy(out, res->f32[slot].data(),
+                    res->f32[slot].size() * sizeof(float));
+        break;
+      case 2:
+        std::memcpy(out, res->i32[slot].data(),
+                    res->i32[slot].size() * sizeof(int32_t));
+        break;
+      case 3:
+        std::memcpy(out, res->bytes[slot].data(), res->bytes[slot].size());
+        break;
+    }
+  }
+  EG_API_GUARD()
+}
+
+void eg_result_free(void* r) {
+  try {
+    delete static_cast<EGResult*>(r);
+  }
+  EG_API_GUARD()
+}
+
+
+// ---- stats (span-timer subsystem, eg_stats.h) ----
+int eg_stat_count() {
+  try {
+    return eg::kStatOpCount;
+  }
+  EG_API_GUARD(0)
+}
+
+const char* eg_stat_name(int i) {
+  try {
+    return (i >= 0 && i < eg::kStatOpCount) ? eg::kStatNames[i] : "";
+  }
+  EG_API_GUARD("")
+}
+
+// out arrays sized eg_stat_count().
+void eg_stats_snapshot(uint64_t* counts, uint64_t* total_ns,
+                       uint64_t* max_ns) {
+  try {
+    eg::Stats::Global().Snapshot(counts, total_ns, max_ns);
+  }
+  EG_API_GUARD()
+}
+
+void eg_stats_reset() {
+  try {
+    eg::Stats::Global().Reset();
+  }
+  EG_API_GUARD()
+}
+
+// ---- failure counters (eg_stats.h Counters: transport retries,
+// quarantines, failovers, deadline aborts, rejected frames, ...) ----
+int eg_counter_count() {
+  try {
+    return eg::kCtrCount;
+  }
+  EG_API_GUARD(0)
+}
+
+const char* eg_counter_name(int i) {
+  try {
+    return (i >= 0 && i < eg::kCtrCount) ? eg::kCounterNames[i] : "";
+  }
+  EG_API_GUARD("")
+}
+
+// out sized eg_counter_count().
+void eg_counters_snapshot(uint64_t* out) {
+  try {
+    eg::Counters::Global().Snapshot(out);
+  }
+  EG_API_GUARD()
+}
+
+void eg_counters_reset() {
+  try {
+    eg::Counters::Global().Reset();
+  }
+  EG_API_GUARD()
+}
+
+// Bump one counter from Python (the prefetch pipeline runs in Python
+// threads but its ledger must live next to the native transport's so
+// one snapshot/scrape covers both). Out-of-range ids are ignored.
+void eg_counter_add(int i, uint64_t n) {
+  try {
+    if (i >= 0 && i < eg::kCtrCount)
+      eg::Counters::Global().Add(static_cast<eg::CounterId>(i), n);
+  }
+  EG_API_GUARD()
+}
+
+// ---- telemetry (eg_telemetry.h: latency histograms, slow-span
+// journals, the STATS scrape — see OBSERVABILITY.md) ----
+int eg_telemetry_enabled() {
+  try {
+    return eg::Telemetry::Global().enabled() ? 1 : 0;
+  }
+  EG_API_GUARD(-1)
+}
+
+void eg_telemetry_set_enabled(int on) {
+  try {
+    eg::Telemetry::Global().SetEnabled(on != 0);
+  }
+  EG_API_GUARD()
+}
+
+// Zero histograms (latency AND step-phase) + the slow-span journal +
+// the data-plane heat state (enabled flags and capacities survive —
+// this is the clean-slate primitive tests use).
+void eg_telemetry_reset() {
+  try {
+    eg::Telemetry::Global().Reset();
+    eg::PhaseStats::Global().Reset();
+    eg::Heat::Global().Reset();
+    eg::Devprof::Global().Reset();
+  }
+  EG_API_GUARD()
+}
+
+// ---- step-phase profiler (eg_phase.h; OBSERVABILITY.md "Step
+// phases") ----
+// One µs sample for phase `phase` (eg::StepPhase order, mirrored by
+// euler_tpu/telemetry.py PHASES). Honors the telemetry kill-switch.
+// Also lands in the flight recorder (eg_blackbox.h, its own
+// kill-switch): a postmortem of a dead TRAINER shows which step phase
+// it died in, not just which RPCs were in flight.
+void eg_phase_record(int phase, uint64_t us) {
+  try {
+    eg::PhaseStats::Global().Record(phase, us);
+    eg::Blackbox::Global().Record(eg::kBbPhase,
+                                  static_cast<uint8_t>(phase & 0xFF), -1,
+                                  0, us, 0);
+  }
+  EG_API_GUARD()
+}
+
+// One dimensionless prefetch-pipeline sample: which 0 = queue depth at
+// dequeue, 1 = workers busy at dequeue (eg::PrefetchGauge order).
+void eg_phase_gauge(int which, uint64_t value) {
+  try {
+    eg::PhaseStats::Global().RecordGauge(which, value);
+  }
+  EG_API_GUARD()
+}
+
+// One µs sample for serve-request phase `phase` (eg::ServePhase order,
+// mirrored by euler_tpu/telemetry.py SERVE_PHASES). Honors the
+// telemetry kill-switch; lands in the same "hist" map as everything
+// else (keys "serve:<name>"), so every scrape surface picks it up.
+void eg_serve_record(int phase, uint64_t us) {
+  try {
+    eg::PhaseStats::Global().RecordServe(phase, us);
+  }
+  EG_API_GUARD()
+}
+
+// One micro-batch device dispatch: `ids` = unique ids in the batch
+// (the "serve_batch" value histogram — count is dispatches, sum is
+// ids, their ratio the coalescing factor).
+void eg_serve_batch(uint64_t ids) {
+  try {
+    eg::PhaseStats::Global().RecordServeBatch(ids);
+  }
+  EG_API_GUARD()
+}
+
+// ---- device-plane gauges (eg_devprof.h; OBSERVABILITY.md "Device
+// plane") ----
+// Refresh the device-memory gauges: euler_tpu/devprof.py samples
+// device.memory_stats() (or a live-array census on CPU) and pushes the
+// result here so blackbox resource rings, postmortems and every metrics
+// surface see device bytes with zero new plumbing.
+void eg_devprof_set_mem(int64_t bytes, int64_t buffers) {
+  try {
+    eg::Devprof::Global().SetMem(bytes, buffers);
+  }
+  EG_API_GUARD()
+}
+
+// Refresh the live serve-SLO gauges (µs): euler_tpu/serving/slo.py
+// pushes its windowed p50/p99 and lifetime violations every few
+// records, so a scrape reads serving latency without draining.
+void eg_serve_slo_set(uint64_t p50_us, uint64_t p99_us,
+                      uint64_t violations, uint64_t count) {
+  try {
+    eg::Devprof::Global().SetServeSlo(p50_us, p99_us, violations, count);
+  }
+  EG_API_GUARD()
+}
+
+void eg_telemetry_set_slow_capacity(int n) {
+  try {
+    eg::Telemetry::Global().SetSlowCapacity(n);
+  }
+  EG_API_GUARD()
+}
+
+// Local telemetry dump as JSON (counters + stats + histograms + slow
+// spans; no admission gauges — those belong to a serving process and
+// ride the STATS scrape). Writes up to cap-1 bytes + NUL into buf and
+// returns the FULL length needed, so a caller seeing ret >= cap simply
+// retries with a bigger buffer. -1 on failure.
+int eg_telemetry_json(char* buf, int cap) {
+  try {
+    std::string js = eg::Telemetry::Global().Json(-1, nullptr);
+    if (cap > 0) {
+      size_t m = std::min(js.size(), static_cast<size_t>(cap - 1));
+      memcpy(buf, js.data(), m);
+      buf[m] = '\0';
+    }
+    return static_cast<int>(js.size());
+  }
+  EG_API_GUARD(-1)
+}
+
+// The span-record primitive the native sites use, exposed so Python can
+// journal app-level spans (run_loop step phases) and tests can pin the
+// journal's eviction order with exact microsecond values.
+void eg_telemetry_record_span(int side, int op, int outcome, int shard,
+                              uint64_t trace, uint64_t queue_us,
+                              uint64_t handler_us, uint64_t wire_us,
+                              uint64_t total_us) {
+  try {
+    eg::TelemetrySpan s;
+    s.side = side ? eg::kSpanServer : eg::kSpanClient;
+    s.op = op >= 0 && op < eg::kHistOpSlots ? static_cast<uint8_t>(op) : 0;
+    s.outcome = outcome >= 0 && outcome < 6 ? static_cast<uint8_t>(outcome)
+                                            : 1;
+    s.shard = shard;
+    s.trace = trace;
+    s.queue_us = queue_us;
+    s.handler_us = handler_us;
+    s.wire_us = wire_us;
+    s.total_us = total_us;
+    eg::Telemetry::Global().RecordSpan(s);
+  }
+  EG_API_GUARD()
+}
+
+// Remote liveness probe: one kPing round trip to shard `shard` through
+// the full transport stack (retries/deadline/wire negotiation per the
+// graph's config). 1 = shard answered, 0 = unreachable or bad index.
+int eg_remote_ping(void* h, int shard) {
+  try {
+    return static_cast<RemoteGraph*>(API(h))->PingShard(shard) ? 1 : 0;
+  }
+  EG_API_GUARD(0)
+}
+
+// Remote scrape: fetch shard `shard`'s telemetry JSON over the STATS
+// wire opcode (retries/deadline per the graph's transport config). Same
+// buf/cap/return contract as eg_telemetry_json; -1 on transport failure
+// or bad shard index (see eg_last_error).
+int eg_remote_scrape(void* h, int shard, char* buf, int cap) {
+  try {
+    std::string js;
+    if (!static_cast<RemoteGraph*>(API(h))->ScrapeShard(shard, &js)) {
+      g_last_error = "telemetry scrape failed: shard " +
+                     std::to_string(shard) + " unreachable or invalid";
+      return -1;
+    }
+    if (cap > 0) {
+      size_t m = std::min(js.size(), static_cast<size_t>(cap - 1));
+      memcpy(buf, js.data(), m);
+      buf[m] = '\0';
+    }
+    return static_cast<int>(js.size());
+  }
+  EG_API_GUARD(-1)
+}
+
+// ---- data-plane heat profiler (eg_heat.h; OBSERVABILITY.md
+// "Data-plane heat") ----
+int eg_heat_enabled() {
+  try {
+    return eg::Heat::Global().flag() ? 1 : 0;
+  }
+  EG_API_GUARD(-1)
+}
+
+void eg_heat_set_enabled(int on) {
+  try {
+    eg::Heat::Global().SetEnabled(on != 0);
+  }
+  EG_API_GUARD()
+}
+
+// Resize (and reset) the hot-key tracker (`heat_topk=` config key).
+void eg_heat_set_topk(int k) {
+  try {
+    eg::Heat::Global().SetTopK(k);
+  }
+  EG_API_GUARD()
+}
+
+// Feed a batch of ids from Python (app-level access streams, and the
+// exactness tests that pin the sketch against ground truth). side:
+// 0 = client, 1 = server; op indexes kWireOpNames (0 = other).
+void eg_heat_record(int side, int op, const uint64_t* ids, int64_t n) {
+  try {
+    eg::Heat::Global().Record(side, op, ids, n);
+  }
+  EG_API_GUARD()
+}
+
+// Count-min point estimate for one id (>= its true feed count).
+uint64_t eg_heat_estimate(int side, uint64_t id) {
+  try {
+    return eg::Heat::Global().Estimate(side, id);
+  }
+  EG_API_GUARD(0)
+}
+
+// Local heat dump as JSON (top-K tables, sketch totals, per-op ids
+// ledger, fan-out attribution, cache classes). Same buf/cap/return
+// contract as eg_telemetry_json.
+int eg_heat_json(char* buf, int cap) {
+  try {
+    std::string js = eg::Heat::Global().Json(-1);
+    if (cap > 0) {
+      size_t m = std::min(js.size(), static_cast<size_t>(cap - 1));
+      memcpy(buf, js.data(), m);
+      buf[m] = '\0';
+    }
+    return static_cast<int>(js.size());
+  }
+  EG_API_GUARD(-1)
+}
+
+// Zero the heat state (enabled flag + top-K capacity survive).
+void eg_heat_reset() {
+  try {
+    eg::Heat::Global().Reset();
+  }
+  EG_API_GUARD()
+}
+
+// Remote heat scrape (kHeat opcode): fetch shard `shard`'s full heat
+// dump. Same buf/cap/return contract as eg_remote_scrape; -1 on
+// transport failure or bad shard index.
+int eg_remote_heat(void* h, int shard, char* buf, int cap) {
+  try {
+    std::string js;
+    if (!static_cast<RemoteGraph*>(API(h))->HeatShard(shard, &js)) {
+      g_last_error = "heat scrape failed: shard " + std::to_string(shard) +
+                     " unreachable or invalid";
+      return -1;
+    }
+    if (cap > 0) {
+      size_t m = std::min(js.size(), static_cast<size_t>(cap - 1));
+      memcpy(buf, js.data(), m);
+      buf[m] = '\0';
+    }
+    return static_cast<int>(js.size());
+  }
+  EG_API_GUARD(-1)
+}
+
+// ---- blackbox flight recorder + postmortem path (eg_blackbox.h;
+// OBSERVABILITY.md "Postmortems") ----
+int eg_blackbox_enabled() {
+  try {
+    return eg::Blackbox::Global().enabled() ? 1 : 0;
+  }
+  EG_API_GUARD(-1)
+}
+
+void eg_blackbox_set_enabled(int on) {
+  try {
+    eg::Blackbox::Global().SetEnabled(on != 0);
+  }
+  EG_API_GUARD()
+}
+
+// Arm the postmortem path: remember postmortem_dir (empty/NULL = leave
+// the dump destination alone), label dumps with `shard`, install the
+// fatal-signal handlers, start the resource sampler (period sample_ms,
+// 0 = keep current). -1 + eg_last_error when the dir is unwritable.
+int eg_blackbox_init(const char* postmortem_dir, int shard, int sample_ms) {
+  try {
+    if (!eg::Blackbox::Global().Install(
+            postmortem_dir ? postmortem_dir : "", shard, sample_ms)) {
+      g_last_error = eg::Blackbox::Global().error();
+      return -1;
+    }
+    return 0;
+  }
+  EG_API_GUARD(-1)
+}
+
+// One app-level flight-recorder event from Python (the run_loop /
+// prefetch layer accounts into the same rings the native hooks use).
+void eg_blackbox_record(int point, int op, int shard, uint64_t trace,
+                        uint64_t value, int outcome) {
+  try {
+    eg::Blackbox::Global().Record(
+        point >= 0 && point < eg::kBbPointCount
+            ? static_cast<uint8_t>(point)
+            : static_cast<uint8_t>(eg::kBbApp),
+        static_cast<uint8_t>(op & 0xFF), shard, trace, value,
+        static_cast<uint8_t>(outcome & 0xFF));
+  }
+  EG_API_GUARD()
+}
+
+// Live flight-recorder + resource-history dump as JSON. Same buf/cap/
+// return contract as eg_telemetry_json.
+int eg_blackbox_json(char* buf, int cap) {
+  try {
+    std::string js = eg::Blackbox::Global().LiveJson();
+    if (cap > 0) {
+      size_t m = std::min(js.size(), static_cast<size_t>(cap - 1));
+      memcpy(buf, js.data(), m);
+      buf[m] = '\0';
+    }
+    return static_cast<int>(js.size());
+  }
+  EG_API_GUARD(-1)
+}
+
+// Local resource-gauge history (the in-process twin of the kHistory
+// scrape). Same buf/cap/return contract as eg_telemetry_json.
+int eg_blackbox_history(char* buf, int cap) {
+  try {
+    eg::Blackbox& bb = eg::Blackbox::Global();
+    std::string js = bb.HistoryJson(bb.shard());
+    if (cap > 0) {
+      size_t m = std::min(js.size(), static_cast<size_t>(cap - 1));
+      memcpy(buf, js.data(), m);
+      buf[m] = '\0';
+    }
+    return static_cast<int>(js.size());
+  }
+  EG_API_GUARD(-1)
+}
+
+// Write a postmortem dump NOW (the manual path: run_loop's unhandled-
+// exception hook, tests). Same format as the fatal-signal dump with
+// signal 0 ("exception"). -1 when the blackbox is disabled or the path
+// cannot be opened.
+int eg_blackbox_dump(const char* path) {
+  try {
+    if (!path || !eg::Blackbox::Global().WriteDump(path, 0)) {
+      g_last_error = "blackbox dump failed (disabled, or path not "
+                     "writable)";
+      return -1;
+    }
+    return 0;
+  }
+  EG_API_GUARD(-1)
+}
+
+// Zero the flight-recorder rings + drop ledger (enabled flag, handlers
+// and resource history survive) — the clean-slate primitive tests use.
+void eg_blackbox_reset() {
+  try {
+    eg::Blackbox::Global().Reset();
+  }
+  EG_API_GUARD()
+}
+
+// Remote resource-history scrape (kHistory opcode): fetch shard
+// `shard`'s gauge ring. Same buf/cap/return contract as
+// eg_remote_scrape; -1 on transport failure or bad shard index.
+int eg_remote_history(void* h, int shard, char* buf, int cap) {
+  try {
+    std::string js;
+    if (!static_cast<RemoteGraph*>(API(h))->HistoryShard(shard, &js)) {
+      g_last_error = "history scrape failed: shard " +
+                     std::to_string(shard) + " unreachable or invalid";
+      return -1;
+    }
+    if (cap > 0) {
+      size_t m = std::min(js.size(), static_cast<size_t>(cap - 1));
+      memcpy(buf, js.data(), m);
+      buf[m] = '\0';
+    }
+    return static_cast<int>(js.size());
+  }
+  EG_API_GUARD(-1)
+}
+
+// ---- deterministic failpoints (eg_fault.h; FAULTS.md) ----
+// Install a process-global fault spec, e.g.
+// "recv_frame:err@0.5,dial:delay@200"; seed makes the per-point failure
+// sequences replayable. Empty/NULL spec clears. -1 + eg_last_error on a
+// malformed spec (nothing installed).
+int eg_fault_config(const char* spec, uint64_t seed) {
+  try {
+    if (!eg::FaultInjector::Global().Configure(spec ? spec : "", seed)) {
+      g_last_error = eg::FaultInjector::Global().error();
+      return -1;
+    }
+    return 0;
+  }
+  EG_API_GUARD(-1)
+}
+
+void eg_fault_clear() {
+  try {
+    eg::FaultInjector::Global().Clear();
+  }
+  EG_API_GUARD()
+}
+
+int eg_fault_count() {
+  try {
+    return eg::kFaultIdCount;
+  }
+  EG_API_GUARD(0)
+}
+
+const char* eg_fault_name(int i) {
+  try {
+    return (i >= 0 && i < eg::kFaultIdCount) ? eg::kFaultNames[i] : "";
+  }
+  EG_API_GUARD("")
+}
+
+// Injected-fault ledger: fires per failpoint since its last (re)config.
+// out sized eg_fault_count().
+void eg_fault_injected(uint64_t* out) {
+  try {
+    eg::FaultInjector::Global().SnapshotInjected(out);
+  }
+  EG_API_GUARD()
+}
+
+}  // extern "C"

@@ -1,0 +1,76 @@
+#include "eg_devprof.h"
+
+namespace eg {
+
+namespace {
+
+void AppendU64(std::string* out, uint64_t v) {
+  char buf[24];
+  int n = 0;
+  do {
+    buf[n++] = static_cast<char>('0' + v % 10);
+    v /= 10;
+  } while (v);
+  while (n) out->push_back(buf[--n]);
+}
+
+void AppendKey(std::string* out, const char* k) {
+  out->push_back('"');
+  out->append(k);
+  out->append("\":");
+}
+
+}  // namespace
+
+Devprof& Devprof::Global() {
+  static Devprof d;
+  return d;
+}
+
+void Devprof::SetMem(int64_t bytes, int64_t buffers) {
+  mem_bytes_.store(bytes, std::memory_order_relaxed);
+  buffers_.store(buffers, std::memory_order_relaxed);
+  int64_t prev = mem_peak_bytes_.load(std::memory_order_relaxed);
+  while (prev < bytes &&
+         !mem_peak_bytes_.compare_exchange_weak(prev, bytes,
+                                                std::memory_order_relaxed)) {
+  }
+}
+
+void Devprof::SetServeSlo(uint64_t p50_us, uint64_t p99_us,
+                          uint64_t violations, uint64_t count) {
+  slo_p50_us_.store(p50_us, std::memory_order_relaxed);
+  slo_p99_us_.store(p99_us, std::memory_order_relaxed);
+  slo_violations_.store(violations, std::memory_order_relaxed);
+  slo_count_.store(count, std::memory_order_relaxed);
+}
+
+void Devprof::ServeSloJsonInto(std::string* out) const {
+  out->push_back(',');
+  AppendKey(out, "serve_slo");
+  out->push_back('{');
+  AppendKey(out, "p50_us");
+  AppendU64(out, slo_p50_us_.load(std::memory_order_relaxed));
+  out->push_back(',');
+  AppendKey(out, "p99_us");
+  AppendU64(out, slo_p99_us_.load(std::memory_order_relaxed));
+  out->push_back(',');
+  AppendKey(out, "violations");
+  AppendU64(out, slo_violations_.load(std::memory_order_relaxed));
+  out->push_back(',');
+  AppendKey(out, "count");
+  AppendU64(out, slo_count_.load(std::memory_order_relaxed));
+  out->push_back('}');
+}
+
+void Devprof::Reset() {
+  mem_bytes_.store(0, std::memory_order_relaxed);
+  mem_peak_bytes_.store(0, std::memory_order_relaxed);
+  buffers_.store(0, std::memory_order_relaxed);
+  slo_p50_us_.store(0, std::memory_order_relaxed);
+  slo_p99_us_.store(0, std::memory_order_relaxed);
+  slo_violations_.store(0, std::memory_order_relaxed);
+  slo_count_.store(0, std::memory_order_relaxed);
+}
+
+}  // namespace eg

@@ -1,0 +1,76 @@
+// Device-plane gauges: the XLA side of the observability stack.
+//
+// Everything the other four planes measure lives on the host or the
+// wire; the device half of the paper's TPU-native claim — how much HBM
+// the program holds, how many live buffers, and how the serve SLO is
+// actually tracking — was invisible. The sampling itself has to happen
+// in Python (only jax can read device.memory_stats() or walk
+// live_arrays()), so this module is deliberately thin: a handful of
+// process-global relaxed atomics the Python side refreshes through the
+// C ABI, and which the native emitters then fold into every existing
+// surface for free — eg_blackbox's resource sample/ring (postmortems
+// see the device-memory trajectory of a dying process), Telemetry::Json
+// (metrics_text / STATS scrape), and the fatal-signal dump (reads
+// memory only, so atomics are exactly what the handler may touch).
+//
+// The serve-SLO gauges are the live twin of SLOTracker.report():
+// euler_tpu/serving/slo.py pushes its windowed p50/p99 and lifetime
+// violation count here every few records, so a scrape sees serving
+// latency without draining the server. Compile/recompile COUNTS live in
+// eg_stats.h (kCtrDeviceCompile...) and compile LATENCY in the
+// "phase:compile" histogram (eg_phase.h) — this header only holds the
+// gauges that have no counter/histogram shape.
+#ifndef EG_DEVPROF_H_
+#define EG_DEVPROF_H_
+
+#include <atomic>
+#include <cstdint>
+#include <string>
+
+namespace eg {
+
+class Devprof {
+ public:
+  static Devprof& Global();
+
+  // Refresh the device-memory gauges (Python sampler thread / one-shot
+  // probes). Tracks the high-water mark as a monotone CAS so a scrape
+  // between samples still sees the peak.
+  void SetMem(int64_t bytes, int64_t buffers);
+
+  // Refresh the live serve-SLO gauges (SLOTracker pushes µs values).
+  void SetServeSlo(uint64_t p50_us, uint64_t p99_us, uint64_t violations,
+                   uint64_t count);
+
+  int64_t mem_bytes() const {
+    return mem_bytes_.load(std::memory_order_relaxed);
+  }
+  int64_t mem_peak_bytes() const {
+    return mem_peak_bytes_.load(std::memory_order_relaxed);
+  }
+  int64_t buffers() const {
+    return buffers_.load(std::memory_order_relaxed);
+  }
+
+  // Append `,"serve_slo":{"p50_us":..,"p99_us":..,"violations":..,
+  // "count":..}` to an in-progress JSON object (Telemetry::Json calls
+  // this right after the resource section). Always emitted — zeros
+  // included — so the metric families render unconditionally and the
+  // doc-drift gate sees them in every scrape.
+  void ServeSloJsonInto(std::string* out) const;
+
+  void Reset();
+
+ private:
+  std::atomic<int64_t> mem_bytes_{0};
+  std::atomic<int64_t> mem_peak_bytes_{0};
+  std::atomic<int64_t> buffers_{0};
+  std::atomic<uint64_t> slo_p50_us_{0};
+  std::atomic<uint64_t> slo_p99_us_{0};
+  std::atomic<uint64_t> slo_violations_{0};
+  std::atomic<uint64_t> slo_count_{0};
+};
+
+}  // namespace eg
+
+#endif  // EG_DEVPROF_H_

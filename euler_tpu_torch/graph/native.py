@@ -1,0 +1,189 @@
+"""ctypes binding of the port's copy of the C++ graph engine
+(counterpart of ``euler_tpu/graph/native.py``).
+
+The engine's sources live in ``graph/_native/`` (a copy of the JAX
+package's, unchanged). At first use they are built out of tree with
+``make`` into a scratch directory, and the library is renamed into
+
+    build/euler_tpu_torch/native/libeuler_graph_torch_<hash>.so
+
+beside the package, named by a hash of the sources, the Makefile and
+the host's CPU model (the Makefile builds with ``-march=native``), so a
+changed source or another machine builds anew. A file lock serialises
+concurrent builders (test workers, several processes of one run): the
+first builds, the others wait and load its library. It builds with the
+``g++`` on ``PATH`` whatever ``$CXX`` names (a ``$CXX`` toolchain may
+lack OpenMP's runtime, which the engine links). A missing ``make`` or
+``g++``, or a failed build, raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NATIVE_DIR = os.path.join(_PKG, "graph", "_native")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "euler_tpu_torch",
+                         "native")
+_TARGET = "libeuler_graph_torch.so"
+
+_lib = None
+build_seconds = 0.0  # 0.0 when the library came from an earlier build
+
+
+def _sources() -> list[str]:
+    return sorted(
+        os.path.join(NATIVE_DIR, f) for f in os.listdir(NATIVE_DIR)
+        if f.endswith((".cc", ".h")) or f == "Makefile"
+    )
+
+
+def _cpu_model() -> bytes:
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            for line in f:
+                if line.startswith(b"model name"):
+                    return line
+    except OSError:
+        pass
+    return b""
+
+
+def library_path() -> str:
+    h = hashlib.sha256(_cpu_model())
+    for src in _sources():
+        h.update(os.path.basename(src).encode())
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(
+        BUILD_DIR, f"libeuler_graph_torch_{h.hexdigest()[:16]}.so")
+
+
+def build_native() -> str:
+    """Path of the engine library, built first when this source hash has
+    no build yet."""
+    global build_seconds
+    out = library_path()
+    if os.path.exists(out):
+        return out
+    missing = [t for t in ("make", "g++") if shutil.which(t) is None]
+    if missing:
+        raise RuntimeError(
+            f"{' and '.join(missing)} not found on PATH: the graph engine "
+            "of euler_tpu_torch is built from graph/_native at first use")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(out):  # another process built it meanwhile
+            return out
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            jobs = min(os.cpu_count() or 1, 8)
+            r = subprocess.run(
+                ["make", "-s", f"-j{jobs}", f"OUT={tmp}",
+                 f"CXX={shutil.which('g++')}"],
+                cwd=NATIVE_DIR, capture_output=True, text=True)
+            if r.returncode != 0:
+                raise RuntimeError(
+                    f"graph engine build failed (make exit {r.returncode})"
+                    f":\n{r.stdout[-4000:]}{r.stderr[-4000:]}")
+            os.replace(os.path.join(tmp, _TARGET), out)
+        build_seconds = time.perf_counter() - t0
+    return out
+
+
+def _sig(fn, restype, argtypes) -> None:
+    fn.restype = restype
+    fn.argtypes = argtypes
+
+
+def lib() -> ctypes.CDLL:
+    """The engine library (built if needed), loaded once a process."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    L = ctypes.CDLL(build_native())
+    c = ctypes
+    p = c.c_void_p
+    u64p = c.POINTER(c.c_uint64)
+    i32p = c.POINTER(c.c_int32)
+    f32p = c.POINTER(c.c_float)
+    _sig(L.eg_last_error, c.c_char_p, [])
+    _sig(L.eg_create, p, [])
+    _sig(L.eg_destroy, None, [p])
+    _sig(L.eg_load, c.c_int, [p, c.c_char_p, c.c_int, c.c_int])
+    _sig(L.eg_load_files, c.c_int, [p, c.POINTER(c.c_char_p), c.c_int])
+    _sig(L.eg_graph_epoch, c.c_uint64, [p])
+    _sig(L.eg_seed, None, [c.c_uint64])
+    _sig(L.eg_num_nodes, c.c_int64, [p])
+    _sig(L.eg_num_edges, c.c_int64, [p])
+    _sig(L.eg_node_type_num, c.c_int32, [p])
+    _sig(L.eg_edge_type_num, c.c_int32, [p])
+    _sig(L.eg_feature_num, c.c_int32, [p, c.c_int])
+    _sig(L.eg_type_weight_sums, None, [p, c.c_int, f32p])
+    _sig(L.eg_sample_node, None, [p, c.c_int, c.c_int32, u64p])
+    _sig(L.eg_sample_edge, None, [p, c.c_int, c.c_int32, u64p, u64p, i32p])
+    _sig(L.eg_sample_node_with_src, None, [p, u64p, c.c_int, c.c_int, u64p])
+    _sig(L.eg_get_node_type, None, [p, u64p, c.c_int, i32p])
+    _sig(L.eg_get_node_weight, c.c_int, [p, u64p, c.c_int, f32p])
+    _sig(
+        L.eg_sample_neighbor,
+        None,
+        [p, u64p, c.c_int, i32p, c.c_int, c.c_int, c.c_uint64, u64p, f32p,
+         i32p],
+    )
+    _sig(
+        L.eg_sample_fanout,
+        None,
+        [
+            p, u64p, c.c_int, i32p, i32p, i32p, c.c_int, c.c_uint64,
+            c.POINTER(u64p), c.POINTER(f32p), c.POINTER(i32p),
+        ],
+    )
+    _sig(L.eg_get_full_neighbor, p, [p, u64p, c.c_int, i32p, c.c_int, c.c_int])
+    _sig(
+        L.eg_get_top_k_neighbor,
+        None,
+        [p, u64p, c.c_int, i32p, c.c_int, c.c_int, c.c_uint64, u64p, f32p,
+         i32p],
+    )
+    _sig(
+        L.eg_random_walk,
+        None,
+        [p, u64p, c.c_int, i32p, i32p, c.c_int, c.c_float, c.c_float,
+         c.c_uint64, u64p],
+    )
+    _sig(
+        L.eg_get_dense_feature,
+        None,
+        [p, u64p, c.c_int, i32p, i32p, c.c_int, f32p],
+    )
+    _sig(
+        L.eg_get_edge_dense_feature,
+        None,
+        [p, u64p, u64p, i32p, c.c_int, i32p, i32p, c.c_int, f32p],
+    )
+    _sig(L.eg_get_sparse_feature, p, [p, u64p, c.c_int, i32p, c.c_int])
+    _sig(
+        L.eg_get_edge_sparse_feature,
+        p,
+        [p, u64p, u64p, i32p, c.c_int, i32p, c.c_int],
+    )
+    _sig(L.eg_get_binary_feature, p, [p, u64p, c.c_int, i32p, c.c_int])
+    _sig(
+        L.eg_get_edge_binary_feature,
+        p,
+        [p, u64p, u64p, i32p, c.c_int, i32p, c.c_int],
+    )
+    _sig(L.eg_result_size, c.c_int64, [p, c.c_int, c.c_int])
+    _sig(L.eg_result_copy, None, [p, c.c_int, c.c_int, p])
+    _sig(L.eg_result_free, None, [p])
+    _lib = L
+    return L

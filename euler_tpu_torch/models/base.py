@@ -6,7 +6,10 @@ A model is a host-side driver (config, table building, state) plus an
 (``consts``) and returns a ``ModelOutput``. In device-sampling mode the
 whole batch is root ids and a seed: the fanout is drawn on the device
 from the adjacency slabs in ``consts``, and feature and label rows are
-gathered from device tables.
+gathered from device tables. In host-sampling mode (SupervisedGraphSage
+and GraphSage) ``sample(graph, inputs)`` draws the fanout through the
+engine client and gathers features and labels on the host into a numpy
+batch, which ``to_device`` uploads.
 
 Unlike the JAX package's pure ``(state, batch) -> state`` step, the port's
 train step updates the module's parameters and the optimizer's moments
@@ -16,6 +19,7 @@ in place.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import warnings
 from typing import Any, Optional
 
@@ -128,23 +132,57 @@ def _feature_table_dtype(name: str) -> torch.dtype:
 
 def check_device_mode(name, device_features, device_sampling, feature_idx,
                       max_id, metapath=(), fanouts=(),
-                      has_sparse: bool = False) -> None:
-    """The configuration the GraphSAGE models and GAT run: device
-    features and device sampling, a dense (or, with ``has_sparse``,
-    sparse) feature table of max_id+2 rows, one edge-type set a hop."""
-    if not (device_features and device_sampling):
+                      has_sparse: bool = False,
+                      host_sampling: bool = False) -> None:
+    """The configurations the port runs: device features and device
+    sampling, over a dense (or, with ``has_sparse``, sparse) feature
+    table of max_id+2 rows; or, for the models that sample on the host
+    (``host_sampling``: SupervisedGraphSage and GraphSage), neither, with
+    features and labels gathered on the host. One edge-type set a hop."""
+    host = host_sampling and not (device_features or device_sampling)
+    if not (device_features and device_sampling) and not host:
         raise NotImplementedError(
             f"euler_tpu_torch runs {name} with device_features=True and "
-            "device_sampling=True; host sampling needs the graph engine "
-            "client, not ported yet"
+            "device_sampling=True"
+            + (" or with both False (host sampling)" if host_sampling
+               else "")
+            + "; host sampling through the graph engine client is ported "
+            "for SupervisedGraphSage and GraphSage with host-gathered "
+            "features only (ROADMAP A0c)"
         )
-    if (feature_idx < 0 and not has_sparse) or max_id < 0:
+    if not host and ((feature_idx < 0 and not has_sparse) or max_id < 0):
         raise ValueError(
             "device features need feature_idx >= 0 (or sparse slots) and "
             "max_id >= 0 (the feature/label tables are sized max_id+2)"
         )
     if len(metapath) != len(fanouts):
         raise ValueError("metapath needs one edge-type set per fanout")
+
+
+def to_device(batch, device=None):
+    """A host batch (numpy arrays in nested dicts, lists and tuples) as
+    tensors on ``device`` (the card unless ``"cpu"`` is asked for).
+    Arrays go through pinned memory with ``non_blocking=True`` on a CUDA
+    device, so the copy overlaps the host work that follows. The engine's
+    uint64 ids arrive as int64 (its default node -1 stays -1), since
+    torch does little arithmetic on uint64; other leaves pass through."""
+    dev = resolve_device(device)
+
+    def up(x):
+        if isinstance(x, dict):
+            return {k: up(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(up(v) for v in x)
+        if not isinstance(x, np.ndarray):
+            return x
+        if x.dtype == np.uint64:
+            x = x.view(np.int64)
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if dev.type == "cuda":
+            return t.pin_memory().to(dev, non_blocking=True)
+        return t.to(dev)
+
+    return up(batch)
 
 
 def id_feats(ids, use_id: bool) -> dict:
@@ -168,9 +206,9 @@ def write_rows_last_wins(table, ids, rows) -> None:
 
 
 def lookup_labels(consts: dict, root_ids):
-    """Labels for a supervised batch, gathered from the device label
-    table at ``root_ids`` (host-gathered labels come with host sampling,
-    which waits for the engine client)."""
+    """Labels for a device-features batch, gathered from the device label
+    table at ``root_ids`` (a host-sampled batch carries its own
+    ``"labels"``)."""
     if not consts:
         raise ValueError(
             "no consts tables were passed: a device-features batch must be "
@@ -203,9 +241,76 @@ class Model:
     # families whose device pipeline reads the 2-D slab itself (the
     # full-neighborhood GCN walks adj["nbr"]) set this False
     alias_sampling_ok: bool = True
+    # the modes; host sampling (both False) is SupervisedGraphSage's and
+    # GraphSage's
+    device_features: bool = True
+    device_sampling: bool = True
+    batch_size_ratio: int = 1
 
     def make_module(self, generator=None) -> torch.nn.Module:
         raise NotImplementedError
+
+    def _next_seed(self) -> int:
+        """The next seed of the batches this driver makes itself (1, 2,
+        ...): ``next`` on one ``itertools.count`` is atomic, so prefetch
+        workers never share one."""
+        return next(self.__dict__.setdefault("_seeds", itertools.count(1)))
+
+    # ---- the host phase (counterpart of the JAX base.py:206-228) ----
+    def sample(self, graph, inputs) -> dict:
+        """One training batch of root ids ``inputs`` as numpy arrays on
+        the host (``train.train``'s prefetch workers call it; the
+        training thread uploads it with ``to_device``). In
+        device-sampling mode it is the clipped roots and a fresh seed;
+        host-sampling models draw their fanouts through ``graph``."""
+        if not self.device_sampling:
+            raise NotImplementedError(
+                f"{type(self).__name__}.sample on the host is not ported "
+                "(ROADMAP A0c)")
+        roots = np.asarray(inputs, dtype=np.int64).reshape(-1)
+        return {
+            "roots": np.clip(roots, 0, self.max_id + 1).astype(np.int32),
+            "seed": self._next_seed(),
+        }
+
+    def sample_host_embed(self, graph, inputs) -> dict:
+        """The host batch that embeds ``inputs`` (the JAX package's
+        ``sample_embed(graph, inputs)``): the training batch unless the
+        model needs less."""
+        return self.sample(graph, inputs)
+
+    def sample_start(self, graph, inputs):
+        """The non-blocking half of ``sample`` (the JAX package's
+        ``sampler_depth`` pipeline over remote graphs). A local engine
+        has no wire to overlap, so it samples in full here."""
+        return self.sample(graph, inputs)
+
+    def sample_finish(self, graph, pending) -> dict:
+        return pending
+
+    def sample_embed(self, ids, device=None, graph=None) -> dict:
+        """The batch that embeds ``ids`` (``module.embed``), on
+        ``device``: drawn on the device with a fresh seed, or sampled on
+        the host from ``graph`` and uploaded."""
+        if self.device_sampling:
+            return self.device_sample_batch(ids, self._next_seed(), device)
+        return to_device(self.sample_host_embed(graph, ids), device)
+
+    def host_node_inputs(self, graph, ids) -> dict:
+        """One node set's encoder inputs gathered on the host from
+        ``graph``: the dense feature rows (``"dense"``) and the padded
+        sparse slots (``"sparse"``), as numpy arrays."""
+        ids = np.asarray(ids, dtype=np.int64).reshape(-1)
+        feats = {}
+        if self.feature_idx >= 0:
+            feats["dense"] = graph.get_dense_feature(
+                ids, [self.feature_idx], [self.feature_dim])
+        if self.sparse_feature_idx:
+            feats["sparse"] = feature_ops.get_sparse_feature(
+                graph, ids, list(self.sparse_feature_idx),
+                self.sparse_max_len,
+                default_values=[m + 1 for m in self.sparse_feature_max_ids])
+        return feats
 
     def set_sampling_options(
         self, max_degree: Optional[int] = None, alias: bool = False
@@ -330,8 +435,8 @@ class Model:
         card unless ``"cpu"`` is asked for): ``"ids"`` for the
         id-embedding path (``use_id``) and ``"gids"`` for the device
         feature tables (``feature_idx >= 0`` or sparse slots), both
-        clipped into the tables' max_id+2 rows. Host-gathered features
-        (``"dense"``, ``"sparse"``) come with the engine client."""
+        clipped into the tables' max_id+2 rows. ``host_node_inputs``
+        gathers the features themselves on the host."""
         ids = np.asarray(ids, dtype=np.int64).reshape(-1)
         clipped = torch.as_tensor(
             np.clip(ids, 0, self.max_id + 1).astype(np.int32),
@@ -349,7 +454,10 @@ class Model:
         takes ``feature_dtype`` (converted on the host, so the upload
         moves the narrow bytes); labels stay float32, as loss targets.
         Sparse slots (``sparse_feature_idx``) get padded tables whose
-        padding id is each slot's max id + 1."""
+        padding id is each slot's max id + 1. A host-features model has
+        none."""
+        if not self.device_features:
+            return {}
         n = self.max_id + 2
         ids = np.arange(n, dtype=np.int64)
         consts = {}

@@ -6,8 +6,8 @@ CUDA slabs), and the [B, nb_num + 1, F] sequence of the root and its
 neighbors is gathered from the device feature table and run through
 ``nn.encoders.AttEncoder``, whose output is the logits. The module also
 takes host-given ``{"seq_ids": ...}`` batches, so it can be held against
-the flax module. Host sampling needs the engine client, which is not
-ported yet.
+the flax module. Host sampling through the engine client is not ported
+for this model yet (ROADMAP A0c).
 """
 
 from __future__ import annotations
@@ -143,5 +143,6 @@ class GAT(base.Model):
     def sample(self, graph, inputs):
         raise NotImplementedError(
             "GAT.sample draws on the host through the graph engine client, "
-            "not ported yet; device-sampling batches come from "
+            "not ported for GAT yet (ROADMAP A0c); device-sampling batches "
+            "come from "
             "device_sample_batch")

@@ -12,8 +12,8 @@ these paths: as in the JAX package, they are gathers, a sort, a cumsum
 and segment sums. The modules also take host-given node sets and
 adjacencies (``{"hops": ..., "adjs": ...}``; ``{"node_feats": ...,
 "neigh_feats": ..., "node_ids": ..., "neigh_ids": ..., "adj": ...}``), so
-they can be held against the flax modules. Host sampling needs the
-engine client, which is not ported yet.
+they can be held against the flax modules. Host sampling through the
+engine client is not ported for this model yet (ROADMAP A0c).
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ def _check_device_mode(name, device_features, device_sampling) -> None:
         raise NotImplementedError(
             f"euler_tpu_torch runs {name} with device_features=True and "
             "device_sampling=True; host sampling needs the graph engine "
-            "client, not ported yet")
+            "client, not ported for the GCN family yet (ROADMAP A0c)")
 
 
 def _node_encoder(dim, use_residual, feature_dim, max_id, embedding_dim,
@@ -207,7 +207,8 @@ class SupervisedGCN(base.Model):
     def sample(self, graph, inputs):
         raise NotImplementedError(
             "SupervisedGCN.sample expands on the host through the graph "
-            "engine client, not ported yet; device-sampling batches come "
+            "engine client, not ported for it yet (ROADMAP A0c); "
+            "device-sampling batches come "
             "from device_sample_batch")
 
 
@@ -390,5 +391,6 @@ class ScalableGCN(base.ScalableStoreModel):
     def sample(self, graph, inputs):
         raise NotImplementedError(
             "ScalableGCN.sample expands on the host through the graph "
-            "engine client, not ported yet; device-sampling batches come "
+            "engine client, not ported for it yet (ROADMAP A0c); "
+            "device-sampling batches come "
             "from device_sample_batch")

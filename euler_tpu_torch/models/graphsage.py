@@ -12,14 +12,17 @@ modules without any sampling. ScalableSage draws one hop a step through
 the single-hop kernel and reads deeper layers from the stores of
 ``models.base.ScalableStoreModel``; its module also takes host-given
 ``{"node_feats": ..., "neigh_feats": ..., "node_ids": ..., "neigh_ids":
-...}`` batches. Host-sampling mode needs the engine client, which is not
-ported yet.
+...}`` batches. SupervisedGraphSage and GraphSage also sample on the host
+(``device_features=False, device_sampling=False``): ``sample(graph,
+inputs)`` draws the fanouts through the engine client and gathers the
+features (and labels) on the host, as the JAX package's host path does.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 from torch import nn
 
 from euler_tpu_torch.graph import device as device_graph
@@ -87,11 +90,15 @@ class _SupervisedSageModule(nn.Module):
         ]
         return self.encoder(hidden)
 
+    def embed(self, batch, consts=None):
+        return self._embed_hops(self._hops(batch, consts), consts)
+
     def forward(self, batch, consts=None):
         hops = self._hops(batch, consts)
         embedding = self._embed_hops(hops, consts)
         logits = self.predict(embedding)
-        labels = base.lookup_labels(consts, hops[0]["gids"])
+        labels = (batch["labels"] if "labels" in batch
+                  else base.lookup_labels(consts, hops[0]["gids"]))
         loss, predictions = base.supervised_decoder(
             logits, labels, self.sigmoid_loss
         )
@@ -106,7 +113,9 @@ class _SupervisedSageModule(nn.Module):
 class SupervisedGraphSage(base.Model):
     """Supervised node classification over device-resident features,
     labels and adjacency (``device_features=True, device_sampling=True``,
-    the JAX package's flagship configuration). ``feature_dtype``
+    the JAX package's flagship configuration), or over host-sampled
+    batches (both False: fanouts, features and labels from the engine
+    client in ``sample``). ``feature_dtype``
     ("bfloat16") narrows the feature table; ``set_sampling_options``
     chooses capped slabs or alias tables. Sparse slots
     (``sparse_feature_idx``, with their max ids) add one
@@ -140,7 +149,11 @@ class SupervisedGraphSage(base.Model):
         base.check_device_mode("SupervisedGraphSage", device_features,
                                device_sampling, feature_idx, max_id,
                                metapath, fanouts,
-                               has_sparse=bool(sparse_feature_idx))
+                               has_sparse=bool(sparse_feature_idx),
+                               host_sampling=True)
+        self.device_features = device_features
+        self.device_sampling = device_sampling
+        self.default_node = max_id + 1 if max_id >= 0 else -1
         self.sparse_feature_idx = list(sparse_feature_idx)
         self.sparse_feature_max_ids = list(sparse_feature_max_ids)
         self.sparse_max_len = sparse_max_len
@@ -171,10 +184,29 @@ class SupervisedGraphSage(base.Model):
 
     def build_consts(self, graph, device) -> dict:
         consts = super().build_consts(graph, device)
+        if not self.device_sampling:
+            return consts
         return self.add_sampling_consts(
             consts, graph, self.metapath, device,
             roots_type=self.train_node_type,
         )
+
+    def sample(self, graph, inputs) -> dict:
+        """Host mode: the fanout of ``inputs`` through the engine's
+        ``sample_fanout`` (unknown or unsampleable picks are
+        ``default_node``), each hop's features and the roots' labels
+        gathered from ``graph``."""
+        if self.device_sampling:
+            return super().sample(graph, inputs)
+        inputs = np.asarray(inputs, dtype=np.int64).reshape(-1)
+        ids_per_hop, _, _ = graph.sample_fanout(
+            inputs, self.metapath, self.fanouts, self.default_node)
+        return {
+            "hops": [self.host_node_inputs(graph, ids)
+                     for ids in ids_per_hop],
+            "labels": graph.get_dense_feature(
+                inputs, [self.label_idx], [self.label_dim]),
+        }
 
 
 class _ScalableSageModule(nn.Module):
@@ -325,7 +357,8 @@ class ScalableSage(base.ScalableStoreModel):
     def sample(self, graph, inputs):
         raise NotImplementedError(
             "ScalableSage.sample draws on the host through the graph engine "
-            "client, not ported yet; device-sampling batches come from "
+            "client, not ported for ScalableSage yet (ROADMAP A0c); "
+            "device-sampling batches come from "
             "device_sample_batch")
 
 
@@ -389,7 +422,8 @@ class _UnsupervisedSageModule(nn.Module):
         [B, 1] for ``"pos"``, (u1, u2) for ``"neg"``, one [rows, count]
         array per hop for the fanouts."""
         if "src_hops" in batch:
-            return batch["src_hops"], batch["pos_hops"], batch["neg_hops"]
+            return (batch["src_hops"], batch.get("pos_hops"),
+                    batch.get("neg_hops"))
         roots = batch["roots"]
         words = {
             name: device_graph.stream_words(batch["seed"], i)
@@ -433,9 +467,10 @@ class _UnsupervisedSageModule(nn.Module):
 
 class GraphSage(base.Model):
     """Unsupervised GraphSAGE over device-resident features and adjacency
-    (``device_features=True, device_sampling=True``): positives are one
-    neighbor of each root (edge types ``edge_type``), negatives are
-    ``num_negs`` typed draws (``node_type``) per root."""
+    (``device_features=True, device_sampling=True``) or over host-sampled
+    batches (both False): positives are one neighbor of each root (edge
+    types ``edge_type``), negatives are ``num_negs`` typed draws
+    (``node_type``) per root."""
 
     metric_name = "mrr"
 
@@ -459,7 +494,10 @@ class GraphSage(base.Model):
     ):
         base.check_device_mode("GraphSage", device_features,
                                device_sampling, feature_idx, max_id,
-                               metapath, fanouts)
+                               metapath, fanouts, host_sampling=True)
+        self.device_features = device_features
+        self.device_sampling = device_sampling
+        self.default_node = max_id + 1
         self.feature_dtype = feature_dtype
         self.node_type = node_type
         self.edge_type = list(edge_type)
@@ -487,8 +525,35 @@ class GraphSage(base.Model):
 
     def build_consts(self, graph, device) -> dict:
         consts = super().build_consts(graph, device)
+        if not self.device_sampling:
+            return consts
         # typed negatives; the scan loop's roots share the same table
         return self.add_sampling_consts(
             consts, graph, self.metapath + [self.edge_type], device,
             negs_type=self.node_type, roots_type=self.node_type,
         )
+
+    def _host_hops(self, graph, ids) -> list:
+        ids_per_hop, _, _ = graph.sample_fanout(
+            ids, self.metapath, self.fanouts, self.default_node)
+        return [self.host_node_inputs(graph, hop) for hop in ids_per_hop]
+
+    def sample(self, graph, inputs) -> dict:
+        """Host mode: positives through the engine's ``sample_neighbor``,
+        negatives through its ``sample_node``, and the fanout of each
+        set, with their features, from ``graph``."""
+        if self.device_sampling:
+            return super().sample(graph, inputs)
+        inputs = np.asarray(inputs, dtype=np.int64).reshape(-1)
+        pos, _, _ = graph.sample_neighbor(inputs, self.edge_type, 1,
+                                          self.default_node)
+        negs = graph.sample_node(len(inputs) * self.num_negs, self.node_type)
+        return {
+            "src_hops": self._host_hops(graph, inputs),
+            "pos_hops": self._host_hops(graph, pos.reshape(-1)),
+            "neg_hops": self._host_hops(graph, negs),
+        }
+
+    def sample_host_embed(self, graph, inputs) -> dict:
+        inputs = np.asarray(inputs, dtype=np.int64).reshape(-1)
+        return {"src_hops": self._host_hops(graph, inputs)}

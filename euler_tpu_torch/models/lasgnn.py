@@ -16,8 +16,8 @@ different edge types and so slabs of different widths). Each fanout
 takes a Philox stream of its own, ``(g << 8) | m``, as the JAX module
 keys it with ``fold_in``. The module also takes host-given groups
 (``{"groups": ...}``), so it can be held against the flax module without
-any sampling. Host sampling (``sample``) needs the engine client, which is
-not ported yet.
+any sampling. Host sampling (``sample``) through the engine client is
+not ported for this model yet (ROADMAP A0c).
 """
 
 from __future__ import annotations
@@ -183,7 +183,8 @@ class LasGNN(base.Model):
         if not device_sampling:
             raise NotImplementedError(
                 "euler_tpu_torch runs LasGNN with device_sampling=True; host "
-                "sampling needs the graph engine client, not ported yet")
+                "sampling through the graph engine client is not ported "
+                "for LasGNN yet (ROADMAP A0c)")
         if max_id < 0:
             raise ValueError(
                 "device_sampling=True requires max_id >= 0 (the "
@@ -243,7 +244,8 @@ class LasGNN(base.Model):
     def sample(self, graph, inputs):
         raise NotImplementedError(
             "LasGNN.sample draws on the host through the graph engine "
-            "client, not ported yet; device-sampling batches come from "
+            "client, not ported for LasGNN yet (ROADMAP A0c); "
+            "device-sampling batches come from "
             "device_sample_batch")
 
     def sample_embed(self, ids, device=None) -> dict:

@@ -16,7 +16,7 @@ their own, as the JAX module keys them apart with ``fold_in``: two equal
 metapaths must not walk the same walk. The module also takes host-given
 views (``{"views": ..., "root": ...}`` node dicts), so it can be held
 against the flax module without any sampling. Host sampling (``sample``)
-needs the engine client, which is not ported yet.
+through the engine client is not ported for this model yet (ROADMAP A0c).
 """
 
 from __future__ import annotations
@@ -303,7 +303,8 @@ class LsHNE(base.Model):
         if not device_sampling:
             raise NotImplementedError(
                 "euler_tpu_torch runs LsHNE with device_sampling=True; host "
-                "sampling needs the graph engine client, not ported yet")
+                "sampling through the graph engine client is not ported "
+                "for LsHNE yet (ROADMAP A0c)")
         if len(path_patterns) < 1:
             raise ValueError("need at least one view")
         if max_id < 0:
@@ -352,7 +353,8 @@ class LsHNE(base.Model):
     def sample(self, graph, inputs):
         raise NotImplementedError(
             "LsHNE.sample walks on the host through the graph engine "
-            "client, not ported yet; device-sampling batches come from "
+            "client, not ported for LsHNE yet (ROADMAP A0c); "
+            "device-sampling batches come from "
             "device_sample_batch")
 
     def sample_embed(self, ids, device=None) -> dict:

@@ -10,8 +10,8 @@ over sorted alias tables, plain PyTorch) and cuts the walks into
 skip-gram pairs with ``ops.walk.pair_indices``. Negatives are Philox node
 draws. The modules also take host-given node sets (``{"src": ..., "pos":
 ..., "negs": ...}`` feature dicts), so they can be held against the flax
-modules without any sampling. Host sampling (``sample``) needs the
-engine client, which is not ported yet.
+modules without any sampling. Host sampling (``sample``) through the
+engine client is not ported for this model yet (ROADMAP A0c).
 """
 
 from __future__ import annotations
@@ -184,8 +184,8 @@ class _ShallowUnsupervised(base.Model):
         if not device_sampling:
             raise NotImplementedError(
                 f"euler_tpu_torch runs {name} with device_sampling=True; "
-                "host sampling needs the graph engine client, not ported "
-                "yet")
+                "host sampling through the graph engine client is not "
+                "ported for the walk models yet (ROADMAP A0c)")
         if sparse_feature_idx or sparse_feature_max_ids:
             raise NotImplementedError(
                 f"{name}: sparse-feature slots (SparseEmbedding) are not "
@@ -228,7 +228,8 @@ class _ShallowUnsupervised(base.Model):
     def sample(self, graph, inputs):
         raise NotImplementedError(
             f"{type(self).__name__}.sample draws on the host through the "
-            "graph engine client, not ported yet; device-sampling batches "
+            "graph engine client, not ported for the walk models yet "
+            "(ROADMAP A0c); device-sampling batches "
             "come from device_sample_batch")
 
     def sample_embed(self, ids, device=None) -> dict:

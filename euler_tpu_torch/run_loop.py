@@ -1,0 +1,457 @@
+"""Training / evaluation / embedding-export CLI driver (counterpart of
+``euler_tpu/run_loop.py``), on one CUDA device.
+
+The flag surface is the JAX package's. ``--mode train`` builds a local
+``Graph(directory=--data_dir)`` from ``.dat`` partitions, draws
+``--batch_size`` roots a step on the host and trains through
+``train.train`` (host sampling through the engine and prefetch, or with
+``--device_sampling`` the fanouts drawn on the card), checkpointing into
+``--model_dir``; ``--mode evaluate`` and ``--mode save_embedding``
+restore the latest checkpoint and write ``eval.json`` or
+``embedding.npy`` and ``id.txt`` there.
+
+Flags of features not ported yet raise ``NotImplementedError`` naming
+their ROADMAP item when set away from their defaults: remote and shared
+graphs and their client knobs (A0b), serving, traces, metrics lines and
+postmortems (A11), several devices or processes (A10). Flags whose
+default turns such a feature on (``--telemetry``, ``--blackbox``,
+``--devprof``) keep their defaults; the run logs one line saying what is
+not there.
+
+Usage:  python -m euler_tpu_torch --data_dir ... --model graphsage_supervised
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import sys
+from typing import Optional
+
+import numpy as np
+
+from euler_tpu_torch import models
+from euler_tpu_torch import train as train_lib
+from euler_tpu_torch.device import resolve_device
+
+log = logging.getLogger("euler_tpu_torch")
+
+# the JAX package's optimizer names; the port has adam (ROADMAP A4)
+_OPTIMIZER_NAMES = ("adagrad", "adam", "momentum", "sgd")
+
+# serve-only flags and their defaults (euler_tpu/serving SERVE_FLAG_DEFAULTS)
+SERVE_FLAG_DEFAULTS = {
+    "serve_host": "127.0.0.1",
+    "serve_port": 9200,
+    "serve_max_batch": 64,
+    "serve_max_wait_us": 2000,
+    "serve_queue_cap": 128,
+    "serve_slo_ms": 100.0,
+    "serve_max_conns": 64,
+    "serve_sample_cache": 65536,
+    "serve_deadline_ms": 0,
+    "serve_strict_bucket": 0,
+}
+
+# flags of features not ported yet: (flag, default, ROADMAP item, what)
+_NOT_PORTED = (
+    ("stream", False, "A0b", "streaming ingest of remote data"),
+    ("graph_mode", "local", "A0b", "remote and shared graphs"),
+    ("registry", "", "A0b", "the shard registry"),
+    ("rediscover_ms", None, "A0b", "the remote client"),
+    ("backoff_ms", None, "A0b", "the remote client"),
+    ("deadline_ms", None, "A0b", "the remote client"),
+    ("feature_cache_mb", None, "A0b", "the remote client's caches"),
+    ("neighbor_cache_mb", None, "A0b", "the remote client's caches"),
+    ("cache_policy", None, "A0b", "the remote client's caches"),
+    ("placement", None, "A0b", "placement routing"),
+    ("strict", False, "A0b", "the remote client"),
+    ("fault", "", "A0b", "transport failpoints"),
+    ("fault_seed", 0, "A0b", "transport failpoints"),
+    ("service_host", "", "A0b", "the shard service"),
+    ("service_workers", None, "A0b", "the shard service"),
+    ("service_pending", None, "A0b", "the shard service"),
+    ("shards", "", "A0b", "the remote client"),
+    ("model_parallel", 1, "A10", "model-parallel tables"),
+    ("num_devices", None, "A10", "data parallelism over devices"),
+    ("coordinator_addr", "", "A10", "multi-process training"),
+    ("num_processes", 1, "A10", "multi-process training"),
+    ("process_id", 0, "A10", "multi-process training"),
+    ("metrics_every", 0, "A11", "metrics lines (telemetry)"),
+    ("metrics_file", "", "A11", "metrics lines (telemetry)"),
+    ("postmortem_dir", "", "A11", "postmortems (the blackbox)"),
+    ("trace_file", "", "A11", "the merged trace"),
+    ("profile_dir", "", "A11", "the step-phase profiler"),
+    ("compile_cache", None, "A11", "the XLA compilation cache"),
+    ("serve_after", False, "A11", "serving (serve.py)"),
+    *((name, default, "A11", "serving (serve.py)")
+      for name, default in SERVE_FLAG_DEFAULTS.items()),
+)
+
+# on by default in the JAX package, not ported: one log line at start
+_DEFAULT_ON = (
+    ("telemetry", "the native latency histograms and step phases"),
+    ("blackbox", "the flight recorder"),
+    ("devprof", "the device-plane profiler"),
+)
+
+
+def _str2bool(v) -> bool:
+    """The JAX package's one truthy-string rule."""
+    return str(v).lower() in ("1", "true", "yes", "y")
+
+
+def _int_list(v) -> list[int]:
+    if isinstance(v, (list, tuple)):
+        return [int(x) for x in v]
+    return [int(x) for x in str(v).split(",") if x != ""]
+
+
+def define_flags(parser: Optional[argparse.ArgumentParser] = None):
+    """The JAX package's flag surface (``euler_tpu/run_loop.py``
+    ``define_flags``, serving flags included)."""
+    p = parser or argparse.ArgumentParser(prog="euler_tpu_torch")
+    p.add_argument("--mode", default="train",
+                   choices=["train", "evaluate", "save_embedding"])
+    # graph
+    p.add_argument("--data_dir", default="")
+    p.add_argument("--stream", type=_str2bool, default=False)
+    p.add_argument("--graph_mode", default="local",
+                   choices=["local", "remote", "shared"])
+    p.add_argument("--registry", default="")
+    p.add_argument("--rediscover_ms", type=int, default=None)
+    p.add_argument("--backoff_ms", type=int, default=None)
+    p.add_argument("--deadline_ms", type=int, default=None)
+    p.add_argument("--feature_cache_mb", type=int, default=None)
+    p.add_argument("--neighbor_cache_mb", type=int, default=None)
+    p.add_argument("--cache_policy", default=None, choices=("freq", "fifo"))
+    p.add_argument("--placement", type=_str2bool, default=None)
+    p.add_argument("--strict", type=_str2bool, default=False)
+    p.add_argument("--fault", default="")
+    p.add_argument("--fault_seed", type=int, default=0)
+    p.add_argument("--service_host", default="")
+    p.add_argument("--service_workers", type=int, default=None)
+    p.add_argument("--service_pending", type=int, default=None)
+    p.add_argument("--shards", default="")
+    p.add_argument("--train_node_type", type=int, default=0)
+    p.add_argument("--all_node_type", type=int, default=-1)
+    p.add_argument("--train_edge_type", default="0")
+    p.add_argument("--all_edge_type", default="0,1,2")
+    p.add_argument("--max_id", type=int, default=-1)
+    p.add_argument("--feature_idx", type=int, default=-1)
+    p.add_argument("--feature_dim", type=int, default=0)
+    p.add_argument("--label_idx", type=int, default=-1)
+    p.add_argument("--label_dim", type=int, default=0)
+    p.add_argument("--num_classes", type=int, default=None)
+    p.add_argument("--id_file", default="")
+    # model
+    p.add_argument("--model", default="graphsage_supervised")
+    p.add_argument("--sigmoid_loss", type=_str2bool, default=True)
+    p.add_argument("--xent_loss", type=_str2bool, default=True)
+    p.add_argument("--dim", type=int, default=256)
+    p.add_argument("--num_negs", type=int, default=5)
+    p.add_argument("--order", type=int, default=1)
+    p.add_argument("--walk_len", type=int, default=5)
+    p.add_argument("--walk_p", type=float, default=1.0)
+    p.add_argument("--walk_q", type=float, default=1.0)
+    p.add_argument("--walk_trials", type=int, default=0)
+    p.add_argument("--left_win_size", type=int, default=5)
+    p.add_argument("--right_win_size", type=int, default=5)
+    p.add_argument("--fanouts", default="10,10")
+    p.add_argument("--aggregator", default="mean",
+                   choices=["gcn", "mean", "meanpool", "maxpool",
+                            "attention"])
+    p.add_argument("--concat", type=_str2bool, default=True)
+    p.add_argument("--device_features", type=_str2bool, default=False,
+                   help="keep the feature/label tables on the card")
+    p.add_argument("--device_sampling", type=_str2bool, default=False,
+                   help="keep the adjacency on the card and draw fanouts "
+                        "and walks there (implies --device_features); the "
+                        "host ships only root ids a step")
+    p.add_argument("--feature_dtype", default="")
+    p.add_argument("--use_residual", type=_str2bool, default=False)
+    p.add_argument("--store_learning_rate", type=float, default=0.001)
+    p.add_argument("--store_init_maxval", type=float, default=0.05)
+    p.add_argument("--head_num", type=int, default=1)
+    p.add_argument("--embedding_file", default="")
+    # training
+    p.add_argument("--model_dir", default="ckpt")
+    p.add_argument("--batch_size", type=int, default=512)
+    p.add_argument("--optimizer", default="adam", choices=_OPTIMIZER_NAMES)
+    p.add_argument("--learning_rate", type=float, default=0.01)
+    p.add_argument("--num_epochs", type=int, default=20)
+    p.add_argument("--log_steps", type=int, default=20)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--num_devices", type=int, default=None)
+    p.add_argument("--model_parallel", type=int, default=1)
+    p.add_argument("--max_degree", type=int, default=None)
+    p.add_argument("--alias_sampling", type=_str2bool, default=False)
+    p.add_argument("--metrics_every", type=int, default=0)
+    p.add_argument("--metrics_file", default="")
+    p.add_argument("--telemetry", type=_str2bool, default=True)
+    p.add_argument("--postmortem_dir", default="")
+    p.add_argument("--blackbox", type=_str2bool, default=True)
+    p.add_argument("--trace_file", default="")
+    p.add_argument("--prefetch_depth", type=int, default=2)
+    p.add_argument("--prefetch_threads", type=int, default=2)
+    p.add_argument("--sampler_depth", type=int, default=2,
+                   help="remote graphs only (the async sampler pipeline); "
+                        "a local graph samples through --prefetch_threads")
+    p.add_argument("--profile_dir", default="")
+    p.add_argument("--devprof", type=_str2bool, default=True)
+    p.add_argument("--compile_cache", type=_str2bool, default=None)
+    # serving
+    p.add_argument("--serve_after", type=_str2bool, default=False)
+    d = SERVE_FLAG_DEFAULTS
+    p.add_argument("--serve_host", default=d["serve_host"])
+    for name in ("serve_port", "serve_max_batch", "serve_max_wait_us",
+                 "serve_queue_cap", "serve_max_conns", "serve_sample_cache",
+                 "serve_deadline_ms", "serve_strict_bucket"):
+        p.add_argument("--" + name, type=int, default=d[name])
+    p.add_argument("--serve_slo_ms", type=float, default=d["serve_slo_ms"])
+    # multi-process
+    p.add_argument("--coordinator_addr", default="")
+    p.add_argument("--num_processes", type=int, default=1)
+    p.add_argument("--process_id", type=int, default=0)
+    return p
+
+
+def check_flags(args) -> None:
+    """Raise for a flag of an unported feature set away from its default
+    (it would otherwise do nothing), and log the default-on features that
+    are not there."""
+    for name, default, item, what in _NOT_PORTED:
+        value = getattr(args, name)
+        if value != default and not (name == "num_devices" and value == 1):
+            raise NotImplementedError(
+                f"--{name}={value}: {what} is not ported to euler_tpu_torch "
+                f"yet (ROADMAP {item})")
+    if args.optimizer != "adam":
+        raise NotImplementedError(
+            f"--optimizer={args.optimizer} is not ported yet (ROADMAP A4); "
+            "the port has adam")
+    off = [what for name, what in _DEFAULT_ON if getattr(args, name)]
+    if off:
+        log.info("not ported yet (ROADMAP A11), so not recorded: %s",
+                 "; ".join(off))
+
+
+def build_graph(args):
+    """The local engine over ``--data_dir``'s ``.dat`` partitions."""
+    from euler_tpu_torch.graph import Graph
+
+    return Graph(directory=args.data_dir)
+
+
+def build_model(args, graph):
+    """Model dispatch by the reference's model names. In device-sampling
+    mode every model the port has; in host mode the two GraphSAGE models
+    (the others raise, ROADMAP A0c)."""
+    fanouts = _int_list(args.fanouts)
+    train_edge = _int_list(args.train_edge_type)
+    all_edge = _int_list(args.all_edge_type)
+    metapath = [list(train_edge if args.mode == "train" else all_edge)] * max(
+        len(fanouts), 1)
+    name = args.model
+    device_features = args.device_features or args.device_sampling
+    dtype = args.feature_dtype or None
+    common_sup = dict(
+        label_idx=args.label_idx, label_dim=args.label_dim,
+        num_classes=args.num_classes, sigmoid_loss=args.sigmoid_loss,
+        feature_idx=args.feature_idx, feature_dim=args.feature_dim,
+    )
+    if name == "line":
+        return models.LINE(
+            node_type=args.all_node_type, edge_type=all_edge,
+            max_id=args.max_id, dim=args.dim, xent_loss=args.xent_loss,
+            num_negs=args.num_negs, order=args.order,
+            device_sampling=args.device_sampling)
+    if name in ("randomwalk", "deepwalk", "node2vec"):
+        return models.Node2Vec(
+            node_type=args.all_node_type, edge_type=all_edge,
+            max_id=args.max_id, dim=args.dim, xent_loss=args.xent_loss,
+            num_negs=args.num_negs, walk_len=args.walk_len,
+            walk_p=args.walk_p, walk_q=args.walk_q,
+            left_win_size=args.left_win_size,
+            right_win_size=args.right_win_size,
+            device_sampling=args.device_sampling,
+            walk_trials=args.walk_trials)
+    if name in ("gcn", "gcn_supervised"):
+        cap = max(fanouts) if fanouts else 10
+        return models.SupervisedGCN(
+            metapath=metapath, dim=args.dim,
+            max_nodes_per_hop=[args.batch_size * (cap ** h)
+                               for h in range(1, len(metapath) + 1)],
+            max_edges_per_hop=[args.batch_size * (cap ** (h + 1))
+                               for h in range(len(metapath))],
+            aggregator=args.aggregator, max_id=args.max_id,
+            use_residual=args.use_residual, device_features=device_features,
+            feature_dtype=dtype, device_sampling=args.device_sampling,
+            **common_sup)
+    if name == "scalable_gcn":
+        return models.ScalableGCN(
+            edge_type=metapath[0], num_layers=len(fanouts), dim=args.dim,
+            max_id=args.max_id, max_neighbors=fanouts[0],
+            aggregator=args.aggregator, use_residual=args.use_residual,
+            store_learning_rate=args.store_learning_rate,
+            store_init_maxval=args.store_init_maxval,
+            device_features=device_features, feature_dtype=dtype,
+            device_sampling=args.device_sampling,
+            train_node_type=args.train_node_type, **common_sup)
+    if name == "graphsage":
+        return models.GraphSage(
+            node_type=args.train_node_type, edge_type=train_edge,
+            max_id=args.max_id, xent_loss=args.xent_loss,
+            num_negs=args.num_negs, metapath=metapath, fanouts=fanouts,
+            dim=args.dim, aggregator=args.aggregator, concat=args.concat,
+            feature_idx=args.feature_idx, feature_dim=args.feature_dim,
+            device_features=device_features, feature_dtype=dtype,
+            device_sampling=args.device_sampling)
+    if name == "graphsage_supervised":
+        return models.SupervisedGraphSage(
+            metapath=metapath, fanouts=fanouts, dim=args.dim,
+            aggregator=args.aggregator, concat=args.concat,
+            max_id=args.max_id, device_features=device_features,
+            feature_dtype=dtype, device_sampling=args.device_sampling,
+            train_node_type=args.train_node_type, **common_sup)
+    if name == "scalable_sage":
+        return models.ScalableSage(
+            edge_type=metapath[0], fanout=fanouts[0],
+            num_layers=len(fanouts), dim=args.dim,
+            aggregator=args.aggregator, concat=args.concat,
+            max_id=args.max_id,
+            store_learning_rate=args.store_learning_rate,
+            store_init_maxval=args.store_init_maxval,
+            device_features=device_features, feature_dtype=dtype,
+            device_sampling=args.device_sampling,
+            train_node_type=args.train_node_type, **common_sup)
+    if name == "gat":
+        return models.GAT(
+            max_id=args.max_id, head_num=args.head_num, hidden_dim=args.dim,
+            nb_num=5, device_features=device_features, feature_dtype=dtype,
+            device_sampling=args.device_sampling,
+            train_node_type=args.train_node_type, **common_sup)
+    if name == "lshne":
+        return models.LsHNE(
+            node_type=-1,
+            # one view, two 3-step homogeneous metapaths
+            path_patterns=[[[[0], [0], [0]], [[0], [0], [0]]]],
+            max_id=args.max_id, dim=128,
+            sparse_feature_dims=[args.max_id + 2],
+            feature_ids=[args.feature_idx if args.feature_idx >= 0 else 0],
+            device_sampling=args.device_sampling)
+    if name == "saved_embedding":
+        raise NotImplementedError(
+            "--model saved_embedding is not ported yet (ROADMAP A0c)")
+    raise ValueError(f"unsupported model {name!r}")
+
+
+def _num_steps(args) -> int:
+    per_epoch = max((args.max_id + 1) // args.batch_size, 1)
+    return per_epoch * args.num_epochs
+
+
+def run_train(model, graph, args, device=None):
+    batch = args.batch_size * getattr(model, "batch_size_ratio", 1)
+
+    def source_fn(step):
+        return np.asarray(graph.sample_node(batch, args.train_node_type))
+
+    return train_lib.train(
+        model, graph, source_fn, num_steps=_num_steps(args),
+        optimizer=args.optimizer, learning_rate=args.learning_rate,
+        log_every=args.log_steps, seed=args.seed,
+        prefetch_depth=args.prefetch_depth,
+        prefetch_threads=args.prefetch_threads,
+        checkpoint_dir=args.model_dir or None, device=device)
+
+
+def _restore_state(model, graph, args, device=None):
+    from euler_tpu_torch.checkpoint import Checkpointer
+
+    state = model.init_state(
+        graph, train_lib.get_optimizer(args.optimizer, args.learning_rate),
+        device=device, seed=args.seed)
+    ckpt = Checkpointer(args.model_dir)
+    if ckpt.latest_step() is not None:
+        state = ckpt.restore(state)
+    else:
+        log.warning("no checkpoint in %s; using fresh params",
+                    args.model_dir)
+    ckpt.close()
+    # the exports draw on the engine's RNG of this thread: seeded, they
+    # are reproducible
+    engine = getattr(graph, "_lib", None)
+    if engine is not None:
+        engine.eg_seed(args.seed)
+    return state
+
+
+def run_evaluate(model, graph, args, device=None):
+    state = _restore_state(model, graph, args, device)
+    if args.id_file:
+        ids = np.concatenate([
+            np.loadtxt(f, dtype=np.int64).reshape(-1)
+            for f in args.id_file.split(",")
+        ])
+    else:
+        ids = np.arange(args.max_id + 1, dtype=np.int64)
+    batch = args.batch_size
+    # wrap-pad to whole batches (np.resize cycles ids)
+    pad = (-len(ids)) % batch
+    padded = np.resize(ids, len(ids) + pad) if pad else ids
+    result = train_lib.evaluate(
+        model, graph, (padded[i:i + batch]
+                       for i in range(0, len(padded), batch)),
+        state, device=device, seed=args.seed, log_fn=log.info)
+    if args.model_dir:
+        os.makedirs(args.model_dir, exist_ok=True)
+        with open(os.path.join(args.model_dir, "eval.json"), "w") as f:
+            json.dump({**result, "id_file": args.id_file,
+                       "model": args.model}, f)
+    return result
+
+
+def run_save_embedding(model, graph, args, device=None):
+    state = _restore_state(model, graph, args, device)
+    emb = train_lib.save_embedding(model, args.max_id, state,
+                                   batch_size=args.batch_size,
+                                   device=device, graph=graph)
+    os.makedirs(args.model_dir, exist_ok=True)
+    out = os.path.join(args.model_dir, "embedding.npy")
+    np.save(out, emb)
+    ids_out = os.path.join(args.model_dir, "id.txt")
+    np.savetxt(ids_out, np.arange(args.max_id + 1, dtype=np.int64), fmt="%d")
+    log.info("saved %s %s and %s", out, emb.shape, ids_out)
+    return out
+
+
+def main(argv=None, device=None) -> int:
+    """Run one mode on ``device``: the card unless the caller asks for
+    the CPU (``device="cpu"``, as the tests do); with no card it raises."""
+    logging.basicConfig(
+        level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
+    args = define_flags().parse_args(argv)
+    check_flags(args)
+    dev = resolve_device(device)
+    graph = build_graph(args)
+    try:
+        model = build_model(args, graph)
+        if args.max_degree is not None or args.alias_sampling:
+            model.set_sampling_options(max_degree=args.max_degree,
+                                       alias=args.alias_sampling)
+        if args.mode == "train":
+            run_train(model, graph, args, dev)
+        elif args.mode == "evaluate":
+            run_evaluate(model, graph, args, dev)
+        else:
+            run_save_embedding(model, graph, args, dev)
+    finally:
+        graph.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

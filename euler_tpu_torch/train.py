@@ -1,15 +1,26 @@
-"""Training loops (counterpart of ``euler_tpu/train.py``)."""
+"""Training loops (counterpart of ``euler_tpu/train.py``): ``train``, the
+per-step loop over host roots with prefetch, checkpoints and resume;
+``make_scan_train``, chunks of steps with roots drawn on the card;
+``evaluate`` and ``save_embedding``."""
 
 from __future__ import annotations
 
 import functools
+import logging
+import time
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from euler_tpu_torch.checkpoint import Checkpointer
 from euler_tpu_torch.device import resolve_device
 from euler_tpu_torch.graph import device as device_graph
+from euler_tpu_torch.models import base
 from euler_tpu_torch.nn import metrics
+from euler_tpu_torch.parallel import prefetch
+
+log = logging.getLogger("euler_tpu_torch")
 
 OPTIMIZERS = {
     # optax.adam's defaults are torch's: b1 0.9, b2 0.999, eps 1e-8 added
@@ -51,6 +62,158 @@ def _metric_zero(name: str):
     return np.zeros(2)
 
 
+def _step_seed(seed: int, step: int) -> int:
+    """The device draws' seed of step ``step`` of a run seeded ``seed``:
+    distinct across the steps of a run and below 2^32, as
+    ``graph.device.stream_words`` wants."""
+    return (seed * 1_000_003 + step + 1) % (1 << 32)
+
+
+def train(
+    model,
+    graph,
+    source_fn: Callable[[int], np.ndarray],
+    num_steps: int,
+    optimizer: str = "adam",
+    learning_rate: float = 0.01,
+    mesh=None,
+    log_every: int = 100,
+    seed: int = 42,
+    prefetch_depth: int = 2,
+    prefetch_threads: int = 2,
+    state: Optional[dict] = None,
+    log_fn=None,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 0,
+    profile_dir: Optional[str] = None,
+    step_hook=None,
+    phase_profile: Optional[bool] = None,
+    device=None,
+):
+    """Train on one device (the card unless ``"cpu"`` is asked for) and
+    return ``(state, history)``.
+
+    ``source_fn(step)`` gives the step's root ids. Prefetch workers call
+    it and, for a host-sampling model, ``model.sample(graph, roots)``,
+    ``prefetch_depth`` steps ahead on ``prefetch_threads`` threads, each
+    seeding its engine RNG from ``seed``; the training thread uploads the
+    batch (``models.base.to_device``) or, for a device-sampling model,
+    makes the step's device batch from the roots and the step's seed,
+    then runs ``model.make_train_step()``.
+
+    ``checkpoint_dir`` saves every ``checkpoint_every`` steps (default a
+    tenth of the run) and at the end, and resumes from its latest step;
+    ``state`` resumes from a given state. ``step_hook(step)`` runs on the
+    training thread after every step. Every ``log_every`` steps the loop
+    syncs on the loss and appends to ``history`` the loss, the metric
+    over the window, steps/s, and the input pipeline's numbers: the mean
+    wait for a batch (``input_stall_ms``), the steps that waited over a
+    millisecond (``stalled_steps``) and the mean build time of a batch in
+    its worker (``sample_ms``).
+
+    Not ported: ``mesh`` (multi-device, ROADMAP A10), ``profile_dir`` and
+    ``phase_profile`` (the step-phase profiler, ROADMAP A11)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "train(mesh=...) is multi-device training, not ported yet "
+            "(ROADMAP A10); the port trains on one device")
+    if profile_dir or phase_profile:
+        raise NotImplementedError(
+            "profile_dir and phase_profile are the step-phase profiler, "
+            "not ported yet (ROADMAP A11)")
+    dev = resolve_device(device)
+    say = log_fn or log.info
+    if state is None:
+        state = model.init_state(
+            graph, get_optimizer(optimizer, learning_rate), device=dev,
+            seed=seed)
+    ckpt = None
+    start_step = 0
+    if checkpoint_dir:
+        ckpt = Checkpointer(checkpoint_dir)
+        latest = ckpt.latest_step()
+        if latest is not None:
+            state = ckpt.restore(state, latest)
+            start_step = latest
+            say(f"resumed from {checkpoint_dir} at step {latest}")
+        if checkpoint_every <= 0:
+            checkpoint_every = max(num_steps // 10, 1)
+    step_fn = model.make_train_step()
+
+    def make_batch(step):
+        roots = np.asarray(source_fn(step))
+        return roots if model.device_sampling else model.sample(graph, roots)
+
+    def seed_worker(widx: int):
+        # per-worker sampler streams from the run seed (the engine's RNG
+        # is thread-local); a graph without the engine samples nothing
+        engine = getattr(graph, "_lib", None)
+        if engine is not None:
+            engine.eg_seed(seed * 1_000_003 + widx + 1)
+
+    name = model.metric_name
+    history = []
+    timings: dict = {}
+    window_metrics = []
+    last_loss = None
+    steps_done = start_step
+    t0 = time.time()
+    seen = {"input_stall": 0, "sample": 0}
+
+    def window_ms(key):
+        vals = timings.get(key, [])[seen[key]:]
+        seen[key] += len(vals)
+        return vals, 1e3 * float(np.mean(vals)) if vals else 0.0
+
+    def flush():
+        nonlocal window_metrics, t0
+        acc = _metric_zero(name)
+        for m in window_metrics:
+            acc = _metric_accumulate(name, acc, m.cpu().numpy())
+        loss_v = float(last_loss)
+        mv = _metric_value(name, acc)
+        sps = len(window_metrics) / (time.time() - t0)
+        stalls, stall_ms = window_ms("input_stall")
+        _, sample_ms = window_ms("sample")
+        stalled = sum(w > 1e-3 for w in stalls)
+        history.append({"loss": loss_v, name: mv, "steps_per_sec": sps,
+                        "input_stall_ms": stall_ms, "stalled_steps": stalled,
+                        "sample_ms": sample_ms})
+        say(f"step={steps_done} loss={loss_v:.4f} {name}={mv:.4f} "
+            f"steps/s={sps:.2f} input_stall_ms={stall_ms:.3f} "
+            f"stalled={stalled}/{len(window_metrics)} "
+            f"sample_ms={sample_ms:.3f}")
+        window_metrics = []
+        t0 = time.time()
+
+    for batch in prefetch(make_batch, num_steps - start_step,
+                          prefetch_depth, prefetch_threads,
+                          start=start_step, worker_init=seed_worker,
+                          timings=timings):
+        if model.device_sampling:
+            batch = model.device_sample_batch(
+                batch, _step_seed(seed, steps_done), dev)
+        else:
+            batch = base.to_device(batch, dev)
+        last_loss, metric = step_fn(state, batch)
+        window_metrics.append(metric)
+        steps_done += 1
+        if step_hook is not None:
+            step_hook(steps_done)
+        if len(window_metrics) == log_every:
+            flush()
+        if ckpt and steps_done % checkpoint_every == 0:
+            ckpt.save(steps_done, state, force=True)
+    if window_metrics:  # the last, partial window
+        flush()
+    if ckpt:
+        # a relaunch that resumed at num_steps ran nothing new: no save
+        if steps_done > start_step and steps_done % checkpoint_every != 0:
+            ckpt.save(steps_done, state, force=True)
+        ckpt.close()
+    return state, history
+
+
 def make_scan_train(model, inner_steps: int, batch_size: int):
     """Fully-device training, ``inner_steps`` steps per call.
 
@@ -82,26 +245,26 @@ def evaluate(model, graph, source_iter, state, device=None, seed: int = 0,
              log_fn=None) -> dict:
     """Streaming evaluation over an iterator of batches of model inputs
     (root ids, or a structured item such as LasGNN's ``{"label",
-    "groups"}``), on one device: batch i is ``model.device_sample_batch(
-    item, seed + i)`` on ``device`` (the card unless ``"cpu"`` is asked
-    for), where ``state`` must live, run through
-    ``model.make_eval_step()``. f1 accumulates its [tp, fp, fn] counts over
-    the batches and auc its score histograms, any other metric (mrr) a
-    running mean of the batch values. Returns ``{metric_name: value,
-    "loss": mean batch loss}`` and passes ``"eval: {...}"`` to ``log_fn``
-    when given.
-
-    ``graph`` is kept for the JAX package's signature: every port model
-    samples on the device, and host sampling (``model.sample``) waits for
-    the engine client. Multi-process evaluation is not ported."""
+    "groups"}``), on one device (the card unless ``"cpu"`` is asked for),
+    where ``state`` must live: batch i is ``model.device_sample_batch(
+    item, seed + i)``, or for a host-sampling model ``model.sample(graph,
+    item)`` uploaded, run through ``model.make_eval_step()``. f1
+    accumulates its [tp, fp, fn] counts over the batches and auc its
+    score histograms, any other metric (mrr) a running mean of the batch
+    values. Returns ``{metric_name: value, "loss": mean batch loss}`` and
+    passes ``"eval: {...}"`` to ``log_fn`` when given. Multi-process
+    evaluation is not ported."""
     name = model.metric_name
     dev = resolve_device(device)
     eval_fn = model.make_eval_step()
     acc = _metric_zero(name)
     losses = []
     for i, ids in enumerate(source_iter):
-        loss, metric = eval_fn(state, model.device_sample_batch(
-            ids, seed + i, device=dev))
+        if model.device_sampling:
+            batch = model.device_sample_batch(ids, seed + i, device=dev)
+        else:
+            batch = base.to_device(model.sample(graph, ids), dev)
+        loss, metric = eval_fn(state, batch)
         acc = _metric_accumulate(name, acc, metric.cpu().numpy())
         losses.append(float(loss))
     result = {name: _metric_value(name, acc), "loss": float(np.mean(losses))}
@@ -111,18 +274,20 @@ def evaluate(model, graph, source_iter, state, device=None, seed: int = 0,
 
 
 def save_embedding(model, max_id: int, state, batch_size: int = 1024,
-                   device=None) -> np.ndarray:
+                   device=None, graph=None) -> np.ndarray:
     """The ``[max_id+1, dim]`` embeddings of ids 0..max_id, as a numpy
     array: ``model.make_embed_step()`` over chunks of ``batch_size`` ids
     (the last chunk padded with id 0 and cut), on ``device`` (the card
-    unless ``"cpu"`` is asked for), where ``state`` must live."""
+    unless ``"cpu"`` is asked for), where ``state`` must live. A
+    host-sampling model samples each chunk from ``graph``."""
     dev = resolve_device(device)
     embed = model.make_embed_step()
     ids = np.arange(max_id + 1, dtype=np.int64)
     padded = np.concatenate(
         [ids, np.zeros((-len(ids)) % batch_size, dtype=np.int64)])
+    kw = {} if model.device_sampling else {"graph": graph}
     chunks = [
-        embed(state, model.sample_embed(padded[i:i + batch_size], dev))
+        embed(state, model.sample_embed(padded[i:i + batch_size], dev, **kw))
         for i in range(0, len(padded), batch_size)
     ]
     return torch.cat(chunks).cpu().numpy()[:len(ids)]

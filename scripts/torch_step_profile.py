@@ -120,7 +120,7 @@ def main() -> int:
     from euler_tpu_torch import train
     from euler_tpu_torch.datasets import (PPI, REDDIT, REDDIT_HEAVYTAIL,
                                           build_powerlaw, build_synthetic)
-    from euler_tpu_torch.graph import Graph
+    from euler_tpu_torch.graph import MemoryGraph
     from euler_tpu_torch.graph import device as device_graph
     from euler_tpu_torch.models import (GAT, LINE, GraphSage, Node2Vec,
                                         ScalableGCN, ScalableSage,
@@ -139,7 +139,7 @@ def main() -> int:
     t0 = time.perf_counter()
     if args.model == "reddit":
         batch, lr = 1000, 0.03
-        graph = Graph(**(build_powerlaw(**REDDIT_HEAVYTAIL) if args.alias
+        graph = MemoryGraph(**(build_powerlaw(**REDDIT_HEAVYTAIL) if args.alias
                          else build_synthetic(**REDDIT)))
         model = SupervisedGraphSage(
             label_idx=0, label_dim=REDDIT["label_dim"], metapath=[[0], [0]],
@@ -150,7 +150,7 @@ def main() -> int:
         if args.alias:
             model.set_sampling_options(alias=True)
     elif args.model in ("node2vec", "line"):
-        graph = Graph(**(build_powerlaw(**REDDIT_HEAVYTAIL) if args.alias
+        graph = MemoryGraph(**(build_powerlaw(**REDDIT_HEAVYTAIL) if args.alias
                          else build_synthetic(**PPI)))
         common = dict(node_type=-1, edge_type=[0], max_id=graph.max_node_id,
                       dim=256, num_negs=5, xent_loss=True,
@@ -167,7 +167,7 @@ def main() -> int:
                 model.set_sampling_options(alias=True)
     elif gcn_family:
         batch, lr = 512, 0.01
-        graph = Graph(**build_synthetic(**PPI))
+        graph = MemoryGraph(**build_synthetic(**PPI))
         common = dict(label_idx=0, label_dim=121, dim=256,
                       aggregator=args.aggregator, feature_idx=1,
                       feature_dim=50, max_id=graph.max_node_id,
@@ -185,11 +185,11 @@ def main() -> int:
         import chip_smoke
 
         batch, lr = 512, 0.01
-        graph = Graph(**chip_smoke.hetero_variant(build_synthetic(**PPI), 3))
+        graph = MemoryGraph(**chip_smoke.hetero_variant(build_synthetic(**PPI), 3))
         model = getattr(chip_smoke, args.model)(graph.max_node_id)
     elif args.model in ("scalable_sage", "gat"):
         batch, lr = 512, 0.01
-        graph = Graph(**build_synthetic(**PPI))
+        graph = MemoryGraph(**build_synthetic(**PPI))
         common = dict(label_idx=0, label_dim=121, feature_idx=1,
                       feature_dim=50, max_id=graph.max_node_id,
                       device_features=True, device_sampling=True,
@@ -203,7 +203,7 @@ def main() -> int:
                                  concat=True, **common)
     else:
         batch, lr = 512, 0.01
-        graph = Graph(**build_synthetic(**PPI))
+        graph = MemoryGraph(**build_synthetic(**PPI))
         common = dict(metapath=[[0], [0]], fanouts=[10, 10], dim=256,
                       feature_idx=1, feature_dim=50,
                       aggregator=args.aggregator,

@@ -33,7 +33,7 @@ from euler_tpu.nn import encoders as jencoders  # noqa: E402
 from euler_tpu_torch import convert  # noqa: E402
 from euler_tpu_torch import train as ttrain  # noqa: E402
 from euler_tpu_torch.datasets import build_synthetic  # noqa: E402
-from euler_tpu_torch.graph import Graph, sampling_kernels  # noqa: E402
+from euler_tpu_torch.graph import MemoryGraph, sampling_kernels  # noqa: E402
 from euler_tpu_torch.models import GAT as TGAT  # noqa: E402
 from euler_tpu_torch.nn import encoders as tencoders  # noqa: E402
 
@@ -59,7 +59,7 @@ def _strip(sd: dict, prefix: str) -> dict:
 
 @pytest.fixture(scope="module")
 def syn():
-    return Graph(**build_synthetic(**SYN))
+    return MemoryGraph(**build_synthetic(**SYN))
 
 
 def _kw(head_num=1, feature_dtype=None):

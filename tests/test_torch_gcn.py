@@ -37,7 +37,7 @@ from euler_tpu.nn import sparse_aggregators as jsparse  # noqa: E402
 from euler_tpu_torch import convert  # noqa: E402
 from euler_tpu_torch import train as ttrain  # noqa: E402
 from euler_tpu_torch.datasets import PPI, build_synthetic  # noqa: E402
-from euler_tpu_torch.graph import Graph, sampling_kernels  # noqa: E402
+from euler_tpu_torch.graph import MemoryGraph, sampling_kernels  # noqa: E402
 from euler_tpu_torch.graph import device as tdev  # noqa: E402
 from euler_tpu_torch.models import ScalableGCN as TScalable  # noqa: E402
 from euler_tpu_torch.models import SupervisedGCN as TGCN  # noqa: E402
@@ -65,7 +65,7 @@ def _sd(params) -> dict:
 
 @pytest.fixture(scope="module")
 def syn():
-    return Graph(**build_synthetic(**SYN))
+    return MemoryGraph(**build_synthetic(**SYN))
 
 
 # ---- the full-neighbor expansion ----
@@ -74,10 +74,10 @@ def syn():
 def _expansion_case(name):
     """(graph, roots, caps) of one expansion case."""
     if name == "ppi_defaults":
-        g = Graph(**build_synthetic(**PPI, seed=1))
+        g = MemoryGraph(**build_synthetic(**PPI, seed=1))
         roots = np.random.default_rng(1).integers(0, g.num_nodes, 512)
         return g, roots, [512 * 10, 512 * 100]
-    g = Graph(**build_synthetic(2000, 15, 4, 3, seed=11))
+    g = MemoryGraph(**build_synthetic(2000, 15, 4, 3, seed=11))
     rng = np.random.default_rng(12)
     roots = rng.integers(0, g.num_nodes, 64)
     # duplicates, the default id and an id past the slab
@@ -248,7 +248,7 @@ def test_dense_aggregator_matches_flax(name):
 def test_gcn_encoder_matches_flax(residual):
     """A 2-layer GCNEncoder over a real two-hop expansion (gcn
     aggregator): forward and parameter gradients."""
-    g = Graph(**build_synthetic(**SYN))
+    g = MemoryGraph(**build_synthetic(**SYN))
     slab = tdev.build_adjacency(g, [0], g.max_node_id)
     roots = np.random.default_rng(8).integers(0, 200, 8).astype(np.int32)
     hops = tdev.multi_hop_neighbor([tdev.tensors(slab, "cpu")] * 2,

@@ -79,11 +79,11 @@ def test_entry_points_default_to_the_card(monkeypatch):
     asked for the CPU: with no card they raise instead of falling back."""
     from euler_tpu_torch import train
     from euler_tpu_torch.datasets import build_synthetic
-    from euler_tpu_torch.graph import Graph
+    from euler_tpu_torch.graph import MemoryGraph
     from euler_tpu_torch.models import SupervisedGraphSage
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    g = Graph(**build_synthetic(30, 3, 4, 2, max_degree=5))
+    g = MemoryGraph(**build_synthetic(30, 3, 4, 2, max_degree=5))
     m = SupervisedGraphSage(
         label_idx=0, label_dim=2, metapath=[[0], [0]], fanouts=[2, 2],
         dim=8, feature_idx=1, feature_dim=4, max_id=29,
@@ -168,11 +168,11 @@ def test_unsupervised_entry_points_default_to_the_card(monkeypatch):
     unless asked for the CPU; host sampling is refused."""
     from euler_tpu_torch import train
     from euler_tpu_torch.datasets import build_synthetic
-    from euler_tpu_torch.graph import Graph
+    from euler_tpu_torch.graph import MemoryGraph
     from euler_tpu_torch.models import GraphSage
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    g = Graph(**build_synthetic(30, 3, 4, 2, max_degree=5))
+    g = MemoryGraph(**build_synthetic(30, 3, 4, 2, max_degree=5))
     kw = dict(node_type=0, edge_type=[0], max_id=29, metapath=[[0], [0]],
               fanouts=[2, 2], dim=8, num_negs=2, feature_idx=1,
               feature_dim=4, device_features=True)
@@ -234,3 +234,38 @@ def test_c_entries_declared_with_matching_argtypes():
         fn = stub.fns[name]
         assert fn.argtypes == want, name
         assert fn.restype is ctypes.c_int, name
+
+
+def test_native_builds_and_loads_only_the_ports_engine():
+    """graph/native.py builds the engine from the port's copy of its
+    sources into build/euler_tpu_torch/native and loads that library: it
+    reads no EG_NATIVE_LIB override, and building and loading it (in a
+    subprocess under an audit hook) opens, runs and loads nothing under
+    the JAX package's directory."""
+    src = (PKG / "graph" / "native.py").read_text()
+    assert "EG_NATIVE_LIB" not in src and "environ" not in src
+    code = (
+        "import os, sys\n"
+        "seen = []\n"
+        "def hook(event, args):\n"
+        "    if event in ('open', 'ctypes.dlopen', 'subprocess.Popen'):\n"
+        "        seen.append(repr(args))\n"
+        "sys.addaudithook(hook)\n"
+        "from euler_tpu_torch.graph import native\n"
+        "native.lib()\n"
+        "print(native.NATIVE_DIR)\n"
+        "print(native.library_path())\n"
+        "bad = [s for s in seen if os.sep + 'euler_tpu' + os.sep in s]\n"
+        "print(bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=str(REPO), env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    native_dir, lib, bad = out.stdout.strip().splitlines()
+    assert pathlib.Path(native_dir) == PKG / "graph" / "_native"
+    assert pathlib.Path(lib).parent == REPO / "build" / "euler_tpu_torch" \
+        / "native"
+    assert bad == "[]"

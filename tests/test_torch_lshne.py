@@ -1,5 +1,5 @@
 """The port's sparse-feature layer and LsHNE against the JAX package:
-``Graph.get_sparse_feature`` against the engine, ``ops.get_sparse_feature``,
+``MemoryGraph.get_sparse_feature`` against the engine, ``ops.get_sparse_feature``,
 ``upload_sparse_tables``, ``SparseEmbedding``, ``TypedDense``, the typed
 negative sampler, LsHNE's device views, its loss, metric, embedding and
 gradients, five Adam steps, ``train.evaluate``, and the walks' route
@@ -42,7 +42,7 @@ from euler_tpu.nn import layers as jlayers  # noqa: E402
 from euler_tpu_torch import convert  # noqa: E402
 from euler_tpu_torch import train as ttrain  # noqa: E402
 from euler_tpu_torch.datasets import build_synthetic  # noqa: E402
-from euler_tpu_torch.graph import Graph, sampling_kernels  # noqa: E402
+from euler_tpu_torch.graph import MemoryGraph, sampling_kernels  # noqa: E402
 from euler_tpu_torch.graph import device as tdev  # noqa: E402
 from euler_tpu_torch.models import LsHNE as TLsHNE  # noqa: E402
 from euler_tpu_torch.models import base as tbase  # noqa: E402
@@ -63,8 +63,8 @@ LR = 0.01
 PATTERNS = [[[[0], [0], [0]], [[0], [0], [0]]], [[[0], [0, 1]]]]
 
 
-def hetero_graph(n: int, seed: int) -> Graph:
-    """A port Graph of two edge types (a seeded coin per edge of
+def hetero_graph(n: int, seed: int) -> MemoryGraph:
+    """A port MemoryGraph of two edge types (a seeded coin per edge of
     ``build_synthetic``'s), node types 0-3 (type 3 of zero weight), two
     rows of zero edge weight, and two ragged uint64 slots: slot 0 the
     node's id, then its next ids, 0 to 9 values a row (past ``MAX_LEN`` for
@@ -93,7 +93,7 @@ def hetero_graph(n: int, seed: int) -> Graph:
         else:
             vals = rng.integers(0, width, ptr[-1])
         slots.append((ptr, vals))
-    return Graph(indptr, d["indices"][order], weights, node_w, types,
+    return MemoryGraph(indptr, d["indices"][order], weights, node_w, types,
                  d["dense_features"], edge_type_num=2, sparse_features=slots)
 
 
@@ -176,7 +176,7 @@ def _batches(jm, tm, roots, seed: int):
 
 
 def _fixture_port_graph():
-    """The engine fixture's nodes (ids 10-16) as a port Graph of ids
+    """The engine fixture's nodes (ids 10-16) as a port MemoryGraph of ids
     0-16, ids 0-9 featureless."""
     from tests.fixture_graph import fixture_nodes
 
@@ -189,7 +189,7 @@ def _fixture_port_graph():
         ptr = np.concatenate([[0], np.cumsum([len(r) for r in rows])])
         slots.append((ptr, np.concatenate([np.asarray(r, np.int64)
                                            for r in rows])))
-    return Graph(np.zeros(n + 1, np.int64), [], [], np.ones(n, np.float32),
+    return MemoryGraph(np.zeros(n + 1, np.int64), [], [], np.ones(n, np.float32),
                  np.zeros(n, np.int32), sparse_features=slots)
 
 

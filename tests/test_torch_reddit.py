@@ -25,7 +25,7 @@ from euler_tpu.models import base as jbase  # noqa: E402
 from euler_tpu_torch import datasets as tdatasets  # noqa: E402
 from euler_tpu_torch import train as ttrain  # noqa: E402
 from euler_tpu_torch.convert import params_from_flax  # noqa: E402
-from euler_tpu_torch.graph import Graph, sampling_kernels  # noqa: E402
+from euler_tpu_torch.graph import MemoryGraph, sampling_kernels  # noqa: E402
 from euler_tpu_torch.graph import device as tdev  # noqa: E402
 from euler_tpu_torch.models import SupervisedGraphSage as TSage  # noqa: E402
 from euler_tpu_torch.models import base as tbase  # noqa: E402
@@ -50,11 +50,11 @@ def graphs(tmp_path_factory):
     d = str(tmp_path_factory.mktemp("pl"))
     jdatasets.build_powerlaw(d, num_partitions=2, **PL)
     out["pl"] = (euler_tpu.Graph(directory=d),
-                 Graph(**tdatasets.build_powerlaw(**PL)))
+                 MemoryGraph(**tdatasets.build_powerlaw(**PL)))
     d = str(tmp_path_factory.mktemp("syn"))
     jdatasets.build_synthetic(d, num_partitions=1, **SYN)
     out["syn"] = (euler_tpu.Graph(directory=d),
-                  Graph(**tdatasets.build_synthetic(**SYN)))
+                  MemoryGraph(**tdatasets.build_synthetic(**SYN)))
     yield out
     for eg, _ in out.values():
         eg.close()
@@ -77,7 +77,7 @@ def _mixed_graph():
         nbrs.append(np.sort(rng.choice(n, d, replace=False)))
         ws.append(w.astype(np.float32))
     indptr = np.concatenate([[0], np.cumsum([len(x) for x in nbrs])])
-    return Graph(indptr, np.concatenate(nbrs), np.concatenate(ws),
+    return MemoryGraph(indptr, np.concatenate(nbrs), np.concatenate(ws),
                  node_weights=np.ones(n), node_types=np.zeros(n))
 
 

@@ -27,7 +27,7 @@ from euler_tpu.nn import metrics as jmetrics  # noqa: E402
 from euler_tpu_torch import train as ttrain  # noqa: E402
 from euler_tpu_torch.convert import params_from_flax  # noqa: E402
 from euler_tpu_torch.datasets import build_synthetic  # noqa: E402
-from euler_tpu_torch.graph import Graph  # noqa: E402
+from euler_tpu_torch.graph import MemoryGraph  # noqa: E402
 from euler_tpu_torch.models import SupervisedGraphSage as TSage  # noqa: E402
 from euler_tpu_torch.models import base as tbase  # noqa: E402
 from euler_tpu_torch.nn import metrics as tmetrics  # noqa: E402
@@ -61,7 +61,7 @@ def setup(tmp_path_factory):
     jstate = jm.init_state(jax.random.PRNGKey(0), eg, np.arange(BATCH),
                            optax.adam(LR))
     tm = TSage(**_kw())
-    tg = Graph(**build_synthetic(**SYN))
+    tg = MemoryGraph(**build_synthetic(**SYN))
     yield jm, jstate, tm, tg
     eg.close()
 

@@ -21,7 +21,7 @@ from euler_tpu import datasets as jdatasets  # noqa: E402
 from euler_tpu.graph import device as jdev  # noqa: E402
 
 from euler_tpu_torch.datasets import build_synthetic  # noqa: E402
-from euler_tpu_torch.graph import Graph, sampling_kernels  # noqa: E402
+from euler_tpu_torch.graph import MemoryGraph, sampling_kernels  # noqa: E402
 from euler_tpu_torch.graph import device as tdev  # noqa: E402
 
 SYN = dict(num_nodes=300, avg_degree=6, feature_dim=5, label_dim=3,
@@ -35,7 +35,7 @@ def graphs(tmp_path_factory):
     d = str(tmp_path_factory.mktemp("syn"))
     jdatasets.build_synthetic(d, num_partitions=2, **SYN)
     eg = euler_tpu.Graph(directory=d)
-    yield eg, Graph(**build_synthetic(**SYN))
+    yield eg, MemoryGraph(**build_synthetic(**SYN))
     eg.close()
 
 
@@ -58,7 +58,7 @@ def _mock_graph():
     counts = [len(groups.get((i // t, i % t), [])) for i in range(n * t)]
     indptr = np.concatenate([[0], np.cumsum(counts)])
     flat = [e for i in range(n * t) for e in groups.get((i // t, i % t), [])]
-    return Graph(
+    return MemoryGraph(
         indptr, [e[0] for e in flat], [e[1] for e in flat],
         node_weights=[1, 0, 2, 0.5, 1, 0, 3, 1],
         node_types=[0, 1, 0, 1, 0, 0, 1, 0],
@@ -207,7 +207,7 @@ def test_sample_neighbor_key_replay(graphs, which):
         g, max_id = graphs[1], SYN["num_nodes"] - 1
         adj = tdev.build_adjacency(g, [0], max_id)
     elif which == "wide":
-        g, max_id = Graph(**build_synthetic(400, 150, 2, 2, max_degree=300,
+        g, max_id = MemoryGraph(**build_synthetic(400, 150, 2, 2, max_degree=300,
                                             seed=5)), 399
         adj = tdev.build_adjacency(g, [0], max_id)
         assert adj["nbr"].shape[1] > 128

@@ -33,7 +33,7 @@ from euler_tpu.nn import encoders as jencoders  # noqa: E402
 from euler_tpu_torch import convert  # noqa: E402
 from euler_tpu_torch import train as ttrain  # noqa: E402
 from euler_tpu_torch.datasets import build_synthetic  # noqa: E402
-from euler_tpu_torch.graph import Graph, sampling_kernels  # noqa: E402
+from euler_tpu_torch.graph import MemoryGraph, sampling_kernels  # noqa: E402
 from euler_tpu_torch.graph import device as tdev  # noqa: E402
 from euler_tpu_torch.models import GraphSage as TGraphSage  # noqa: E402
 from euler_tpu_torch.models import ScalableSage as TSage  # noqa: E402
@@ -58,7 +58,7 @@ def _sd(params) -> dict:
 
 @pytest.fixture(scope="module")
 def syn():
-    return Graph(**build_synthetic(**SYN))
+    return MemoryGraph(**build_synthetic(**SYN))
 
 
 def _kw(aggregator="mean", concat=True, use_id=False):

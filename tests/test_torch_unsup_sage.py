@@ -28,7 +28,7 @@ from euler_tpu.nn import metrics as jmetrics  # noqa: E402
 from euler_tpu_torch import train as ttrain  # noqa: E402
 from euler_tpu_torch.convert import params_from_flax  # noqa: E402
 from euler_tpu_torch.datasets import build_synthetic  # noqa: E402
-from euler_tpu_torch.graph import Graph  # noqa: E402
+from euler_tpu_torch.graph import MemoryGraph  # noqa: E402
 from euler_tpu_torch.graph import device as tdev  # noqa: E402
 from euler_tpu_torch.models import GraphSage as TSage  # noqa: E402
 from euler_tpu_torch.models import base as tbase  # noqa: E402
@@ -72,7 +72,7 @@ def setup(tmp_path_factory):
         jstate = {"params": params, "opt_state": optax.adam(LR).init(params),
                   "consts": consts}
         models[concat] = (jm, jstate, TSage(**_kw(concat)))
-    yield models, Graph(**build_synthetic(**SYN))
+    yield models, MemoryGraph(**build_synthetic(**SYN))
     eg.close()
 
 

@@ -30,7 +30,7 @@ from euler_tpu.ops import walk as jwalk  # noqa: E402
 from euler_tpu_torch import datasets as tdatasets  # noqa: E402
 from euler_tpu_torch import train as ttrain  # noqa: E402
 from euler_tpu_torch.convert import params_from_flax  # noqa: E402
-from euler_tpu_torch.graph import Graph, sampling_kernels  # noqa: E402
+from euler_tpu_torch.graph import MemoryGraph, sampling_kernels  # noqa: E402
 from euler_tpu_torch.graph import device as tdev  # noqa: E402
 from euler_tpu_torch.models import LINE as TLINE  # noqa: E402
 from euler_tpu_torch.models import Node2Vec as TNode2Vec  # noqa: E402
@@ -75,7 +75,7 @@ def _fixture_port_graph():
               for et, g in nbrs.items()}
     flat = [e for i in range(n * t) for e in groups.get((i // t, i % t), [])]
     counts = [len(groups.get((i // t, i % t), [])) for i in range(n * t)]
-    return Graph(np.concatenate([[0], np.cumsum(counts)]),
+    return MemoryGraph(np.concatenate([[0], np.cumsum(counts)]),
                  [e[0] for e in flat], [e[1] for e in flat],
                  node_weights=[TOPOLOGY.get(i, (0, 0.0))[1] for i in range(n)],
                  node_types=[TOPOLOGY.get(i, (-1,))[0] for i in range(n)],
@@ -101,7 +101,7 @@ def _walk_graph():
             groups[(i, et)] = list(zip(sorted(ids), w))
     flat = [e for i in range(n * t) for e in groups[(i // t, i % t)]]
     counts = [len(groups[(i // t, i % t)]) for i in range(n * t)]
-    return Graph(np.concatenate([[0], np.cumsum(counts)]),
+    return MemoryGraph(np.concatenate([[0], np.cumsum(counts)]),
                  [e[0] for e in flat], [e[1] for e in flat],
                  node_weights=np.ones(n), node_types=np.zeros(n),
                  edge_type_num=t)
@@ -114,7 +114,7 @@ def walk_graph():
 
 @pytest.fixture(scope="module")
 def pl_graph():
-    return Graph(**tdatasets.build_powerlaw(**PL))
+    return MemoryGraph(**tdatasets.build_powerlaw(**PL))
 
 
 # ---- pairs ----
