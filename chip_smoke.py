@@ -148,17 +148,35 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    prints its step ms (median of steps 11-111), edges/s, the batch build
    ms in a prefetch worker, the input stall and the steps that waited
    on prefetch, and the peak of allocated device memory.
-6. The ``kernels`` line; then the final ``ok`` line. Each phase prints
+6. serve_ppi: phase 5 (f)'s host-sampled checkpoint served at ppi's
+   widths by ``serve.run_serve`` (``build_server``, max_batch 64,
+   max_wait_us 2000, an ``EmbedFrontend``), the forward one CUDA graph
+   of one fixed bucket: 16 client threads send 200 requests of 1-16 ids
+   (half from a hot set of 256 ids, half from the whole graph, a quarter
+   with a duplicate); every served row equals ``embed_direct`` on the
+   card bit for bit; one bucket equals the CPU's eager forward of the
+   same blocks (rtol 1e-4, atol 1e-5); exactly one capture, no
+   re-capture and no B1 or B2 launch; it prints the request latency at
+   the client (p50, p99) and the SLO tracker's verdict, the serve
+   phases' p50/p99, dispatches and mean unique ids a dispatch, the first
+   (capturing) dispatch, a cold and a warm dispatch of 64 ids, the bytes
+   up and down a dispatch, the peak of allocated device memory and the
+   sample cache's host bytes. Then ``python -m euler_tpu_torch.serve``
+   on the same checkpoint answers one embed over the wire, bit-equal to
+   the in-process row, and drains to exit code 0 on SIGTERM.
+7. The ``kernels`` line; then the final ``ok`` line. Each phase prints
    its wall time.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -250,6 +268,22 @@ RUN_LOOP_ARGS = [
     "--batch_size", str(PPI_BATCH), "--learning_rate", str(PPI_LR),
     "--num_epochs", "1", "--log_steps", "1",
 ]
+# the serving phase (serve_ppi): run_loop_host's checkpoint served at the
+# JAX package's serve defaults (max_batch 64, max_wait_us 2000) to
+# SERVE_CLIENTS threads sending SERVE_REQUESTS requests of 1 to
+# SERVE_MAX_IDS ids, half drawn from a hot set of SERVE_HOT ids and half
+# from the whole graph, a quarter with a duplicated id
+SERVE_MAX_BATCH = 64
+SERVE_WAIT_US = 2000
+SERVE_CLIENTS = 16
+SERVE_REQUESTS = 200
+SERVE_MAX_IDS = 16
+SERVE_HOT = 256
+# one bucket on the card against the CPU's eager forward of its blocks
+SERVE_CPU_RTOL = 1e-4
+SERVE_CPU_ATOL = 1e-5
+# timed dispatches of one warm bucket
+SERVE_WARM_RUNS = 50
 # NVIDIA H100 SXM data-sheet peaks (700 W): HBM bytes/s and
 # float32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -2233,8 +2267,16 @@ def run_loop_path(name: str, data_dir: str, model_dir: str, extra,
             "restored": restored, "model": model}
 
 
+def scratch_dir():
+    """A temporary directory under the checkout's ``build/``, removed on
+    exit."""
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(work, exist_ok=True)
+    return tempfile.TemporaryDirectory(dir=work)
+
+
 def phase_engine(seed: int, smi: str, device: str = "cuda",
-                 ppi: dict | None = None) -> dict:
+                 ppi: dict | None = None, workdir: str | None = None) -> dict:
     """The engine client and run_loop on the full synthetic ppi graph:
     (a) the engine's build (phase 2), (b) ``datasets.build_ppi`` writes
     the .dat files, (c) ``Graph(directory=...)`` loads them, (d) the
@@ -2244,7 +2286,10 @@ def phase_engine(seed: int, smi: str, device: str = "cuda",
     evaluates and exports embeddings, (f) the same with host sampling (no
     kernel launch), plus one torch.profiler window of 10 host-sampled
     steps of ``train.train``, (g) the device run's checkpoint restored
-    into a fresh model gives its trained state's forward bit for bit."""
+    into a fresh model gives its trained state's forward bit for bit.
+    The .dat files and checkpoints go under ``workdir`` (``ppi``, ``m1``
+    for the device run, ``m2`` for the host run), a scratch directory
+    under ``build/`` when none is given."""
     log("== phase 5: engine and run_loop")
     from euler_tpu_torch import datasets, train
     from euler_tpu_torch.graph import Graph, MemoryGraph, sampling_kernels
@@ -2252,10 +2297,9 @@ def phase_engine(seed: int, smi: str, device: str = "cuda",
 
     ppi = ppi or datasets.PPI
     max_id = ppi["num_nodes"] - 1
-    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
-    os.makedirs(work, exist_ok=True)
     runs = {}
-    with tempfile.TemporaryDirectory(dir=work) as tmp:
+    with contextlib.ExitStack() as stack:
+        tmp = workdir or stack.enter_context(scratch_dir())
         data_dir = os.path.join(tmp, "ppi")
         t0 = time.perf_counter()
         datasets.build_ppi(data_dir, **ppi)
@@ -2376,6 +2420,256 @@ def phase_engine(seed: int, smi: str, device: str = "cuda",
     return runs
 
 
+def serve_traffic(max_id: int, seed: int) -> list:
+    """SERVE_REQUESTS requests of 1 to SERVE_MAX_IDS ids: each id from the
+    hot set or the whole graph by a fair coin, a quarter of the requests
+    with their first id repeated at the end."""
+    rng = np.random.default_rng(seed)
+    hot = rng.choice(max_id + 1, SERVE_HOT, replace=False)
+    reqs = []
+    for _ in range(SERVE_REQUESTS):
+        k = int(rng.integers(1, SERVE_MAX_IDS + 1))
+        ids = np.where(rng.random(k) < 0.5, rng.choice(hot, k),
+                       rng.integers(0, max_id + 1, k))
+        if rng.random() < 0.25:
+            ids = np.append(ids, ids[0])
+        reqs.append([int(i) for i in ids])
+    return reqs
+
+
+def serve_cli(argv, device: str):
+    """``python -m euler_tpu_torch.serve argv`` in a subprocess (on the
+    CPU for a rehearsal, through ``serve.main(device="cpu")``), with its
+    output read on a thread; returns the process, its output lines and
+    the address its frontend logged (waits up to 300 s for it)."""
+    if device == "cuda":
+        cmd = [sys.executable, "-m", "euler_tpu_torch.serve", *argv]
+    else:
+        cmd = [sys.executable, "-c",
+               "import sys; from euler_tpu_torch import serve; "
+               "sys.exit(serve.main(sys.argv[1:], device='cpu'))", *argv]
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        cmd, cwd=root, env=dict(os.environ, PYTHONPATH=root),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines, found = [], threading.Event()
+    addr = {}
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            m = re.search(r"serving embeddings on (\S+)", line)
+            if m:
+                addr["a"] = m.group(1)
+                found.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    deadline = time.monotonic() + 300
+    while not found.wait(0.5):
+        if proc.poll() is not None or time.monotonic() > deadline:
+            proc.kill()
+            proc.wait(10)
+            raise AssertionError("the serve CLI never served:\n"
+                                 + "\n".join(lines[-40:]))
+    return proc, lines, addr["a"], reader
+
+
+def phase_serve(data_dir: str, model_dir: str, seed: int, smi: str,
+                device: str = "cuda", max_id: int = 56943) -> dict:
+    """serve_ppi: run_loop_host's checkpoint (phase 5 (f)) served at ppi's
+    widths. (a) ``serve.run_serve`` restores it into ``build_server``
+    (max_batch 64, max_wait_us 2000) behind an ``EmbedFrontend``; the
+    first dispatch captures the bucket's CUDA graph; (b) SERVE_CLIENTS
+    client threads send SERVE_REQUESTS requests (``serve_traffic``); (c)
+    every served row equals ``embed_direct`` on the card bit for bit; (d)
+    one bucket equals the CPU's eager forward of the same blocks within
+    SERVE_CPU_RTOL / SERVE_CPU_ATOL; (e) exactly one capture, no
+    re-capture and no B1 or B2 launch; (f) cold and warm dispatches are
+    timed; (g) ``python -m euler_tpu_torch.serve`` on the same
+    checkpoint answers one embed over the wire, bit-equal to the
+    in-process row, and drains to exit code 0 on SIGTERM."""
+    log("== phase 6: serve_ppi")
+    from euler_tpu_torch import run_loop, serve
+    from euler_tpu_torch import telemetry as T
+    from euler_tpu_torch import train as train_lib
+    from euler_tpu_torch.graph import native, sampling_kernels
+    from euler_tpu_torch.serving import EmbedClient
+
+    argv = ["--data_dir", data_dir, "--model_dir", model_dir,
+            "--max_id", str(max_id), "--seed", str(seed), *RUN_LOOP_ARGS,
+            "--serve_port", "0", "--serve_max_batch", str(SERVE_MAX_BATCH),
+            "--serve_max_wait_us", str(SERVE_WAIT_US)]
+    args = run_loop.define_flags().parse_args(argv)
+    args.mode = "evaluate"  # serve.main's inference config
+    graph = run_loop.build_graph(args)
+    model = run_loop.build_model(args, graph)
+    native.reset_counters()
+    T.telemetry_reset()
+    for k in sampling_kernels.launches:
+        sampling_kernels.launches[k] = 0
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    server, frontend = serve.run_serve(model, graph, args, device,
+                                       block=False)
+    try:
+        # (a) the first dispatch captures the bucket
+        t0 = time.perf_counter()
+        server.embed_direct(0)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        # (b) concurrent mixed traffic through the frontend
+        reqs = serve_traffic(max_id, seed)
+        results = [None] * len(reqs)
+        errors = []
+
+        def client(k0):
+            c = EmbedClient(frontend.address, timeout_s=60.0)
+            try:
+                for k in range(k0, len(reqs), SERVE_CLIENTS):
+                    t = time.perf_counter()
+                    rows = c.embed(reqs[k])
+                    results[k] = (rows, (time.perf_counter() - t) * 1e3)
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(repr(e))
+            finally:
+                c.close()
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        wall = time.perf_counter() - t0
+        if errors or any(t.is_alive() for t in threads) or None in results:
+            raise AssertionError(f"serve_ppi clients failed: {errors[:5]}")
+        stats = server.stats()
+        lat = np.array([r[1] for r in results])
+        launches = dict(sampling_kernels.launches)
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+        log(f"(b) {SERVE_REQUESTS} requests from {SERVE_CLIENTS} clients "
+            f"({sum(len(r) for r in reqs)} ids, "
+            f"{len({i for r in reqs for i in r})} distinct) in {wall:.3f} s"
+            f": request latency at the client p50 "
+            f"{np.percentile(lat, 50):.4f} ms, p99 "
+            f"{np.percentile(lat, 99):.4f} ms; SLO tracker {stats['slo']}; "
+            f"serve phases {stats['serve_phases']}; dispatches "
+            f"{stats['batch']}; counters {stats['counters']}; bucket "
+            f"{stats['devprof']}; first dispatch (capture) "
+            f"{first_ms:.3f} ms; sample cache {stats['cache']} (host "
+            f"bytes); max_memory_allocated {peak} B (card: {smi})")
+        # (c) bit parity with the direct path
+        direct = {}
+        for req, (rows, _) in zip(reqs, results):
+            for nid, row in zip(req, rows):
+                if nid not in direct:
+                    direct[nid] = server.embed_direct(nid)
+                if not np.array_equal(row, direct[nid]):
+                    raise AssertionError(
+                        f"served row of id {nid} differs from embed_direct "
+                        f"(max abs {np.abs(row - direct[nid]).max()})")
+        log(f"(c) every served row ({sum(len(r) for r in reqs)}) bit-equal "
+            f"to embed_direct on {device} ({len(direct)} ids)")
+        # (d) one bucket against the CPU's eager forward
+        uids = sorted(direct)[:SERVE_MAX_BATCH]
+        blocks = [server._block(i) for i in uids]
+        cpu_state = model.init_state(
+            graph, train_lib.get_optimizer("adam", PPI_LR), device="cpu")
+        cpu_state["module"].load_state_dict(
+            {k: v.cpu() for k, v in
+             server._state["module"].state_dict().items()})
+        cpu = serve.EmbedServer(model, graph, cpu_state,
+                                max_batch=SERVE_MAX_BATCH)
+        want, got = cpu._forward(blocks), server._forward(blocks)
+        err = float(np.abs(got - want).max())
+        if not np.allclose(got, want, rtol=SERVE_CPU_RTOL,
+                           atol=SERVE_CPU_ATOL):
+            raise AssertionError(f"serve_ppi bucket on {device} against the "
+                                 f"CPU: max abs err {err}")
+        log(f"(d) one bucket of {len(uids)} ids on {device} against the "
+            f"CPU's eager forward: max abs err {err:.3e} (rtol "
+            f"{SERVE_CPU_RTOL}, atol {SERVE_CPU_ATOL})")
+        # (e) one capture, no re-capture, no kernel launch
+        dev = server.stats()["devprof"]
+        if (dev["captures"], dev["recaptures"], dev["serve_recompiles"]) != (
+                1, 0, 0):
+            raise AssertionError(f"serve_ppi bucket {dev}")
+        if any(launches.values()):
+            raise AssertionError(f"serve_ppi launched {launches}")
+        # (f) cold (sampling 64 new ids) and warm (all cached) dispatches
+        cold_ids = np.setdiff1d(
+            np.random.default_rng(seed + 1).permutation(max_id + 1),
+            np.fromiter(server._cache, np.int64))[:SERVE_MAX_BATCH]
+        t0 = time.perf_counter()
+        server._embed_unique(cold_ids)
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        warm = []
+        for _ in range(SERVE_WARM_RUNS):
+            t0 = time.perf_counter()
+            server._embed_unique(cold_ids)
+            warm.append((time.perf_counter() - t0) * 1e3)
+        # the warm dispatch's parts: staging (steps 1-2, host clock to a
+        # sync) and the replay alone (CUDA events)
+        stage_ms = replay_ms = "not measured"
+        if device == "cuda":
+            bucket = server._bucket
+            padded = [server._block(int(i)) for i in cold_ids]
+            times = []
+            for _ in range(SERVE_WARM_RUNS):
+                t0 = time.perf_counter()
+                bucket._stage(padded)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            stage_ms = f"{statistics.median(times):.4f} ms"
+            replay_ms = f"{cuda_ms(bucket._graph.replay):.4f} ms"
+        dev = server.stats()["devprof"]
+        log(f"(e) captures {dev['captures']}, re-captures "
+            f"{dev['recaptures']}, replays {dev['replays']}, launches "
+            f"{launches}; (f) one dispatch of {SERVE_MAX_BATCH} ids: cold "
+            f"(64 host samples) {cold_ms:.4f} ms, warm (cached) median "
+            f"{statistics.median(warm):.4f} ms over {SERVE_WARM_RUNS} "
+            f"(min {min(warm):.4f}, max {max(warm):.4f}), of which staging "
+            f"{stage_ms} (median, to a sync) and the graph's replay "
+            f"{replay_ms} (device, median of 100); "
+            f"{dev['h2d_bytes'] // dev['replays']} B up and "
+            f"{SERVE_MAX_BATCH * PPI_DIM * 4} B down a full dispatch; a "
+            f"block {stats['cache']['bytes'] // stats['cache']['entries']}"
+            f" B (card: {smi})")
+        probe = int(reqs[0][0])
+        probe_row = direct[probe]
+    finally:
+        frontend.drain(grace_s=1.0)
+        server.close()
+        frontend.stop()
+        graph.close()
+    # (g) the serve CLI, drained by SIGTERM
+    t0 = time.perf_counter()
+    proc, lines, addr, reader = serve_cli(argv, device)
+    try:
+        up = time.perf_counter() - t0
+        c = EmbedClient(addr, timeout_s=60.0)
+        row = c.embed([probe])[0]
+        c.close()
+        if not np.array_equal(row, probe_row):
+            raise AssertionError("the serve CLI's row differs from the "
+                                 "in-process server's")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(10)
+    reader.join(10)
+    if rc != 0 or not any("serve SLO at exit" in x for x in lines):
+        raise AssertionError(f"the serve CLI exited {rc}:\n"
+                             + "\n".join(lines[-40:]))
+    log(f"(g) python -m euler_tpu_torch.serve served on {addr} after "
+        f"{up:.2f} s; id {probe}'s row over the wire bit-equal to the "
+        f"in-process server's; SIGTERM drained it to exit code {rc}")
+    return {"serve_ppi": {"launches": launches}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2392,9 +2686,14 @@ def main() -> int:
     t3 = time.perf_counter()
     log(f"phase 4: {t3 - t2:.1f} s")
     del graph, hetero, reddit
-    runs.update(phase_engine(args.seed, smi))
-    log(f"phase 5: {time.perf_counter() - t3:.1f} s")
-    log("== phase 6: kernels")
+    with scratch_dir() as work:
+        runs.update(phase_engine(args.seed, smi, workdir=work))
+        t4 = time.perf_counter()
+        log(f"phase 5: {t4 - t3:.1f} s")
+        runs.update(phase_serve(os.path.join(work, "ppi"),
+                                os.path.join(work, "m2"), args.seed, smi))
+    log(f"phase 6: {time.perf_counter() - t4:.1f} s")
+    log("== phase 7: kernels")
     meta = {
         "sample_fanout2": dict(
             source="euler_tpu_torch/csrc/sample_fanout2.cu",

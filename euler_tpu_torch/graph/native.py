@@ -185,5 +185,55 @@ def lib() -> ctypes.CDLL:
     _sig(L.eg_result_size, c.c_int64, [p, c.c_int, c.c_int])
     _sig(L.eg_result_copy, None, [p, c.c_int, c.c_int, p])
     _sig(L.eg_result_free, None, [p])
+    # the counters and telemetry that serving records through
+    _sig(L.eg_counter_count, c.c_int, [])
+    _sig(L.eg_counter_name, c.c_char_p, [c.c_int])
+    _sig(L.eg_counters_snapshot, None, [u64p])
+    _sig(L.eg_counters_reset, None, [])
+    _sig(L.eg_counter_add, None, [c.c_int, c.c_uint64])
+    _sig(L.eg_serve_record, None, [c.c_int, c.c_uint64])
+    _sig(L.eg_serve_batch, None, [c.c_uint64])
+    _sig(L.eg_serve_slo_set, None,
+         [c.c_uint64, c.c_uint64, c.c_uint64, c.c_uint64])
+    _sig(L.eg_telemetry_enabled, c.c_int, [])
+    _sig(L.eg_telemetry_set_enabled, None, [c.c_int])
+    _sig(L.eg_telemetry_reset, None, [])
+    _sig(L.eg_telemetry_json, c.c_int, [c.c_char_p, c.c_int])
     _lib = L
     return L
+
+
+def counters() -> dict:
+    """Snapshot of the engine's process-global counters, every name
+    present (zero included): the transport's failure and efficiency
+    ledger and the serving counters (``serve_requests``,
+    ``serve_busy_rejects``, ``serve_deadline_rejects``,
+    ``serve_batches``, ``serve_recompiles``, ``h2d_bytes``,
+    ``d2h_bytes``; ``_native/eg_stats.h``)."""
+    L = lib()
+    n = L.eg_counter_count()
+    arr = (ctypes.c_uint64 * n)()
+    L.eg_counters_snapshot(arr)
+    return {L.eg_counter_name(i).decode(): int(arr[i]) for i in range(n)}
+
+
+def reset_counters() -> None:
+    """Zero the engine's counters (process-global)."""
+    lib().eg_counters_reset()
+
+
+_counter_ids: dict = {}
+
+
+def counter_add(name: str, n: int = 1) -> None:
+    """Add ``n`` to one counter by name, so Python threads account into
+    the ledger the engine keeps. Raises ``KeyError`` on an unknown
+    name."""
+    global _counter_ids
+    if not _counter_ids:
+        # built whole, then published: a thread arriving meanwhile never
+        # sees a partial table (each ctypes call releases the GIL)
+        L = lib()
+        _counter_ids = {L.eg_counter_name(i).decode(): i
+                        for i in range(L.eg_counter_count())}
+    lib().eg_counter_add(_counter_ids[name], n)

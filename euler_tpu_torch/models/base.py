@@ -185,6 +185,50 @@ def to_device(batch, device=None):
     return up(batch)
 
 
+def batch_leaves(batch, path=()) -> list:
+    """The numpy arrays of a host batch as ``(path, array)`` pairs, in
+    the batch's own order (dict keys as inserted, list and tuple items in
+    turn); other leaves are left out."""
+    if isinstance(batch, dict):
+        return [leaf for k, v in batch.items()
+                for leaf in batch_leaves(v, path + (k,))]
+    if isinstance(batch, (list, tuple)):
+        return [leaf for i, v in enumerate(batch)
+                for leaf in batch_leaves(v, path + (i,))]
+    return [(path, batch)] if isinstance(batch, np.ndarray) else []
+
+
+def batch_with_leaves(batch, leaves: list):
+    """``batch`` with its numpy arrays replaced, in ``batch_leaves``
+    order, by ``leaves`` (tensors, say); other leaves are kept."""
+    it = iter(leaves)
+
+    def swap(x):
+        if isinstance(x, dict):
+            return {k: swap(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(swap(v) for v in x)
+        return next(it) if isinstance(x, np.ndarray) else x
+
+    out = swap(batch)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the batch has arrays")
+    return out
+
+
+def concat_blocks(blocks: list):
+    """Host batches of one root each (``sample_host_embed(graph,
+    [nid])``) as one batch of ``len(blocks)`` roots: each array leaf
+    concatenated along its first axis, in block order. Hop k of a block
+    holds its root's ``prod(fanouts[:k])`` picks, so the rows of hop k
+    come out root-major, as ``len(blocks)`` roots sampled at once lay
+    them out, and the module reshapes them the same way."""
+    parts = [batch_leaves(b) for b in blocks]
+    return batch_with_leaves(blocks[0], [
+        np.concatenate([p[i][1] for p in parts], axis=0)
+        for i in range(len(parts[0]))])
+
+
 def id_feats(ids, use_id: bool) -> dict:
     """One node set's encoder inputs in device-sampling mode: the
     feature-table indices ``"gids"``, which double as embedding ids

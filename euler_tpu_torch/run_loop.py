@@ -8,15 +8,19 @@ The flag surface is the JAX package's. ``--mode train`` builds a local
 ``--device_sampling`` the fanouts drawn on the card), checkpointing into
 ``--model_dir``; ``--mode evaluate`` and ``--mode save_embedding``
 restore the latest checkpoint and write ``eval.json`` or
-``embedding.npy`` and ``id.txt`` there.
+``embedding.npy`` and ``id.txt`` there. ``--serve_after 1`` trains,
+then serves the checkpoint (``serve.run_serve``, with the training
+sampling config) until SIGTERM or SIGINT; the ``--serve_*`` flags
+configure it and are refused without it (``check_serve_flags``).
 
 Flags of features not ported yet raise ``NotImplementedError`` naming
 their ROADMAP item when set away from their defaults: remote and shared
-graphs and their client knobs (A0b), serving, traces, metrics lines and
+graphs and their client knobs (A0b), traces, metrics lines and
 postmortems (A11), several devices or processes (A10). Flags whose
-default turns such a feature on (``--telemetry``, ``--blackbox``,
-``--devprof``) keep their defaults; the run logs one line saying what is
-not there.
+default turns such a feature on (``--blackbox``, ``--devprof``) keep
+their defaults; the run logs one line saying what is not there.
+``--telemetry 0`` switches the native histograms off (the serve phases
+record there; training records no step phases yet).
 
 Usage:  python -m euler_tpu_torch --data_dir ... --model graphsage_supervised
 """
@@ -35,25 +39,12 @@ import numpy as np
 from euler_tpu_torch import models
 from euler_tpu_torch import train as train_lib
 from euler_tpu_torch.device import resolve_device
+from euler_tpu_torch.serving import add_serve_flags, serve_flag_overrides
 
 log = logging.getLogger("euler_tpu_torch")
 
 # the JAX package's optimizer names; the port has adam (ROADMAP A4)
 _OPTIMIZER_NAMES = ("adagrad", "adam", "momentum", "sgd")
-
-# serve-only flags and their defaults (euler_tpu/serving SERVE_FLAG_DEFAULTS)
-SERVE_FLAG_DEFAULTS = {
-    "serve_host": "127.0.0.1",
-    "serve_port": 9200,
-    "serve_max_batch": 64,
-    "serve_max_wait_us": 2000,
-    "serve_queue_cap": 128,
-    "serve_slo_ms": 100.0,
-    "serve_max_conns": 64,
-    "serve_sample_cache": 65536,
-    "serve_deadline_ms": 0,
-    "serve_strict_bucket": 0,
-}
 
 # flags of features not ported yet: (flag, default, ROADMAP item, what)
 _NOT_PORTED = (
@@ -85,14 +76,11 @@ _NOT_PORTED = (
     ("trace_file", "", "A11", "the merged trace"),
     ("profile_dir", "", "A11", "the step-phase profiler"),
     ("compile_cache", None, "A11", "the XLA compilation cache"),
-    ("serve_after", False, "A11", "serving (serve.py)"),
-    *((name, default, "A11", "serving (serve.py)")
-      for name, default in SERVE_FLAG_DEFAULTS.items()),
 )
 
 # on by default in the JAX package, not ported: one log line at start
 _DEFAULT_ON = (
-    ("telemetry", "the native latency histograms and step phases"),
+    ("telemetry", "training's step-phase histograms"),
     ("blackbox", "the flight recorder"),
     ("devprof", "the device-plane profiler"),
 )
@@ -203,14 +191,10 @@ def define_flags(parser: Optional[argparse.ArgumentParser] = None):
     p.add_argument("--devprof", type=_str2bool, default=True)
     p.add_argument("--compile_cache", type=_str2bool, default=None)
     # serving
-    p.add_argument("--serve_after", type=_str2bool, default=False)
-    d = SERVE_FLAG_DEFAULTS
-    p.add_argument("--serve_host", default=d["serve_host"])
-    for name in ("serve_port", "serve_max_batch", "serve_max_wait_us",
-                 "serve_queue_cap", "serve_max_conns", "serve_sample_cache",
-                 "serve_deadline_ms", "serve_strict_bucket"):
-        p.add_argument("--" + name, type=int, default=d[name])
-    p.add_argument("--serve_slo_ms", type=float, default=d["serve_slo_ms"])
+    p.add_argument("--serve_after", type=_str2bool, default=False,
+                   help="after --mode train, serve the checkpoint until "
+                        "SIGTERM (serve.run_serve)")
+    add_serve_flags(p)
     # multi-process
     p.add_argument("--coordinator_addr", default="")
     p.add_argument("--num_processes", type=int, default=1)
@@ -236,6 +220,26 @@ def check_flags(args) -> None:
     if off:
         log.info("not ported yet (ROADMAP A11), so not recorded: %s",
                  "; ".join(off))
+
+
+def check_serve_flags(args) -> None:
+    """Refuse serve-only flags on a run that will never serve (they would
+    silently do nothing), and ``--serve_after`` outside ``--mode
+    train``."""
+    if args.serve_after and args.mode != "train":
+        raise ValueError(
+            "--serve_after means train-then-serve and needs "
+            f"--mode=train (got --mode={args.mode}); to serve an "
+            "existing checkpoint use `python -m euler_tpu_torch.serve`"
+        )
+    overrides = serve_flag_overrides(args)
+    if overrides and not args.serve_after:
+        raise ValueError(
+            f"serve-only flags {', '.join(overrides)} do nothing in "
+            f"--mode={args.mode} without --serve_after; add "
+            "--serve_after=1 (train, then serve the checkpoint) or use "
+            "`python -m euler_tpu_torch.serve` against a saved --model_dir"
+        )
 
 
 def build_graph(args):
@@ -435,8 +439,13 @@ def main(argv=None, device=None) -> int:
         level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     args = define_flags().parse_args(argv)
     check_flags(args)
+    check_serve_flags(args)
     dev = resolve_device(device)
     graph = build_graph(args)
+    if not args.telemetry:
+        from euler_tpu_torch.telemetry import set_telemetry
+
+        set_telemetry(False)
     try:
         model = build_model(args, graph)
         if args.max_degree is not None or args.alias_sampling:
@@ -444,6 +453,13 @@ def main(argv=None, device=None) -> int:
                                        alias=args.alias_sampling)
         if args.mode == "train":
             run_train(model, graph, args, dev)
+            if args.serve_after:
+                # the freshest checkpoint goes live in this process, with
+                # the training sampling config; blocks until SIGTERM or
+                # SIGINT, then drains
+                from euler_tpu_torch import serve
+
+                serve.run_serve(model, graph, args, dev)
         elif args.mode == "evaluate":
             run_evaluate(model, graph, args, dev)
         else:

@@ -1,0 +1,517 @@
+"""Online embedding inference over a trained checkpoint (counterpart of
+``euler_tpu/serve.py``), on one CUDA device:
+
+    request -> MicroBatcher (coalesce, shed, deadline)
+            -> per-unique-id neighborhood sampling on the host (engine)
+            -> one fixed-bucket forward on the card -> rows per request
+
+Determinism is a serving feature: each id's neighborhood is sampled once,
+with an engine seed derived from the id (``_id_seed``), and cached
+(``--serve_sample_cache``), so an id's embedding is bit-stable across
+requests and across co-batched traffic, and equal to
+:meth:`EmbedServer.embed_direct`.
+
+A block is bit-stable only while each engine draw runs on the calling
+thread: ``eg_seed`` seeds that thread's RNG, and the engine's neighbor
+draw fans out over OpenMP threads, each with an RNG of its own, when
+``n * count > 2048`` (ids times picks of one hop, ``SampleNeighbor`` in
+``graph/_native/eg_engine.cc``). One id draws ``prod(fanouts[:h + 1])``
+picks at hop h, so its block is stable while ``prod(fanouts) <=
+OMP_DRAW_BOUND``: ppi's [10, 10] draws 10 then 100. The feature gather
+fans out past ``n * row_dim > 8192`` floats (100 x 50 = 5,000 at ppi's
+last hop), but it draws nothing, so its threads change no bit.
+
+Every dispatch pads to one fixed bucket (``max_batch`` rows, padding
+repeats the first block), so one forward of one shape serves all
+traffic, and a row's bits depend neither on its co-batched neighbours
+nor on how many there are. On the card that forward is a CUDA graph: the
+first dispatch captures the module's ``embed`` over static device
+buffers of the bucket's shapes, after a warm-up on a side stream; each
+dispatch then (1) concatenates the padded blocks into pinned staging,
+(2) copies them into the static inputs without blocking, (3) replays the
+graph and (4) copies out the first n rows. On the CPU (``device="cpu"``,
+as the tests run) the same padded forward runs eagerly. One lock guards
+staging, replay and read-back, which ``embed_direct`` from any thread and
+the batcher's dispatch thread share. A dispatch whose shapes or dtypes
+differ from the captured bucket's bumps ``serve_recompiles`` and
+captures again, or raises :class:`RecompileError` under
+``strict_bucket``. A capture or replay that fails raises: the server
+never falls back to an eager forward on the card.
+
+Usage (inference sampling, ``--all_edge_type`` metapaths, as evaluate
+and save_embedding use):
+
+    python -m euler_tpu_torch.serve --data_dir ... --model_dir ckpt \\
+        --model graphsage_supervised --serve_port 9200 [--serve_slo_ms 50]
+
+or train, then serve, in one process: ``python -m euler_tpu_torch ...
+--serve_after 1`` (with the training sampling config).
+"""
+
+from __future__ import annotations
+
+import logging
+import signal
+import sys
+import threading
+import time
+from collections import OrderedDict
+from typing import Optional
+
+import numpy as np
+import torch
+
+from euler_tpu_torch import telemetry as T
+from euler_tpu_torch.device import resolve_device
+from euler_tpu_torch.graph import native
+from euler_tpu_torch.models import base
+from euler_tpu_torch.serving import EmbedFrontend, MicroBatcher, SLOTracker
+
+log = logging.getLogger("euler_tpu_torch.serve")
+
+_MIX = 0x9E3779B97F4A7C15  # splitmix64 increment
+_MASK = (1 << 64) - 1
+
+# picks of one engine draw past which it fans out over OpenMP threads
+# (eg_engine.cc SampleNeighbor: n * count > 2048)
+OMP_DRAW_BOUND = 2048
+
+# forwards on a side stream before the capture (lazy init, cuBLAS
+# handles and workspaces, the allocator's first blocks)
+_WARMUP = 3
+
+
+def _id_seed(seed: int, nid: int) -> int:
+    """Deterministic nonzero 64-bit engine seed for one (server seed, id)."""
+    h = (nid * _MIX + seed * 0xBF58476D1CE4E5B9 + 0x94D049BB133111EB) & _MASK
+    h ^= h >> 31
+    return (h * _MIX) & _MASK or 1
+
+
+class RecompileError(RuntimeError):
+    """A dispatch's shapes or dtypes differ from the captured bucket's
+    under ``strict_bucket``: the fixed-bucket forward must be captured
+    exactly once."""
+
+
+def _host_leaf(x: np.ndarray) -> np.ndarray:
+    # the engine's uint64 ids go up as int64, as models.base.to_device
+    return x.view(np.int64) if x.dtype == np.uint64 else x
+
+
+def _signature(blocks: list) -> tuple:
+    """The padded batch's bucket: (path, shape, dtype) of each leaf.
+    Blocks of one dispatch must agree on everything but their rows."""
+    parts = [base.batch_leaves(b) for b in blocks]
+    first = parts[0]
+    for p in parts[1:]:
+        if [(q, x.shape[1:], x.dtype) for q, x in p] != [
+                (q, x.shape[1:], x.dtype) for q, x in first]:
+            raise ValueError("the blocks of one dispatch differ in layout, "
+                             "row width or dtype")
+    return tuple(
+        (path, (sum(p[i][1].shape[0] for p in parts),) + x.shape[1:],
+         _host_leaf(x).dtype.str)
+        for i, (path, x) in enumerate(first))
+
+
+def _torch_dtype(dtype_str: str) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, np.dtype(dtype_str))).dtype
+
+
+class _EagerBucket:
+    """The padded forward on the CPU, run eagerly each dispatch."""
+
+    def __init__(self, signature, blocks, embed_fn, state, device):
+        self.signature = signature
+        self._embed_fn = embed_fn
+        self._state = state
+
+    def run(self, blocks: list, n: int) -> np.ndarray:
+        batch = base.to_device(base.concat_blocks(blocks), "cpu")
+        return self._embed_fn(self._state, batch)[:n].numpy().copy()
+
+
+class _GraphBucket:
+    """The padded forward on the card as one CUDA graph over static input
+    buffers, with pinned staging on either side of it."""
+
+    def __init__(self, signature, blocks, embed_fn, state, device):
+        self.signature = signature
+        self._device = device
+        shapes = [(shape, _torch_dtype(dt)) for _, shape, dt in signature]
+        self._pinned = [torch.empty(s, dtype=d, pin_memory=True)
+                        for s, d in shapes]
+        self._staging = [p.numpy() for p in self._pinned]
+        self._static = [torch.empty(s, dtype=d, device=device)
+                        for s, d in shapes]
+        inputs = base.batch_with_leaves(blocks[0], self._static)
+        with torch.cuda.device(device):
+            # the warm-up and the capture read this dispatch's inputs
+            self._stage(blocks)
+            stream = torch.cuda.current_stream(device)
+            side = torch.cuda.Stream(device)
+            side.wait_stream(stream)
+            with torch.cuda.stream(side):
+                for _ in range(_WARMUP):
+                    embed_fn(state, inputs)
+            stream.wait_stream(side)
+            self._graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self._graph,
+                                  capture_error_mode="thread_local"):
+                self._output = embed_fn(state, inputs)
+        self._out = torch.empty(self._output.shape, dtype=self._output.dtype,
+                                pin_memory=True)
+
+    def _stage(self, blocks: list) -> None:
+        """Steps 1 and 2: the padded batch into pinned staging (each
+        ``np.concatenate`` writes straight into its pinned buffer), then
+        into the static inputs without blocking."""
+        parts = [base.batch_leaves(b) for b in blocks]
+        for i, buf in enumerate(self._staging):
+            np.concatenate([_host_leaf(p[i][1]) for p in parts], axis=0,
+                           out=buf)
+        for src, dst in zip(self._pinned, self._static):
+            dst.copy_(src, non_blocking=True)
+
+    def run(self, blocks: list, n: int) -> np.ndarray:
+        with torch.cuda.device(self._device):
+            self._stage(blocks)
+            self._graph.replay()
+            self._out[:n].copy_(self._output[:n], non_blocking=True)
+            torch.cuda.current_stream(self._device).synchronize()
+        return self._out[:n].numpy().copy()
+
+
+class EmbedServer:
+    """Micro-batched embedding inference over one model, graph and state.
+
+    ``state`` is a restored (or freshly initialised) training state, as
+    ``Checkpointer.restore`` returns it; the forward runs where its
+    module's parameters live: a CUDA graph on the card, eagerly on the
+    CPU."""
+
+    def __init__(self, model, graph, state, *, max_batch: int = 64,
+                 max_wait_us: int = 2000, queue_cap: int = 128,
+                 slo_ms: float = 100.0, seed: int = 42,
+                 sample_cache: int = 65536,
+                 strict_bucket: bool = False):
+        if getattr(model, "device_sampling", False):
+            raise ValueError(
+                "EmbedServer samples neighborhoods on the host per "
+                "unique id (the determinism anchor); build the serving "
+                "model with device_sampling=False"
+            )
+        self.model = model
+        self.graph = graph
+        self.max_batch = int(max_batch)
+        self.seed = int(seed)
+        self.sample_cache = max(int(sample_cache), 1)
+        self.strict_bucket = bool(strict_bucket)
+        self._state = state
+        self.device = next(state["module"].parameters()).device
+        self._embed_fn = model.make_embed_step()
+        self._bucket_cls = (_GraphBucket if self.device.type == "cuda"
+                            else _EagerBucket)
+        self._bucket = None
+        self._forward_lock = threading.Lock()
+        self._captures = self._replays = self._recaptures = 0
+        self._cache: OrderedDict = OrderedDict()
+        self._cache_bytes = 0
+        self._cache_lock = threading.Lock()
+        self.slo = SLOTracker(slo_ms)
+        self.batcher = MicroBatcher(
+            self._embed_unique,
+            max_batch=max_batch,
+            max_wait_us=max_wait_us,
+            queue_cap=queue_cap,
+            on_done=self._on_done,
+        )
+
+    # ---- lifecycle ----
+
+    def start(self) -> "EmbedServer":
+        self.batcher.start()
+        return self
+
+    def close(self) -> None:
+        self.batcher.close()
+
+    def __enter__(self) -> "EmbedServer":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    # ---- request path ----
+
+    def embed(self, ids, deadline_ms: Optional[float] = None) -> np.ndarray:
+        """Embeddings of ``ids`` through the micro-batcher: [n, dim]
+        float32, one row per requested id (duplicates allowed). Raises
+        ``serving.BusyError`` or ``serving.DeadlineError`` when shed or
+        expired."""
+        return np.asarray(
+            self.batcher.submit(ids, deadline_ms=deadline_ms),
+            dtype=np.float32,
+        )
+
+    def embed_direct(self, nid: int) -> np.ndarray:
+        """One id, no micro-batching: the bit-parity anchor the batched
+        path is held to."""
+        return np.asarray(
+            self._forward([self._block(int(nid))])[0], dtype=np.float32
+        )
+
+    def stats(self) -> dict:
+        """Live serving stats (the frontend's ``stats`` op): the SLO
+        verdict, serve-phase percentiles, serve counters, the coalescing
+        ledger, the bucket's captures and replays (``devprof``) and the
+        sample cache's entries and host bytes."""
+        data = T.telemetry_json()
+        phases = {}
+        for name, h in T.serve_hists(data).items():
+            if not h["count"]:
+                continue
+            pct = T.percentiles(h, (50, 99))
+            phases[name] = {
+                "count": h["count"],
+                "p50_us": round(pct.get(50, 0.0), 1),
+                "p99_us": round(pct.get(99, 0.0), 1),
+            }
+        ctr = native.counters()
+        batch_h = data["hist"].get("serve_batch", {})
+        batch = {}
+        if batch_h.get("count"):
+            batch = {
+                "dispatches": batch_h["count"],
+                "mean_unique_ids": round(
+                    batch_h["sum_us"] / batch_h["count"], 2
+                ),
+            }
+        with self._cache_lock:
+            cache = {"entries": len(self._cache), "bytes": self._cache_bytes}
+        return {
+            "slo": self.slo.report(),
+            "serve_phases": phases,
+            "counters": {k: v for k, v in ctr.items()
+                         if k.startswith("serve_")},
+            "batch": batch,
+            "devprof": {
+                "device": str(self.device),
+                "captures": self._captures,
+                "replays": self._replays,
+                "recaptures": self._recaptures,
+                "serve_recompiles": ctr.get("serve_recompiles", 0),
+                "h2d_bytes": ctr.get("h2d_bytes", 0),
+                "d2h_bytes": ctr.get("d2h_bytes", 0),
+            },
+            "cache": cache,
+        }
+
+    # ---- internals ----
+
+    def _on_done(self, total_us: float, error) -> None:
+        if error is None:
+            self.slo.record(total_us)
+
+    def _block(self, nid: int) -> dict:
+        """One id's sampled host inputs, drawn once under the id's engine
+        seed and then cached (hot ids sample zero times). Entries are
+        keyed by the graph's cache generation (``cache_gen``; a local
+        graph's never changes), so a block drawn before a graph refresh
+        is drawn again."""
+        gen = getattr(self.graph, "cache_gen", 0)
+        with self._cache_lock:
+            ent = self._cache.get(nid)
+            if ent is not None:
+                if ent[0] == gen:
+                    self._cache.move_to_end(nid)
+                    return ent[1]
+                del self._cache[nid]
+                self._cache_bytes -= ent[2]
+                native.counter_add("epoch_stale_hits_evicted", 1)
+        native.lib().eg_seed(_id_seed(self.seed, nid))
+        blk = self.model.sample_host_embed(
+            self.graph, np.array([nid], dtype=np.int64)
+        )
+        nbytes = sum(x.nbytes for _, x in base.batch_leaves(blk))
+        with self._cache_lock:
+            old = self._cache.pop(nid, None)
+            if old is not None:  # another thread drew it meanwhile
+                self._cache_bytes -= old[2]
+            self._cache[nid] = (gen, blk, nbytes)
+            self._cache_bytes += nbytes
+            while len(self._cache) > self.sample_cache:
+                self._cache_bytes -= self._cache.popitem(last=False)[1][2]
+        return blk
+
+    def _forward(self, blocks: list) -> np.ndarray:
+        """One fixed-bucket dispatch over per-id blocks, padded to
+        max_batch rows, so one captured forward serves every dispatch
+        (see the module docstring)."""
+        n = len(blocks)
+        padded = blocks + [blocks[0]] * (self.max_batch - n)
+        sig = _signature(padded)
+        with self._forward_lock:
+            if self._bucket is None or self._bucket.signature != sig:
+                self._capture(sig, padded)
+            rows = self._bucket.run(padded, n)
+            self._replays += 1
+        if self.device.type == "cuda":
+            native.counter_add(
+                "h2d_bytes",
+                sum(int(np.prod(shape)) * np.dtype(dt).itemsize
+                    for _, shape, dt in sig))
+            native.counter_add("d2h_bytes", rows.nbytes)
+        return rows
+
+    def _capture(self, sig: tuple, blocks: list) -> None:
+        """Fix the bucket at ``sig`` (on the card: capture its graph); a
+        bucket already fixed at other shapes is the guard's case."""
+        if self._bucket is not None:
+            native.counter_add("serve_recompiles", 1)
+            diff = [(a[0], a[1:], b[1:]) for a, b in
+                    zip(self._bucket.signature, sig) if a != b]
+            msg = (f"serve bucket changed after capture: {diff or sig} "
+                   "(path, captured, now); the fixed-bucket forward is the "
+                   "bit-parity anchor")
+            if self.strict_bucket:
+                raise RecompileError(msg)
+            log.warning("%s; capturing again", msg)
+            self._recaptures += 1
+            self._bucket = None  # its graph and buffers go first
+        self._bucket = self._bucket_cls(sig, blocks, self._embed_fn,
+                                        self._state, self.device)
+        self._captures += 1
+
+    def _embed_unique(self, uids: np.ndarray) -> np.ndarray:
+        """The batcher's callback: sample each unique id (cached), then
+        dispatch in max_batch-sized chunks."""
+        t0 = time.monotonic()
+        blocks = [self._block(int(i)) for i in uids]
+        T.record_serve_phase("sample", (time.monotonic() - t0) * 1e6)
+        t1 = time.monotonic()
+        outs = [
+            self._forward(blocks[off:off + self.max_batch])
+            for off in range(0, len(blocks), self.max_batch)
+        ]
+        T.record_serve_phase("dispatch", (time.monotonic() - t1) * 1e6)
+        return outs[0] if len(outs) == 1 else np.concatenate(outs, axis=0)
+
+
+def restore_serving_state(model, graph, args, device=None):
+    """Initialise the state and restore the checkpoint in
+    ``--model_dir``, which must hold one: serving fresh random parameters
+    is a bug, so this raises ``Checkpointer.restore``'s ``ValueError``
+    when the directory has none."""
+    from euler_tpu_torch import train as train_lib
+    from euler_tpu_torch.checkpoint import Checkpointer
+
+    opt = train_lib.get_optimizer(args.optimizer, args.learning_rate)
+    state = model.init_state(graph, opt, device=device, seed=args.seed)
+    ckpt = Checkpointer(args.model_dir)
+    try:
+        state = ckpt.restore(state)
+    finally:
+        ckpt.close()
+    return state
+
+
+def build_server(model, graph, args, device=None) -> EmbedServer:
+    """EmbedServer from the run_loop flag surface and a restored
+    checkpoint, on ``device`` (the card unless ``"cpu"`` is asked for)."""
+    state = restore_serving_state(model, graph, args, device)
+    return EmbedServer(
+        model, graph, state,
+        max_batch=args.serve_max_batch,
+        max_wait_us=args.serve_max_wait_us,
+        queue_cap=args.serve_queue_cap,
+        slo_ms=args.serve_slo_ms,
+        seed=args.seed,
+        sample_cache=args.serve_sample_cache,
+        strict_bucket=bool(args.serve_strict_bucket),
+    )
+
+
+def run_serve(model, graph, args, device=None, block: bool = True):
+    """Start the embedding server and its frontend (``run_loop
+    --serve_after`` and the serve CLI both land here).
+
+    ``block=True`` serves until SIGTERM or SIGINT and drains on the way
+    out (stop accepting, finish in-flight requests, drain the batch
+    queue); it installs signal handlers, so it must run on the main
+    thread. ``block=False`` returns the live ``(server, frontend)``; the
+    caller then owns ``frontend.stop()`` and ``server.close()``."""
+    server = build_server(model, graph, args, device).start()
+    frontend = EmbedFrontend(
+        server,
+        host=args.serve_host,
+        port=args.serve_port,
+        max_conns=args.serve_max_conns,
+        default_deadline_ms=args.serve_deadline_ms,
+    )
+    log.info(
+        "serving embeddings on %s (max_batch=%d max_wait_us=%d "
+        "queue_cap=%d slo_ms=%g device=%s)", frontend.address,
+        args.serve_max_batch, args.serve_max_wait_us,
+        args.serve_queue_cap, args.serve_slo_ms, server.device,
+    )
+    if not block:
+        return server, frontend
+    stop = threading.Event()
+
+    def _stop(signum, _frame):
+        log.info("signal %d: draining embedding server", signum)
+        stop.set()
+
+    prev = {
+        s: signal.signal(s, _stop)
+        for s in (signal.SIGTERM, signal.SIGINT)
+    }
+    try:
+        while not stop.wait(0.5):
+            pass
+    finally:
+        for s, h in prev.items():
+            signal.signal(s, h)
+        frontend.drain()
+        server.close()  # drains the queued batches
+        frontend.stop()
+        log.info("serve SLO at exit: %s", server.slo.report())
+    return server, frontend
+
+
+def main(argv=None, device=None) -> int:
+    """``python -m euler_tpu_torch.serve``: serve a trained checkpoint on
+    ``device`` (the card unless ``"cpu"`` is asked for; with no card it
+    raises).
+
+    The run_loop flag surface (graph, model and checkpoint flags mean the
+    same) plus the serve flags; the model is built with the inference
+    sampling config (``--all_edge_type`` metapaths, as evaluate and
+    save_embedding), so ``--mode`` is ignored."""
+    from euler_tpu_torch import run_loop
+
+    logging.basicConfig(
+        level=logging.INFO, format="%(asctime)s %(name)s %(message)s"
+    )
+    args = run_loop.define_flags().parse_args(argv)
+    args.mode = "evaluate"  # inference sampling config (all_edge_type)
+    run_loop.check_flags(args)
+    dev = resolve_device(device)
+    if not args.telemetry:
+        T.set_telemetry(False)
+    graph = run_loop.build_graph(args)
+    try:
+        model = run_loop.build_model(args, graph)
+        run_serve(model, graph, args, dev, block=True)
+    finally:
+        ledger = {k: v for k, v in native.counters().items() if v}
+        if ledger:
+            log.info("serve counters at exit: %s", ledger)
+        graph.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -338,8 +338,8 @@ def test_save_embedding_is_the_restored_states(fixture_dir, tmp_path):
     (["--stream", "1"], "A0b"),
     (["--shards", "localhost:1"], "A0b"),
     (["--feature_cache_mb", "8"], "A0b"),
-    (["--serve_after", "1"], "A11"),
-    (["--serve_port", "9300"], "A11"),
+    (["--metrics_file", "m.jsonl"], "A11"),
+    (["--serve_after", "1", "--trace_file", "t.json"], "A11"),
     (["--trace_file", "t.json"], "A11"),
     (["--metrics_every", "5"], "A11"),
     (["--postmortem_dir", "pm"], "A11"),
