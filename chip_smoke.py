@@ -164,7 +164,38 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    sample cache's host bytes. Then ``python -m euler_tpu_torch.serve``
    on the same checkpoint answers one embed over the wire, bit-equal to
    the in-process row, and drains to exit code 0 on SIGTERM.
-7. The ``kernels`` line; then the final ``ok`` line. Each phase prints
+7. The host-sampled model zoo (``run_loop --device_sampling 0``, the JAX
+   CLI's default), on phase 5's ppi files, each path with the launch
+   counts set to 0 just before it and read just after: B1 and B2 launch
+   0 times on every one. First, gcn's and scalable_gcn's host expansion
+   at the CLI's caps (batch * max(fanouts)**h: 5,120 at hop 1) raises,
+   as the JAX package's host path does (512 ppi roots reach some 7,150
+   unique neighbors). Then ``run_loop.main`` at the JAX CLI's defaults
+   and ``RUN_LOOP_ARGS``' ppi widths, one epoch (111 steps), for gcn
+   (mean) and scalable_gcn at fanouts 16,16 (caps [8,192, 131,072] and
+   8,192), scalable_sage (fanout 10), gat (5 neighbors), gat with
+   ``--device_features 1`` (host-sampled ids, features and labels read
+   from the card's tables), line (order 1), node2vec (15,360 roots a
+   step) and saved_embedding over phase 5 (f)'s ``embedding.npy``; each
+   after a CPU/CUDA agreement on one host batch of 64 roots (three steps
+   from the same init), then ``--mode evaluate`` and ``--mode
+   save_embedding``: the loss finite, falling from the first ten steps
+   to the last (but for line, whose fresh batches need not: phase 4),
+   and lower on its first 10 batches replayed than at init; eval's
+   metric in [0, 1]; the export bit-equal to the trained id table (walk
+   models) or the frozen table (saved_embedding), else close by row
+   cosine to a fresh export of ids 0-4,095. Then the heterogeneous
+   variant of phase 3 (n) written as ``.dat`` files (``datasets.write_dat``,
+   uint64 slot 0 read back), ``--model lshne`` over it the same way, and
+   ``LasGNN`` through ``train.train`` over that ``Graph`` on host-drawn
+   inputs shaped as phase 4's lasgnn, for 100 steps, then
+   ``train.evaluate`` over 10 fresh batches. Each run prints its step ms
+   (median of steps 11-111), edges/s or pairs/s, the batch build ms in a
+   prefetch worker, the input stall and the steps that waited, a full
+   batch's bytes and upload ms, the loss, the metric, the peak of
+   allocated device memory and a profiler window's device ms and busy
+   share, beside the card's name and power limit.
+8. The ``kernels`` line; then the final ``ok`` line. Each phase prints
    its wall time.
 """
 
@@ -268,6 +299,18 @@ RUN_LOOP_ARGS = [
     "--batch_size", str(PPI_BATCH), "--learning_rate", str(PPI_LR),
     "--num_epochs", "1", "--log_steps", "1",
 ]
+# phase 7 (the host-sampled model zoo): run_loop's other models at their
+# defaults over phase 5's ppi files, sampled on the host. The GCN
+# family's host expansion raises past its caps, as the JAX package's host
+# path does, and at the CLI's cap rule (batch * max(fanouts)**h) 512 ppi
+# roots reach some 7,150 unique hop-1 neighbors (7,454 at most over 400
+# CPU draws) against 5,120: gcn and scalable_gcn run at fanouts 16,16
+# (caps 8,192 and 131,072, 8,192 edges a hop-1 batch against 7,997 at
+# most), after the phase shows the defaults raise
+ZOO_GCN_FANOUTS = (16, 16)
+ZOO_AGREE_ROOTS = 64
+ZOO_REPLAY_STEPS = 10
+ZOO_LASGNN_STEPS = 100
 # the serving phase (serve_ppi): run_loop_host's checkpoint served at the
 # JAX package's serve defaults (max_batch 64, max_wait_us 2000) to
 # SERVE_CLIENTS threads sending SERVE_REQUESTS requests of 1 to
@@ -1344,14 +1387,16 @@ def check_single_hop(adj, adj_w, roots, roots_c, zero_rows, seed, flush):
 
 
 def agree_cpu_cuda(model, graph, seed: int, name: str,
-                   lr: float = PPI_LR, inputs=None) -> None:
+                   lr: float = PPI_LR, inputs=None, host_batch=None) -> None:
     """Three steps of ``model`` from the same init on the CPU (plain
     draws) and on the card (kernels), on the same roots (or the model's
-    structured ``inputs``) and seeds: first loss rtol 1e-5, all losses
-    rtol 1e-3, step-1 gradients within 1e-5 of their scale (max |diff| /
-    max(1, max |grad|): the unsupervised loss is a sum over the batch, so
-    its gradients run to tens)."""
+    structured ``inputs``) and seeds, or three steps on one host batch
+    (``host_batch``, a ``model.sample`` output) uploaded to each: first
+    loss rtol 1e-5, all losses rtol 1e-3, step-1 gradients within 1e-5 of
+    their scale (max |diff| / max(1, max |grad|): the unsupervised loss is
+    a sum over the batch, so its gradients run to tens)."""
     from euler_tpu_torch import train
+    from euler_tpu_torch.models import base
 
     opt = train.get_optimizer("adam", lr)
     st = {d: model.init_state(graph, opt, device=d, seed=seed)
@@ -1363,7 +1408,11 @@ def agree_cpu_cuda(model, graph, seed: int, name: str,
     grads0 = {}
     for i in range(3):
         for d in ("cpu", "cuda"):
-            batch = model.device_sample_batch(inputs, seed * 10 + i, device=d)
+            if host_batch is not None:
+                batch = base.to_device(host_batch, d)
+            else:
+                batch = model.device_sample_batch(inputs, seed * 10 + i,
+                                                  device=d)
             loss, _ = step(st[d], batch)
             losses[d].append(float(loss))
             if i == 0:
@@ -1829,7 +1878,7 @@ def lshne(max_id: int, dim: int = LSHNE_DIM):
                  device_sampling=True)
 
 
-def lasgnn(max_id: int, dim: int = PPI_DIM):
+def lasgnn(max_id: int, dim: int = PPI_DIM, device_sampling: bool = True):
     """LasGNN at run_loop's widths: ``LASGNN_METAPATHS``, group sizes
     [1, 2], fanouts [10, 10], dim 256, mean aggregation, slot 0 over
     max_id + 1 ids (a table of max_id + 3 rows of 16), 16 ids a row."""
@@ -1837,7 +1886,8 @@ def lasgnn(max_id: int, dim: int = PPI_DIM):
 
     return LasGNN(LASGNN_METAPATHS, list(PPI_FANOUTS), dim, feature_ixs=[0],
                   feature_dims=[max_id + 1], group_sizes=LASGNN_GROUP_SIZES,
-                  max_id=max_id, aggregator="mean", device_sampling=True)
+                  max_id=max_id, aggregator="mean",
+                  device_sampling=device_sampling)
 
 
 def lasgnn_inputs(sampler, adj, gen, words, batch: int) -> dict:
@@ -2267,6 +2317,45 @@ def run_loop_path(name: str, data_dir: str, model_dir: str, extra,
             "restored": restored, "model": model}
 
 
+def profile_host_steps(model, graph, source_fn, seed: int, device: str,
+                       lr: float = PPI_LR) -> str:
+    """21 steps of ``train.train`` over a host-sampling model (fresh
+    state), one ``torch.profiler`` window over steps 11-20: the wall and
+    device ms a step, the busy share, the batch build ms in a worker and
+    the input stall, as a line."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from euler_tpu_torch import train
+
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device == "cuda" else [])
+    prof = profile(activities=acts)
+    window = {}
+
+    def hook(step):
+        if step == 10:
+            torch.cuda.synchronize()
+            prof.start()
+            window["t0"] = time.perf_counter()
+        elif step == 20:
+            torch.cuda.synchronize()
+            window["wall"] = time.perf_counter() - window["t0"]
+            prof.stop()
+
+    _, history = train.train(
+        model, graph, source_fn, num_steps=21, learning_rate=lr,
+        log_every=1, seed=seed, device=device, step_hook=hook,
+        log_fn=lambda msg: None)
+    busy = device_busy_us(prof) / 1e6
+    return (f"wall {window['wall'] / 10 * 1e3:.4f} ms/step, device busy "
+            f"{busy / 10 * 1e3:.4f} ms/step, busy share "
+            f"{busy / window['wall']:.4f}; batch build "
+            f"{np.mean([h['sample_ms'] for h in history[10:20]]):.4f} ms, "
+            f"input stall "
+            f"{np.mean([h['input_stall_ms'] for h in history[10:20]]):.4f}"
+            f" ms a step")
+
+
 def scratch_dir():
     """A temporary directory under the checkout's ``build/``, removed on
     exit."""
@@ -2291,7 +2380,7 @@ def phase_engine(seed: int, smi: str, device: str = "cuda",
     for the device run, ``m2`` for the host run), a scratch directory
     under ``build/`` when none is given."""
     log("== phase 5: engine and run_loop")
-    from euler_tpu_torch import datasets, train
+    from euler_tpu_torch import datasets
     from euler_tpu_torch.graph import Graph, MemoryGraph, sampling_kernels
     from euler_tpu_torch.models import SupervisedGraphSage
 
@@ -2361,39 +2450,12 @@ def phase_engine(seed: int, smi: str, device: str = "cuda",
             raise AssertionError(f"run_loop_host launched {moved}")
 
         # (f) one profiler window of 10 host-sampled steps
-        from torch.profiler import ProfilerActivity, profile
-
         graph = Graph(directory=data_dir)
-        host_model = host_run["model"]
-        acts = [ProfilerActivity.CPU] + (
-            [ProfilerActivity.CUDA] if device == "cuda" else [])
-        prof = profile(activities=acts)
-        window = {}
-
-        def hook(step):
-            if step == 10:
-                torch.cuda.synchronize()
-                prof.start()
-                window["t0"] = time.perf_counter()
-            elif step == 20:
-                torch.cuda.synchronize()
-                window["wall"] = time.perf_counter() - window["t0"]
-                prof.stop()
-
-        _, history = train.train(
-            host_model, graph,
-            lambda step: graph.sample_node(PPI_BATCH, 0), num_steps=21,
-            learning_rate=PPI_LR, log_every=1, seed=seed, device=device,
-            step_hook=hook, log_fn=lambda msg: None)
-        busy = device_busy_us(prof) / 1e6
-        log(f"(f) host-sampled train.train profiled over steps 11-20: wall "
-            f"{window['wall'] / 10 * 1e3:.4f} ms/step, device busy "
-            f"{busy / 10 * 1e3:.4f} ms/step, busy share "
-            f"{busy / window['wall']:.4f}; batch build "
-            f"{np.mean([h['sample_ms'] for h in history[10:20]]):.4f} ms, "
-            f"input stall "
-            f"{np.mean([h['input_stall_ms'] for h in history[10:20]]):.4f}"
-            f" ms a step (card: {smi})")
+        log("(f) host-sampled train.train profiled over steps 11-20: "
+            + profile_host_steps(
+                host_run["model"], graph,
+                lambda step: graph.sample_node(PPI_BATCH, 0), seed, device)
+            + f" (card: {smi})")
         graph.close()
 
         # (g) restore round trip
@@ -2670,6 +2732,348 @@ def phase_serve(data_dir: str, model_dir: str, seed: int, smi: str,
     return {"serve_ppi": {"launches": launches}}
 
 
+def zoo_work(model: str, batch: dict) -> tuple:
+    """(count, unit) of one step's work of ``--model`` ``model``: the
+    aggregated (masked-in) edges of the GCN family, counted on ``batch``;
+    sampled edges of the single-hop models; skip-gram pairs of the walk
+    models and lshne; labelled rows of saved_embedding."""
+    if model == "gcn":
+        return sum(float(a["mask"].sum()) for a in batch["adjs"]), \
+            "aggregated edges"
+    if model == "scalable_gcn":
+        return float(batch["adj"]["mask"].sum()), "aggregated edges"
+    if model == "scalable_sage":
+        return PPI_BATCH * SSAGE_FANOUT, "sampled edges"
+    if model == "gat":
+        return PPI_BATCH * GAT_NB, "sampled edges"
+    if model in ("line", "node2vec"):
+        return len(batch["src"]["ids"]), "pairs"
+    if model == "lshne":
+        return LSHNE_PAIRS, "pairs"
+    return PPI_BATCH, "labelled rows"
+
+
+def zoo_path(name: str, data_dir: str, model_dir: str, extra, seed: int,
+             smi: str, device: str, max_id: int) -> dict:
+    """One host-sampled run_loop model, with the launch counts set to 0
+    just before it and read just after: (a) a CPU/CUDA agreement on one
+    host batch of ZOO_AGREE_ROOTS roots; (b) one full batch's bytes and
+    upload ms; (c) ``--mode train`` for one epoch, the loss finite and,
+    on the first ZOO_REPLAY_STEPS batches replayed, lower than at init
+    (and, but for line, falling from the first ten steps to the last);
+    (d) ``--mode evaluate`` and ``--mode save_embedding``: the metric in
+    [0, 1], the export finite and equal (walk models, saved_embedding:
+    bit for bit, the table itself) or close by row cosine to a fresh
+    export of the restored state; (e) a profiler window of 10 steps."""
+    from euler_tpu_torch import run_loop
+    from euler_tpu_torch import train as train_lib
+    from euler_tpu_torch.checkpoint import Checkpointer
+    from euler_tpu_torch.graph import sampling_kernels
+    from euler_tpu_torch.models import base
+
+    argv = ["--data_dir", data_dir, "--model_dir", model_dir,
+            "--max_id", str(max_id), "--seed", str(seed), *RUN_LOOP_ARGS,
+            *extra]
+    args = run_loop.define_flags().parse_args(argv)
+    graph = run_loop.build_graph(args)
+    model = run_loop.build_model(args, graph)
+    assert not model.device_sampling
+    for k in sampling_kernels.launches:
+        sampling_kernels.launches[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    roots = graph.sample_node(ZOO_AGREE_ROOTS, args.train_node_type)
+    agree_cpu_cuda(model, graph, seed, name,
+                   host_batch=model.sample(graph, roots))
+    t_agree = time.perf_counter() - t0
+    full = model.sample(graph, graph.sample_node(
+        PPI_BATCH * model.batch_size_ratio, args.train_node_type))
+    work, unit = zoo_work(args.model, full)
+    nbytes = sum(x.nbytes for _, x in base.batch_leaves(full))
+    up = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        base.to_device(full, device)
+        torch.cuda.synchronize()
+        up.append((time.perf_counter() - t0) * 1e3)
+    del full
+
+    # (c) train one epoch, keeping the first batches the training thread
+    # uploads, in step order
+    first = []
+    real_up = base.to_device
+
+    def recording(batch, dev=None):
+        if len(first) < ZOO_REPLAY_STEPS:
+            first.append(batch)
+        return real_up(batch, dev)
+
+    base.to_device = recording
+    try:
+        t0 = time.perf_counter()
+        windows = run_loop_main(argv, device)
+        wall = time.perf_counter() - t0
+    finally:
+        base.to_device = real_up
+    steps = (max_id + 1) // PPI_BATCH
+    losses = np.array([w[1] for w in windows])
+    if len(windows) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"{name}: {len(windows)} logged steps of "
+                             f"{steps}, losses {losses}")
+    head, tail = losses[:10].mean(), losses[-10:].mean()
+    if args.model != "line" and not tail < head:
+        raise AssertionError(f"{name}: loss did not fall ({head} -> {tail})")
+    latest = Checkpointer(model_dir).latest_step()
+    if latest != steps:
+        raise AssertionError(f"{name}: latest checkpoint {latest}, "
+                             f"expected {steps}")
+    restored = run_loop._restore_state(model, graph, args, device)
+    init = model.init_state(
+        graph, train_lib.get_optimizer(args.optimizer, args.learning_rate),
+        device=device, seed=args.seed)
+    ev = model.make_eval_step()
+    replay = [float(np.mean([float(ev(st, real_up(b, device))[0])
+                             for b in first])) for st in (init, restored)]
+    if not replay[1] < replay[0]:
+        raise AssertionError(f"{name}: the loss of its first "
+                             f"{ZOO_REPLAY_STEPS} batches did not fall "
+                             f"({replay})")
+    step_ms = statistics.median(w[2] for w in windows[10:])
+    stall_ms = float(np.mean([w[3] for w in windows[10:]]))
+    stalled = sum(w[4] for w in windows)
+    sample_ms = float(np.mean([w[5] for w in windows]))
+    log(f"{name} train: run_loop.main {wall:.2f} s, {steps} steps, loss "
+        f"{head:.5f} (first 10) -> {tail:.5f} (last 10); its first "
+        f"{ZOO_REPLAY_STEPS} batches replayed: {replay[0]:.5f} at init, "
+        f"{replay[1]:.5f} trained; step {step_ms:.4f} ms (median of steps "
+        f"11-{steps}, each synced by --log_steps 1), {work:.0f} {unit}/step"
+        f", {work / step_ms * 1e3:.1f} {unit}/s, batch build "
+        f"{sample_ms:.4f} ms in a prefetch worker, input stall "
+        f"{stall_ms:.4f} ms a step, {stalled} of {steps} steps waited over "
+        f"1 ms; a batch {nbytes} B, uploaded (pinned, to a sync) in "
+        f"{statistics.median(up):.4f} ms (median of 5); agreement "
+        f"{t_agree:.2f} s (card: {smi})")
+
+    # (d) evaluate and export
+    t0 = time.perf_counter()
+    run_loop_main(argv + ["--mode", "evaluate"], device)
+    with open(os.path.join(model_dir, "eval.json")) as f:
+        result = json.load(f)
+    metric = result[model.metric_name]
+    if not (0.0 <= metric <= 1.0 and np.isfinite(result["loss"])):
+        raise AssertionError(f"{name}: eval {result}")
+    run_loop_main(argv + ["--mode", "save_embedding"], device)
+    emb = np.load(os.path.join(model_dir, "embedding.npy"))
+    if emb.shape[0] != max_id + 1 or not np.isfinite(emb).all():
+        raise AssertionError(f"{name}: embedding.npy {emb.shape}")
+    if args.model in ("line", "node2vec"):
+        table = restored["module"].target.embedding.embeddings
+        same = np.array_equal(emb, table[:max_id + 1].detach().cpu().numpy())
+        how = "bit-equal to the trained id table"
+    elif args.model == "saved_embedding":
+        same = np.array_equal(emb, model.embedding[:max_id + 1])
+        how = "bit-equal to the frozen table"
+    else:
+        fresh = train_lib.save_embedding(model, 4095, restored,
+                                         batch_size=PPI_BATCH, device=device,
+                                         graph=graph)
+        a, b = emb[:4096], fresh
+        cos = (a * b).sum(1) / np.maximum(
+            np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1), 1e-12)
+        b = np.roll(b, 1, axis=0)
+        other = (a * b).sum(1) / np.maximum(
+            np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1), 1e-12)
+        same = np.median(cos) > np.median(other) + EXPORT_COSINE_MARGIN
+        how = (f"against a fresh export of ids 0-4095, row cosine median "
+               f"{np.median(cos):.6f} (the next id's row: "
+               f"{np.median(other):.6f})")
+    if not same:
+        raise AssertionError(f"{name}: embedding.npy is not the restored "
+                             f"state's export ({how})")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{name} evaluate and save_embedding: "
+        f"{time.perf_counter() - t0:.2f} s, eval over every id {result}, "
+        f"embedding.npy {emb.shape} {how}; max_memory_allocated {peak} B")
+    # (e) the profiler window
+    log(f"{name} train.train profiled over steps 11-20: " + profile_host_steps(
+        model, graph, lambda step: graph.sample_node(
+            PPI_BATCH * model.batch_size_ratio, args.train_node_type),
+        seed, device) + f" (card: {smi})")
+    graph.close()
+    launches = dict(sampling_kernels.launches)
+    if any(launches.values()):
+        raise AssertionError(f"{name} launched {launches}")
+    return {"launches": launches, "steps": steps, "step_ms": step_ms,
+            "peak_bytes": peak}
+
+
+def lasgnn_host_inputs(graph, batch: int) -> dict:
+    """LasGNN's structured inputs drawn on the host, as
+    ``lasgnn_inputs`` draws them on the card: targets of any type; the
+    first half of the rows positives, two neighbors of the target over
+    edge types [0, 1], label 1; the rest two sampled nodes, label 0."""
+    roots = graph.sample_node(batch, -1)
+    half = batch // 2
+    pos = graph.sample_neighbor(roots[:half], [0, 1], 2, -1)[0]
+    neg = graph.sample_node(2 * (batch - half), -1).reshape(-1, 2)
+    label = np.concatenate([np.ones(half), np.zeros(batch - half)])
+    return {"label": label[:, None].astype(np.float32),
+            "groups": [roots[:, None], np.concatenate([pos, neg])]}
+
+
+def zoo_lasgnn(graph, seed: int, smi: str, device: str) -> dict:
+    """LasGNN host-sampled through ``train.train`` over the engine, on
+    host-drawn inputs, for ZOO_LASGNN_STEPS steps, then
+    ``train.evaluate`` over EVAL_BATCHES fresh batches and a profiler
+    window of 10 steps; the counts set to 0 just before and read just
+    after."""
+    from euler_tpu_torch import train
+    from euler_tpu_torch.graph import sampling_kernels
+
+    max_id = graph.num_nodes - 1
+    model = lasgnn(max_id, device_sampling=False)
+    for k in sampling_kernels.launches:
+        sampling_kernels.launches[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    agree_cpu_cuda(model, graph, seed, "lasgnn_host", host_batch=model.sample(
+        graph, lasgnn_host_inputs(graph, ZOO_AGREE_ROOTS)))
+    t0 = time.perf_counter()
+    state, history = train.train(
+        model, graph, lambda step: lasgnn_host_inputs(graph, PPI_BATCH),
+        num_steps=ZOO_LASGNN_STEPS, learning_rate=PPI_LR, log_every=1,
+        seed=seed, device=device, log_fn=lambda msg: None)
+    wall = time.perf_counter() - t0
+    losses = np.array([h["loss"] for h in history])
+    head, tail = losses[:10].mean(), losses[-10:].mean()
+    if not (np.isfinite(losses).all() and tail < head):
+        raise AssertionError(f"lasgnn host losses {head} -> {tail}")
+    step_ms = statistics.median(1e3 / h["steps_per_sec"]
+                                for h in history[10:])
+    f1, f2 = PPI_FANOUTS
+    roots = sum(PPI_BATCH * n * len(m)
+                for n, m in zip(LASGNN_GROUP_SIZES, LASGNN_METAPATHS))
+    edges = roots * (f1 + f1 * f2)
+    result = train.evaluate(
+        model, graph, [lasgnn_host_inputs(graph, PPI_BATCH)
+                       for _ in range(EVAL_BATCHES)], state, device=device)
+    if not (0.0 <= result["auc"] <= 1.0 and np.isfinite(result["loss"])):
+        raise AssertionError(f"lasgnn host evaluate {result}")
+    profiled = profile_host_steps(
+        model, graph, lambda step: lasgnn_host_inputs(graph, PPI_BATCH),
+        seed, device)
+    launches = dict(sampling_kernels.launches)
+    if any(launches.values()):
+        raise AssertionError(f"lasgnn host launched {launches}")
+    log(f"lasgnn_host train: train.train {wall:.2f} s, "
+        f"{ZOO_LASGNN_STEPS} steps, loss {head:.5f} (first 10) -> "
+        f"{tail:.5f} (last 10), step {step_ms:.4f} ms (median of steps "
+        f"11-{ZOO_LASGNN_STEPS}), {edges} sampled edges/step, "
+        f"{edges / step_ms * 1e3:.1f} edges/s, batch build "
+        f"{np.mean([h['sample_ms'] for h in history]):.4f} ms in a "
+        f"prefetch worker, input stall "
+        f"{np.mean([h['input_stall_ms'] for h in history[10:]]):.4f} ms a "
+        f"step, {sum(h['stalled_steps'] for h in history)} steps waited; "
+        f"evaluate {result} over {EVAL_BATCHES} fresh batches; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} B; "
+        f"train.train profiled over steps 11-20: {profiled} (card: {smi})")
+    return {"launches": launches, "steps": ZOO_LASGNN_STEPS,
+            "step_ms": step_ms,
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def phase_zoo(work: str, seed: int, smi: str, device: str = "cuda",
+              ppi: dict | None = None) -> dict:
+    """The host-sampled model zoo on phase 5's ppi files (``work/ppi``)
+    and phase 5 (f)'s export (``work/m2/embedding.npy``): gcn's and
+    scalable_gcn's host expansion at the CLI's caps raises (hop 1
+    outgrows them), then ``zoo_path`` for gcn and scalable_gcn (at
+    ZOO_GCN_FANOUTS), scalable_sage, gat, gat with --device_features 1,
+    line, node2vec and saved_embedding; the heterogeneous variant written
+    as .dat files (``datasets.write_dat``) and lshne over it; then LasGNN
+    through ``train.train`` (``zoo_lasgnn``). B1 and B2 launch on none of
+    these paths."""
+    log("== phase 7: host-sampled model zoo")
+    from euler_tpu_torch import datasets, run_loop
+    from euler_tpu_torch.graph import Graph
+
+    ppi = ppi or datasets.PPI
+    max_id = ppi["num_nodes"] - 1
+    data_dir = os.path.join(work, "ppi")
+    runs = {}
+    base_argv = ["--data_dir", data_dir, "--max_id", str(max_id),
+                 *RUN_LOOP_ARGS]
+    graph = Graph(directory=data_dir)
+    for model_name in ("gcn", "scalable_gcn"):
+        args = run_loop.define_flags().parse_args(
+            base_argv + ["--model", model_name])
+        model = run_loop.build_model(args, graph)
+        try:
+            model.sample(graph, graph.sample_node(PPI_BATCH, 0))
+        except ValueError as e:
+            log(f"{model_name} at the CLI's caps (fanouts "
+                f"{args.fanouts}): the host expansion raises, as the JAX "
+                f"package's: {e}")
+        else:
+            raise AssertionError(f"{model_name}: the host expansion at the "
+                                 "CLI's caps did not raise")
+    graph.close()
+    fan = ["--fanouts", ",".join(map(str, ZOO_GCN_FANOUTS))]
+    emb_file = os.path.join(work, "m2", "embedding.npy")
+    # the cells' names: phase 4's device-sampled paths hold the bare ones
+    for name, extra in (
+            ("gcn_host", ["--model", "gcn", *fan]),
+            ("scalable_gcn_host", ["--model", "scalable_gcn", *fan]),
+            ("scalable_sage_host", ["--model", "scalable_sage"]),
+            ("gat_host", ["--model", "gat"]),
+            ("gat_host_device_features", ["--model", "gat",
+                                          "--device_features", "1"]),
+            ("line_host", ["--model", "line"]),
+            ("node2vec_host", ["--model", "node2vec"]),
+            ("saved_embedding", ["--model", "saved_embedding",
+                                 "--embedding_file", emb_file])):
+        t0 = time.perf_counter()
+        runs[name] = zoo_path(name, data_dir, os.path.join(work, "z_" + name),
+                              extra, seed, smi, device, max_id)
+        log(f"{name} path: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    het_dir = os.path.join(work, "het")
+    datasets.write_dat(hetero_variant(datasets.build_synthetic(**ppi),
+                                      seed + 3), het_dir, num_partitions=4)
+    graph = Graph(directory=het_dir)
+    ids = np.array([0, 1, max_id])
+    got = graph.get_sparse_feature(ids, [0])[0]
+    if not (np.array_equal(got[0], ids) and np.array_equal(got[1], [1, 1, 1])
+            and graph.node_type_num == HET_NODE_TYPES
+            and graph.edge_type_num == 2):
+        raise AssertionError(f"the heterogeneous .dat files: slot 0 {got}, "
+                             f"{graph.node_type_num} node types")
+    log(f"heterogeneous variant written as .dat and loaded in "
+        f"{time.perf_counter() - t0:.2f} s: {graph.num_nodes} nodes, "
+        f"{graph.node_type_num} node types, 2 edge types, uint64 slot 0 "
+        f"the node's id")
+    t0 = time.perf_counter()
+    runs["lshne_host"] = zoo_path(
+        "lshne_host", het_dir, os.path.join(work, "z_lshne"),
+        ["--model", "lshne", "--feature_idx", "0"], seed, smi, device,
+        max_id)
+    log(f"lshne_host path: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    runs["lasgnn_host"] = zoo_lasgnn(graph, seed, smi, device)
+    log(f"lasgnn_host path: {time.perf_counter() - t0:.1f} s")
+    graph.close()
+    return runs
+
+
+def add_runs(runs: dict, new: dict) -> None:
+    """``runs.update(new)``, raising where a path's name is taken: the
+    kernels line counts launches by path name."""
+    taken = sorted(set(runs) & set(new))
+    if taken:
+        raise AssertionError(f"paths named twice: {taken}")
+    runs.update(new)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2687,13 +3091,16 @@ def main() -> int:
     log(f"phase 4: {t3 - t2:.1f} s")
     del graph, hetero, reddit
     with scratch_dir() as work:
-        runs.update(phase_engine(args.seed, smi, workdir=work))
+        add_runs(runs, phase_engine(args.seed, smi, workdir=work))
         t4 = time.perf_counter()
         log(f"phase 5: {t4 - t3:.1f} s")
-        runs.update(phase_serve(os.path.join(work, "ppi"),
-                                os.path.join(work, "m2"), args.seed, smi))
-    log(f"phase 6: {time.perf_counter() - t4:.1f} s")
-    log("== phase 7: kernels")
+        add_runs(runs, phase_serve(os.path.join(work, "ppi"),
+                                   os.path.join(work, "m2"), args.seed, smi))
+        t5 = time.perf_counter()
+        log(f"phase 6: {t5 - t4:.1f} s")
+        add_runs(runs, phase_zoo(work, args.seed, smi))
+    log(f"phase 7: {time.perf_counter() - t5:.1f} s")
+    log("== phase 8: kernels")
     meta = {
         "sample_fanout2": dict(
             source="euler_tpu_torch/csrc/sample_fanout2.cu",

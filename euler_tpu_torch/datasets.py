@@ -67,11 +67,11 @@ def _cache_finish(out_dir: str, params: str) -> None:
 
 
 def write_dat(arrays: dict, out_dir: str, num_partitions: int = 1) -> None:
-    """Write ``MemoryGraph`` arrays (dense feature slots only) as
-    ``meta.json`` and ``part_<p>.dat`` partitions (node id %
-    ``num_partitions``), through ``graph.convert``'s block packer: each
-    node's neighbors in the order the arrays hold them, its dense slots
-    as float features."""
+    """Write ``MemoryGraph`` arrays as ``meta.json`` and ``part_<p>.dat``
+    partitions (node id % ``num_partitions``), through ``graph.convert``'s
+    block packer: each node's neighbors in the order the arrays hold
+    them, its dense slots as float features and its sparse slots
+    (``sparse_features``, CSR ``(indptr, values)``) as uint64 features."""
     from euler_tpu_torch.graph.convert import convert_dicts
 
     indptr = np.asarray(arrays["indptr"], np.int64)
@@ -80,11 +80,13 @@ def write_dat(arrays: dict, out_dir: str, num_partitions: int = 1) -> None:
     node_weights = np.asarray(arrays["node_weights"], np.float32)
     node_types = np.asarray(arrays["node_types"], np.int32)
     dense = list(arrays.get("dense_features", ()))
+    sparse = [(np.asarray(ptr, np.int64), np.asarray(values, np.int64))
+              for ptr, values in arrays.get("sparse_features", ())]
     n_et = int(arrays.get("edge_type_num", 1))
     meta = {
         "node_type_num": int(node_types.max(initial=0)) + 1,
         "edge_type_num": n_et,
-        "node_uint64_feature_num": 0,
+        "node_uint64_feature_num": len(sparse),
         "node_float_feature_num": len(dense),
         "node_binary_feature_num": 0,
         "edge_uint64_feature_num": 0,
@@ -107,7 +109,9 @@ def write_dat(arrays: dict, out_dir: str, num_partitions: int = 1) -> None:
                 "node_type": int(node_types[nid]),
                 "node_weight": float(node_weights[nid]),
                 "neighbor": neighbor,
-                "uint64_feature": {},
+                "uint64_feature": {
+                    str(k): values[ptr[nid]:ptr[nid + 1]].tolist()
+                    for k, (ptr, values) in enumerate(sparse)},
                 "float_feature": {
                     str(k): table[nid].tolist()
                     for k, table in enumerate(dense)},

@@ -6,10 +6,14 @@ A model is a host-side driver (config, table building, state) plus an
 (``consts``) and returns a ``ModelOutput``. In device-sampling mode the
 whole batch is root ids and a seed: the fanout is drawn on the device
 from the adjacency slabs in ``consts``, and feature and label rows are
-gathered from device tables. In host-sampling mode (SupervisedGraphSage
-and GraphSage) ``sample(graph, inputs)`` draws the fanout through the
-engine client and gathers features and labels on the host into a numpy
-batch, which ``to_device`` uploads.
+gathered from device tables. In host-sampling mode
+(``device_sampling=False``, every model) ``sample(graph, inputs)`` draws
+the fanout through the engine client into a numpy batch, which
+``to_device`` uploads: with ``device_features=False`` the features and
+labels are gathered on the host too; with ``device_features=True`` the
+batch carries only the nodes' table rows (``"gids"``) and the features
+and labels are read from the device tables, as the JAX package's
+``node_inputs`` lays it out.
 
 Unlike the JAX package's pure ``(state, batch) -> state`` step, the port's
 train step updates the module's parameters and the optimizer's moments
@@ -130,33 +134,38 @@ def _feature_table_dtype(name: str) -> torch.dtype:
     return dtype
 
 
+def resolve_device_features(device_features: bool, feature_idx: int,
+                            max_id: int, has_sparse: bool = False) -> bool:
+    """A model's ``device_features`` request, as the JAX package resolves
+    it: off, silently, when the model has no dense (or, with
+    ``has_sparse``, sparse) features; an error when ``max_id`` is unset,
+    since the tables would have one row and every id would read it."""
+    if not device_features or (feature_idx < 0 and not has_sparse):
+        return False
+    if max_id < 0:
+        raise ValueError(
+            "device_features=True requires max_id >= 0 (the feature/label "
+            "tables are sized max_id+2)")
+    return True
+
+
 def check_device_mode(name, device_features, device_sampling, feature_idx,
                       max_id, metapath=(), fanouts=(),
-                      has_sparse: bool = False,
-                      host_sampling: bool = False) -> None:
-    """The configurations the port runs: device features and device
-    sampling, over a dense (or, with ``has_sparse``, sparse) feature
-    table of max_id+2 rows; or, for the models that sample on the host
-    (``host_sampling``: SupervisedGraphSage and GraphSage), neither, with
-    features and labels gathered on the host. One edge-type set a hop."""
-    host = host_sampling and not (device_features or device_sampling)
-    if not (device_features and device_sampling) and not host:
-        raise NotImplementedError(
-            f"euler_tpu_torch runs {name} with device_features=True and "
-            "device_sampling=True"
-            + (" or with both False (host sampling)" if host_sampling
-               else "")
-            + "; host sampling through the graph engine client is ported "
-            "for SupervisedGraphSage and GraphSage with host-gathered "
-            "features only (ROADMAP A0c)"
-        )
-    if not host and ((feature_idx < 0 and not has_sparse) or max_id < 0):
+                      has_sparse: bool = False) -> tuple:
+    """``(device_features, device_sampling)`` of a feature model: device
+    features as ``resolve_device_features`` leaves them; device sampling
+    only over device feature tables (the drawn ids are read by device
+    gathers). Host sampling takes either. One edge-type set a hop."""
+    device_features = resolve_device_features(device_features, feature_idx,
+                                              max_id, has_sparse)
+    if device_sampling and not device_features:
         raise ValueError(
-            "device features need feature_idx >= 0 (or sparse slots) and "
-            "max_id >= 0 (the feature/label tables are sized max_id+2)"
-        )
+            f"{name}: device_sampling=True requires device_features=True "
+            "over a feature table (feature_idx >= 0 or sparse slots) and "
+            "max_id >= 0: the sampled ids are read by device gathers")
     if len(metapath) != len(fanouts):
         raise ValueError("metapath needs one edge-type set per fanout")
+    return device_features, bool(device_sampling)
 
 
 def to_device(batch, device=None):
@@ -249,14 +258,17 @@ def write_rows_last_wins(table, ids, rows) -> None:
     table.index_copy_(0, ids, rows.index_select(0, last.index_select(0, ids)))
 
 
-def lookup_labels(consts: dict, root_ids):
-    """Labels for a device-features batch, gathered from the device label
-    table at ``root_ids`` (a host-sampled batch carries its own
-    ``"labels"``)."""
+def lookup_labels(batch: dict, consts: dict, root_ids):
+    """Labels for a supervised batch: the host-gathered ``"labels"`` when
+    the batch carries them, else rows of the device label table at
+    ``root_ids``."""
+    if "labels" in batch:
+        return batch["labels"]
     if not consts:
         raise ValueError(
-            "no consts tables were passed: a device-features batch must be "
-            "applied with state['consts'] (from Model.init_state)"
+            "the batch has no 'labels' and no consts tables were passed: a "
+            "device-features batch must be applied with state['consts'] "
+            "(from Model.init_state)"
         )
     return consts["labels"].index_select(0, root_ids)
 
@@ -285,8 +297,8 @@ class Model:
     # families whose device pipeline reads the 2-D slab itself (the
     # full-neighborhood GCN walks adj["nbr"]) set this False
     alias_sampling_ok: bool = True
-    # the modes; host sampling (both False) is SupervisedGraphSage's and
-    # GraphSage's
+    # the modes: both True, host sampling over device tables
+    # (device_features only) or host sampling with host features (neither)
     device_features: bool = True
     device_sampling: bool = True
     batch_size_ratio: int = 1
@@ -309,8 +321,7 @@ class Model:
         host-sampling models draw their fanouts through ``graph``."""
         if not self.device_sampling:
             raise NotImplementedError(
-                f"{type(self).__name__}.sample on the host is not ported "
-                "(ROADMAP A0c)")
+                f"{type(self).__name__} has no host sample()")
         roots = np.asarray(inputs, dtype=np.int64).reshape(-1)
         return {
             "roots": np.clip(roots, 0, self.max_id + 1).astype(np.int32),
@@ -334,26 +345,45 @@ class Model:
 
     def sample_embed(self, ids, device=None, graph=None) -> dict:
         """The batch that embeds ``ids`` (``module.embed``), on
-        ``device``: drawn on the device with a fresh seed, or sampled on
-        the host from ``graph`` and uploaded."""
+        ``device``: ``device_embed_batch`` in device-sampling mode, else
+        ``sample_host_embed`` from ``graph``, uploaded."""
         if self.device_sampling:
-            return self.device_sample_batch(ids, self._next_seed(), device)
+            return self.device_embed_batch(ids, device)
         return to_device(self.sample_host_embed(graph, ids), device)
 
+    def device_embed_batch(self, ids, device=None) -> dict:
+        """The device-sampling batch that embeds ``ids``: the training
+        batch with a fresh seed, unless the model needs less."""
+        return self.device_sample_batch(ids, self._next_seed(), device)
+
     def host_node_inputs(self, graph, ids) -> dict:
-        """One node set's encoder inputs gathered on the host from
-        ``graph``: the dense feature rows (``"dense"``) and the padded
-        sparse slots (``"sparse"``), as numpy arrays."""
+        """One node set's encoder inputs for a host batch, as numpy arrays
+        (the JAX package's ``node_inputs``): ``"ids"`` (clipped into the
+        tables' max_id+2 rows) under ``use_id``; with device features the
+        table rows ``"gids"`` (the same clip), else the dense rows
+        (``"dense"``) and the padded sparse slots (``"sparse"``) gathered
+        from ``graph``."""
         ids = np.asarray(ids, dtype=np.int64).reshape(-1)
         feats = {}
+        if self.use_id or self.device_features:
+            clipped = np.clip(ids, 0, self.max_id + 1).astype(np.int32)
+        if self.use_id:
+            feats["ids"] = clipped
         if self.feature_idx >= 0:
-            feats["dense"] = graph.get_dense_feature(
-                ids, [self.feature_idx], [self.feature_dim])
+            if self.device_features:
+                feats["gids"] = clipped
+            else:
+                feats["dense"] = graph.get_dense_feature(
+                    ids, [self.feature_idx], [self.feature_dim])
         if self.sparse_feature_idx:
-            feats["sparse"] = feature_ops.get_sparse_feature(
-                graph, ids, list(self.sparse_feature_idx),
-                self.sparse_max_len,
-                default_values=[m + 1 for m in self.sparse_feature_max_ids])
+            if self.device_features:
+                feats.setdefault("gids", clipped)
+            else:
+                feats["sparse"] = feature_ops.get_sparse_feature(
+                    graph, ids, list(self.sparse_feature_idx),
+                    self.sparse_max_len,
+                    default_values=[m + 1
+                                    for m in self.sparse_feature_max_ids])
         return feats
 
     def set_sampling_options(

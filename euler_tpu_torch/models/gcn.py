@@ -1,7 +1,7 @@
 """GCN models: the full-neighbor SupervisedGCN and ScalableGCN
 (counterpart of ``euler_tpu/models/gcn.py``).
 
-Device-sampling mode only: the batch is root ids (and a seed, unused:
+In device-sampling mode the batch is root ids (and a seed, unused:
 nothing here draws). SupervisedGCN expands the roots' full neighborhoods
 on the device, hop by hop with dedup, up to static node caps
 (``graph.device.multi_hop_neighbor``); ScalableGCN takes each root's slab
@@ -12,14 +12,19 @@ these paths: as in the JAX package, they are gathers, a sort, a cumsum
 and segment sums. The modules also take host-given node sets and
 adjacencies (``{"hops": ..., "adjs": ...}``; ``{"node_feats": ...,
 "neigh_feats": ..., "node_ids": ..., "neigh_ids": ..., "adj": ...}``), so
-they can be held against the flax modules. Host sampling through the
-engine client is not ported for this model yet (ROADMAP A0c).
+they can be held against the flax modules. On the host
+(``device_sampling=False``) ``sample(graph, inputs)`` builds those
+layouts through the engine client (``ops.neighbor.get_multi_hop_neighbor``,
+padded to the same caps, which raises where a hop outgrows its cap, as
+the JAX host path does), with the features gathered on the host or, with
+``device_features=True``, read from the device tables by ``"gids"``.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -28,14 +33,7 @@ from euler_tpu_torch.models import base
 from euler_tpu_torch.nn import metrics, sparse_aggregators
 from euler_tpu_torch.nn.encoders import GCNEncoder, ShallowEncoder
 from euler_tpu_torch.nn.layers import Dense, Embedding
-
-
-def _check_device_mode(name, device_features, device_sampling) -> None:
-    if not (device_features and device_sampling):
-        raise NotImplementedError(
-            f"euler_tpu_torch runs {name} with device_features=True and "
-            "device_sampling=True; host sampling needs the graph engine "
-            "client, not ported for the GCN family yet (ROADMAP A0c)")
+from euler_tpu_torch.ops import neighbor as neighbor_ops
 
 
 def _node_encoder(dim, use_residual, feature_dim, max_id, embedding_dim,
@@ -111,7 +109,7 @@ class _SupervisedGCNModule(nn.Module):
     def forward(self, batch, consts=None):
         embedding, hops = self._forward(batch, consts)
         logits = self.predict(embedding)
-        labels = base.lookup_labels(consts, hops[0]["gids"])
+        labels = base.lookup_labels(batch, consts, hops[0].get("gids"))
         loss, predictions = base.supervised_decoder(logits, labels,
                                                     self.sigmoid_loss)
         return base.ModelOutput(
@@ -120,11 +118,13 @@ class _SupervisedGCNModule(nn.Module):
 
 
 class SupervisedGCN(base.Model):
-    """Full-neighbor GCN over device-resident features, labels and slabs.
-    ``max_nodes_per_hop`` are the static unique-node caps of the device
-    expansion (a hop past its cap drops its largest ids);
-    ``max_edges_per_hop`` are the host path's edge caps, kept for the
-    JAX package's signature. ``max_degree`` caps the slab's width.
+    """Full-neighbor GCN over device-resident features, labels and slabs,
+    or over host-expanded batches (``device_sampling=False``).
+    ``max_nodes_per_hop`` are the static unique-node caps of both
+    expansions (on the device a hop past its cap drops its largest ids;
+    on the host it raises, as in the JAX package); ``max_edges_per_hop``
+    are the host expansion's edge caps. ``max_degree`` caps the slab's
+    width.
 
     The JAX model builds no roots sampler, so ``train.make_scan_train``
     drives neither it nor this one: roots come with each batch
@@ -160,10 +160,9 @@ class SupervisedGCN(base.Model):
         device_sampling: bool = False,
         max_degree: Optional[int] = None,
     ):
-        _check_device_mode("SupervisedGCN", device_features, device_sampling)
-        if max_id < 0:
-            raise ValueError("SupervisedGCN needs max_id >= 0 (its tables "
-                             "are sized max_id+2)")
+        self.device_features, self.device_sampling = base.check_device_mode(
+            "SupervisedGCN", device_features, device_sampling, feature_idx,
+            max_id)
         if len(max_nodes_per_hop) != len(metapath):
             raise ValueError("max_nodes_per_hop needs one cap a hop")
         self.feature_dtype = feature_dtype
@@ -201,15 +200,34 @@ class SupervisedGCN(base.Model):
 
     def build_consts(self, graph, device) -> dict:
         consts = super().build_consts(graph, device)
+        if not self.device_sampling:
+            return consts
         return self.add_sampling_consts(consts, graph, self.metapath, device,
                                         max_degree=self.max_degree)
 
-    def sample(self, graph, inputs):
-        raise NotImplementedError(
-            "SupervisedGCN.sample expands on the host through the graph "
-            "engine client, not ported for it yet (ROADMAP A0c); "
-            "device-sampling batches come "
-            "from device_sample_batch")
+    def sample(self, graph, inputs) -> dict:
+        """Host mode: the roots' full multi-hop neighborhoods through the
+        engine (``get_multi_hop_neighbor`` padded to
+        ``max_nodes_per_hop``/``max_edges_per_hop``; a hop past a cap
+        raises), each node set's inputs, the hops' adjacencies and, with
+        host features, the roots' labels."""
+        if self.device_sampling:
+            return super().sample(graph, inputs)
+        roots = np.asarray(inputs, dtype=np.int64).reshape(-1)
+        roots, hops = neighbor_ops.get_multi_hop_neighbor(
+            graph, roots, self.metapath,
+            max_nodes_per_hop=self.max_nodes_per_hop,
+            max_edges_per_hop=self.max_edges_per_hop,
+            default_node=self.max_id + 1 if self.max_id >= 0 else -1)
+        batch = {
+            "hops": [self.host_node_inputs(graph, roots)]
+            + [self.host_node_inputs(graph, h.nodes) for h in hops],
+            "adjs": [h.adj for h in hops],
+        }
+        if not self.device_features:
+            batch["labels"] = graph.get_dense_feature(
+                roots, [self.label_idx], [self.label_dim])
+        return batch
 
 
 class _ScalableGCNModule(nn.Module):
@@ -265,7 +283,7 @@ class _ScalableGCNModule(nn.Module):
             if layer < self.num_layers - 1:
                 neigh_emb = store_reads[layer]
         logits = self.predict(node_emb)
-        labels = base.lookup_labels(consts, batch["node_ids"])
+        labels = base.lookup_labels(batch, consts, batch["node_ids"])
         loss, predictions = base.supervised_decoder(logits, labels,
                                                     self.sigmoid_loss)
         return (loss, metrics.f1_counts(labels, predictions),
@@ -282,7 +300,9 @@ class ScalableGCN(base.ScalableStoreModel):
     (their slab rows, capped at ``max_neighbors`` wide); deeper layers
     read stale neighbor embeddings from the stores. Roots of
     ``train_node_type`` are drawn on the device, so
-    ``train.make_scan_train`` drives it. Evaluation uses the same 1-hop
+    ``train.make_scan_train`` drives it; on the host (``device_sampling
+    =False``) ``sample`` expands each root's whole 1-hop neighborhood,
+    deduplicated, through the engine. Evaluation uses the same 1-hop
     plus stale-store approximation as training."""
 
     metric_name = "f1"
@@ -314,7 +334,9 @@ class ScalableGCN(base.ScalableStoreModel):
         device_sampling: bool = False,
         train_node_type: int = -1,
     ):
-        _check_device_mode("ScalableGCN", device_features, device_sampling)
+        self.device_features, self.device_sampling = base.check_device_mode(
+            "ScalableGCN", device_features, device_sampling, feature_idx,
+            max_id)
         if max_id < 0:
             raise ValueError("ScalableGCN needs max_id >= 0 (its tables "
                              "and stores are sized max_id+2)")
@@ -326,7 +348,7 @@ class ScalableGCN(base.ScalableStoreModel):
         self.dim = dim
         self.max_id = max_id
         self.max_neighbors = max_neighbors
-        # the host path's per-root edge cap, kept for the JAX signature
+        # the host expansion's per-root edge cap (times the batch)
         self.max_edges = (max_edges if max_edges is not None
                           else max_neighbors * 4)
         self.feature_idx = feature_idx
@@ -353,6 +375,8 @@ class ScalableGCN(base.ScalableStoreModel):
 
     def build_consts(self, graph, device) -> dict:
         consts = super().build_consts(graph, device)
+        if not self.device_sampling:
+            return consts
         # max_neighbors bounds the slab's width too: a hub must not widen
         # every batch to B x the graph's max degree
         return self.add_sampling_consts(
@@ -388,9 +412,30 @@ class ScalableGCN(base.ScalableStoreModel):
             },
         }
 
-    def sample(self, graph, inputs):
-        raise NotImplementedError(
-            "ScalableGCN.sample expands on the host through the graph "
-            "engine client, not ported for it yet (ROADMAP A0c); "
-            "device-sampling batches come "
-            "from device_sample_batch")
+    def sample(self, graph, inputs) -> dict:
+        """Host mode: the roots' full 1-hop neighborhood through the
+        engine, deduplicated, padded to ``batch * max_neighbors`` nodes
+        and ``batch * max_edges`` edges (past either it raises), both node
+        sets' inputs, their store rows and, with host features, the roots'
+        labels."""
+        if self.device_sampling:
+            return super().sample(graph, inputs)
+        roots = np.asarray(inputs, dtype=np.int64).reshape(-1)
+        b = len(roots)
+        roots_out, hops = neighbor_ops.get_multi_hop_neighbor(
+            graph, roots, [self.edge_type],
+            max_nodes_per_hop=[b * self.max_neighbors],
+            max_edges_per_hop=[b * self.max_edges],
+            default_node=self.max_id + 1)
+        hop = hops[0]
+        batch = {
+            "node_feats": self.host_node_inputs(graph, roots_out),
+            "neigh_feats": self.host_node_inputs(graph, hop.nodes),
+            "node_ids": np.clip(roots_out, 0, self.max_id + 1),
+            "neigh_ids": np.clip(hop.nodes, 0, self.max_id + 1),
+            "adj": hop.adj,
+        }
+        if not self.device_features:
+            batch["labels"] = graph.get_dense_feature(
+                roots, [self.label_idx], [self.label_dim])
+        return batch

@@ -12,10 +12,11 @@ modules without any sampling. ScalableSage draws one hop a step through
 the single-hop kernel and reads deeper layers from the stores of
 ``models.base.ScalableStoreModel``; its module also takes host-given
 ``{"node_feats": ..., "neigh_feats": ..., "node_ids": ..., "neigh_ids":
-...}`` batches. SupervisedGraphSage and GraphSage also sample on the host
-(``device_features=False, device_sampling=False``): ``sample(graph,
-inputs)`` draws the fanouts through the engine client and gathers the
-features (and labels) on the host, as the JAX package's host path does.
+...}`` batches. Every model here also samples on the host
+(``device_sampling=False``): ``sample(graph, inputs)`` draws the fanouts
+through the engine client and gathers the features (and labels) on the
+host, or with ``device_features=True`` ships the nodes' table rows for
+device gathers, as the JAX package's host path does.
 """
 
 from __future__ import annotations
@@ -97,8 +98,7 @@ class _SupervisedSageModule(nn.Module):
         hops = self._hops(batch, consts)
         embedding = self._embed_hops(hops, consts)
         logits = self.predict(embedding)
-        labels = (batch["labels"] if "labels" in batch
-                  else base.lookup_labels(consts, hops[0]["gids"]))
+        labels = base.lookup_labels(batch, consts, hops[0].get("gids"))
         loss, predictions = base.supervised_decoder(
             logits, labels, self.sigmoid_loss
         )
@@ -114,8 +114,9 @@ class SupervisedGraphSage(base.Model):
     """Supervised node classification over device-resident features,
     labels and adjacency (``device_features=True, device_sampling=True``,
     the JAX package's flagship configuration), or over host-sampled
-    batches (both False: fanouts, features and labels from the engine
-    client in ``sample``). ``feature_dtype``
+    batches (``device_sampling=False``: fanouts from the engine client in
+    ``sample``, features and labels from it too or, with
+    ``device_features=True``, from the device tables). ``feature_dtype``
     ("bfloat16") narrows the feature table; ``set_sampling_options``
     chooses capped slabs or alias tables. Sparse slots
     (``sparse_feature_idx``, with their max ids) add one
@@ -146,13 +147,10 @@ class SupervisedGraphSage(base.Model):
         sparse_feature_max_ids: Sequence[int] = (),
         sparse_max_len: int = 16,
     ):
-        base.check_device_mode("SupervisedGraphSage", device_features,
-                               device_sampling, feature_idx, max_id,
-                               metapath, fanouts,
-                               has_sparse=bool(sparse_feature_idx),
-                               host_sampling=True)
-        self.device_features = device_features
-        self.device_sampling = device_sampling
+        self.device_features, self.device_sampling = base.check_device_mode(
+            "SupervisedGraphSage", device_features, device_sampling,
+            feature_idx, max_id, metapath, fanouts,
+            has_sparse=bool(sparse_feature_idx))
         self.default_node = max_id + 1 if max_id >= 0 else -1
         self.sparse_feature_idx = list(sparse_feature_idx)
         self.sparse_feature_max_ids = list(sparse_feature_max_ids)
@@ -194,19 +192,18 @@ class SupervisedGraphSage(base.Model):
     def sample(self, graph, inputs) -> dict:
         """Host mode: the fanout of ``inputs`` through the engine's
         ``sample_fanout`` (unknown or unsampleable picks are
-        ``default_node``), each hop's features and the roots' labels
-        gathered from ``graph``."""
+        ``default_node``), each hop's inputs and, with host features, the
+        roots' labels gathered from ``graph``."""
         if self.device_sampling:
             return super().sample(graph, inputs)
         inputs = np.asarray(inputs, dtype=np.int64).reshape(-1)
         ids_per_hop, _, _ = graph.sample_fanout(
             inputs, self.metapath, self.fanouts, self.default_node)
-        return {
-            "hops": [self.host_node_inputs(graph, ids)
-                     for ids in ids_per_hop],
-            "labels": graph.get_dense_feature(
-                inputs, [self.label_idx], [self.label_dim]),
-        }
+        hops = [self.host_node_inputs(graph, ids) for ids in ids_per_hop]
+        if self.device_features:  # labels read from the device table
+            return {"hops": hops}
+        return {"hops": hops, "labels": graph.get_dense_feature(
+            inputs, [self.label_idx], [self.label_dim])}
 
 
 class _ScalableSageModule(nn.Module):
@@ -250,7 +247,7 @@ class _ScalableSageModule(nn.Module):
         emb, node_embeddings = self.encoder(node_feat, neigh_feat,
                                             store_reads)
         logits = self.predict(emb)
-        labels = base.lookup_labels(consts, batch["node_ids"])
+        labels = base.lookup_labels(batch, consts, batch["node_ids"])
         loss, predictions = base.supervised_decoder(logits, labels,
                                                     self.sigmoid_loss)
         return (loss, metrics.f1_counts(labels, predictions),
@@ -268,8 +265,9 @@ class ScalableSage(base.ScalableStoreModel):
     single-hop kernel on CUDA slabs); layer l > 0 reads the neighbors'
     stale layer l-1 embeddings from the stores. Roots of
     ``train_node_type`` are drawn on the device, so
-    ``train.make_scan_train`` drives it. Evaluation uses the same one hop
-    plus stale stores as training."""
+    ``train.make_scan_train`` drives it; on the host (``device_sampling
+    =False``) the engine draws the hop in ``sample``. Evaluation uses the
+    same one hop plus stale stores as training."""
 
     metric_name = "f1"
 
@@ -297,8 +295,9 @@ class ScalableSage(base.ScalableStoreModel):
         device_sampling: bool = False,
         train_node_type: int = -1,
     ):
-        base.check_device_mode("ScalableSage", device_features,
-                               device_sampling, feature_idx, max_id)
+        self.device_features, self.device_sampling = base.check_device_mode(
+            "ScalableSage", device_features, device_sampling, feature_idx,
+            max_id)
         self.feature_dtype = feature_dtype
         self.label_idx = label_idx
         self.label_dim = label_dim
@@ -332,6 +331,8 @@ class ScalableSage(base.ScalableStoreModel):
 
     def build_consts(self, graph, device) -> dict:
         consts = super().build_consts(graph, device)
+        if not self.device_sampling:
+            return consts
         return self.add_sampling_consts(consts, graph, [self.edge_type],
                                         device,
                                         roots_type=self.train_node_type)
@@ -354,12 +355,28 @@ class ScalableSage(base.ScalableStoreModel):
             "neigh_ids": neigh,
         }
 
-    def sample(self, graph, inputs):
-        raise NotImplementedError(
-            "ScalableSage.sample draws on the host through the graph engine "
-            "client, not ported for ScalableSage yet (ROADMAP A0c); "
-            "device-sampling batches come from "
-            "device_sample_batch")
+    def sample(self, graph, inputs) -> dict:
+        """Host mode: ``fanout`` neighbors of each root through the
+        engine's ``sample_fanout`` (unknown or unsampleable picks are the
+        default row max_id+1), both node sets' inputs, their store rows
+        (ids clipped into the stores) and, with host features, the roots'
+        labels."""
+        if self.device_sampling:
+            return super().sample(graph, inputs)
+        roots = np.asarray(inputs, dtype=np.int64).reshape(-1)
+        ids_per_hop, _, _ = graph.sample_fanout(
+            roots, [self.edge_type], [self.fanout], self.max_id + 1)
+        neigh = ids_per_hop[1]
+        batch = {
+            "node_feats": self.host_node_inputs(graph, roots),
+            "neigh_feats": self.host_node_inputs(graph, neigh),
+            "node_ids": np.clip(roots, 0, self.max_id + 1),
+            "neigh_ids": np.clip(neigh, 0, self.max_id + 1),
+        }
+        if not self.device_features:
+            batch["labels"] = graph.get_dense_feature(
+                roots, [self.label_idx], [self.label_dim])
+        return batch
 
 
 # The Philox streams of one unsupervised step, in the order of the JAX
@@ -468,7 +485,8 @@ class _UnsupervisedSageModule(nn.Module):
 class GraphSage(base.Model):
     """Unsupervised GraphSAGE over device-resident features and adjacency
     (``device_features=True, device_sampling=True``) or over host-sampled
-    batches (both False): positives are one neighbor of each root (edge
+    batches (``device_sampling=False``, features from the host or the
+    device tables): positives are one neighbor of each root (edge
     types ``edge_type``), negatives are ``num_negs`` typed draws
     (``node_type``) per root."""
 
@@ -492,11 +510,9 @@ class GraphSage(base.Model):
         device_sampling: bool = False,
         feature_dtype: Optional[str] = None,
     ):
-        base.check_device_mode("GraphSage", device_features,
-                               device_sampling, feature_idx, max_id,
-                               metapath, fanouts, host_sampling=True)
-        self.device_features = device_features
-        self.device_sampling = device_sampling
+        self.device_features, self.device_sampling = base.check_device_mode(
+            "GraphSage", device_features, device_sampling, feature_idx,
+            max_id, metapath, fanouts)
         self.default_node = max_id + 1
         self.feature_dtype = feature_dtype
         self.node_type = node_type

@@ -8,7 +8,7 @@ sparse embeddings; the metapath embeddings are combined by dot-product
 attention, and the target's and context's cosine, times 5, feeds a
 sigmoid loss with streaming AUC.
 
-Device-sampling mode is the path: the batch carries the labels, the
+In device-sampling mode the batch carries the labels, the
 group ids and a seed, and each (group, metapath) fanout is drawn on the
 device (``device.sample_fanout``: a two-hop fanout over two slabs is one
 launch of the chained kernel on CUDA tensors, even when the hops read
@@ -16,8 +16,9 @@ different edge types and so slabs of different widths). Each fanout
 takes a Philox stream of its own, ``(g << 8) | m``, as the JAX module
 keys it with ``fold_in``. The module also takes host-given groups
 (``{"groups": ...}``), so it can be held against the flax module without
-any sampling. Host sampling (``sample``) through the engine client is
-not ported for this model yet (ROADMAP A0c).
+any sampling. On the host (``device_sampling=False``) ``sample`` builds
+those groups through the engine client: one ``sample_fanout`` a (group,
+metapath) and each hop's padded sparse rows gathered on the host.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from euler_tpu_torch.models import base
 from euler_tpu_torch.nn import metrics
 from euler_tpu_torch.nn.encoders import SparseSageEncoder
 from euler_tpu_torch.nn.layers import Dense, SparseEmbedding
+from euler_tpu_torch.ops import feature as feature_ops
 
 
 class DotAttention(nn.Module):
@@ -124,9 +126,11 @@ class _LasGNNModule(nn.Module):
 
     def _group_embedding(self, groups, g: int):
         """[B, n_g * dim]: group g's metapath towers, combined by its
-        attention and flattened."""
+        attention and flattened. A hop is its sparse rows, or a host
+        batch's ``{"sparse": rows}``."""
         n_g = self.group_sizes[g]
-        embs = [tower(groups[g][m]["hops"])
+        embs = [tower([h["sparse"] if isinstance(h, dict) else h
+                       for h in groups[g][m]["hops"]])
                 for m, tower in enumerate(self.towers[g])]
         stack = torch.stack([e.reshape(-1, n_g, e.shape[-1]) for e in embs],
                             dim=-2)                        # [B, n_g, M, dim]
@@ -158,11 +162,12 @@ class _LasGNNModule(nn.Module):
 
 
 class LasGNN(base.Model):
-    """LasGNN in device-sampling mode. Its inputs are structured, ``{"label":
-    [B, 1], "groups": [[B, n_g] ids a group]}``, group 0 the target (n_0 =
-    1); ``device_sample_batch`` takes that dict. The JAX model builds no
-    roots sampler, so batches come from the caller, through
-    ``make_train_step``, not ``train.make_scan_train``."""
+    """LasGNN, sampled on the device or on the host (``device_sampling``).
+    Its inputs are structured, ``{"label": [B, 1], "groups": [[B, n_g] ids
+    a group]}``, group 0 the target (n_0 = 1); ``device_sample_batch`` and
+    ``sample`` take that dict. The JAX model builds no roots sampler, so
+    batches come from the caller, through ``make_train_step`` or
+    ``train.train``, not ``train.make_scan_train``."""
 
     metric_name = "auc"
 
@@ -180,12 +185,7 @@ class LasGNN(base.Model):
         sparse_max_len: int = 16,
         device_sampling: bool = False,
     ):
-        if not device_sampling:
-            raise NotImplementedError(
-                "euler_tpu_torch runs LasGNN with device_sampling=True; host "
-                "sampling through the graph engine client is not ported "
-                "for LasGNN yet (ROADMAP A0c)")
-        if max_id < 0:
+        if device_sampling and max_id < 0:
             raise ValueError(
                 "device_sampling=True requires max_id >= 0 (the "
                 "adjacency/feature tables are sized max_id+2)")
@@ -197,6 +197,9 @@ class LasGNN(base.Model):
         self.group_sizes = list(group_sizes)
         self.max_id = max_id
         self.sparse_max_len = sparse_max_len
+        # the device tables are the sampling mode's: a host batch carries
+        # its sparse rows
+        self.device_features = self.device_sampling = bool(device_sampling)
         # the seeds of sample_embed's draws, one a batch
         self._embed_seed = itertools.count(1)
         self._module_kwargs = dict(
@@ -214,6 +217,8 @@ class LasGNN(base.Model):
         """One slab a distinct hop edge-type set and the sparse tables
         (padding id ``feature_dims[k] + 1``)."""
         consts = super().build_consts(graph, device)
+        if not self.device_sampling:
+            return consts
         hops = [h for g in self.metapaths_of_groups for m in g for h in m]
         self.add_sampling_consts(consts, graph, hops, device)
         consts["sparse"] = base.upload_sparse_tables(
@@ -241,14 +246,55 @@ class LasGNN(base.Model):
             batch[f"group{g}"] = self._ids(ids, dev)
         return batch
 
-    def sample(self, graph, inputs):
-        raise NotImplementedError(
-            "LasGNN.sample draws on the host through the graph engine "
-            "client, not ported for LasGNN yet (ROADMAP A0c); "
-            "device-sampling batches come from "
-            "device_sample_batch")
+    def _hop_inputs(self, graph, ids) -> dict:
+        """One hop's host inputs: each slot's padded sparse rows (padding
+        id ``feature_dims[k] + 1``)."""
+        return {"sparse": feature_ops.get_sparse_feature(
+            graph, ids, self.feature_ixs, self.sparse_max_len,
+            default_values=[d + 1 for d in self.feature_dims])}
 
-    def sample_embed(self, ids, device=None) -> dict:
+    def _host_metapaths(self, graph, ids, metapaths) -> list:
+        """``{"hops": [per-hop inputs]}`` of each metapath's
+        ``sample_fanout`` from ``ids`` (the default row max_id+1 where a
+        node has no pick)."""
+        out = []
+        for metapath in metapaths:
+            ids_per_hop, _, _ = graph.sample_fanout(
+                ids, metapath, self.fanouts, self.max_id + 1)
+            out.append({"hops": [self._hop_inputs(graph, h)
+                                 for h in ids_per_hop]})
+        return out
+
+    def sample(self, graph, inputs) -> dict:
+        """The batch of ``{"label", "groups"}``: in device-sampling mode
+        the clipped group ids and a fresh seed; on the host each (group,
+        metapath)'s fanout through the engine, with its sparse rows."""
+        if self.device_sampling:
+            label = np.asarray(inputs["label"], np.float32).reshape(-1, 1)
+            batch = {"label": label}
+            for g, ids in enumerate(inputs["groups"]):
+                batch[f"group{g}"] = np.clip(
+                    np.asarray(ids, np.int64), 0, self.max_id + 1
+                ).astype(np.int32)
+            batch["seed"] = self._next_seed()
+            return batch
+        label = np.asarray(inputs["label"], dtype=np.float32).reshape(-1, 1)
+        groups = [
+            self._host_metapaths(
+                graph, np.asarray(ids, dtype=np.int64).reshape(-1),
+                metapaths)
+            for ids, metapaths in zip(inputs["groups"],
+                                      self.metapaths_of_groups)]
+        return {"label": label, "groups": groups}
+
+    def sample_host_embed(self, graph, inputs) -> dict:
+        """The target group alone: no context is sampled for an
+        export."""
+        ids = np.asarray(inputs, dtype=np.int64).reshape(-1)
+        return {"groups": [self._host_metapaths(
+            graph, ids, self.metapaths_of_groups[0])]}
+
+    def device_embed_batch(self, ids, device=None) -> dict:
         """The batch that embeds ``ids`` as targets (``module.embed``),
         with a fresh fanout seed each call."""
         dev = resolve_device(device)

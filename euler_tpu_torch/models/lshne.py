@@ -6,7 +6,7 @@ and typed negatives run through per-node-type DNN towers over sparse-id
 features, and a masked cosine softmax loss is taken against the
 negatives, with a cross-view attention embedding trained beside it.
 
-Device-sampling mode is the path: the batch is root ids and a seed. Each
+In device-sampling mode the batch is root ids and a seed. Each
 walk step is one ``device.neighbor_draw`` over its step's slab (on CUDA
 tensors one launch of the single-hop kernel at [B, 1]), the pairs are
 fixed positions of the walks (``ops.walk.pair_indices``), and the
@@ -15,8 +15,11 @@ negatives are ``device.sample_node_with_src`` draws, plain PyTorch. Each
 their own, as the JAX module keys them apart with ``fold_in``: two equal
 metapaths must not walk the same walk. The module also takes host-given
 views (``{"views": ..., "root": ...}`` node dicts), so it can be held
-against the flax module without any sampling. Host sampling (``sample``)
-through the engine client is not ported for this model yet (ROADMAP A0c).
+against the flax module without any sampling. On the host
+(``device_sampling=False``) ``sample`` builds those views through the
+engine client: each metapath walk one ``random_walk`` call, the pairs
+``ops.walk.gen_pair``'s, the typed negatives ``sample_node_with_src``,
+and each node's sparse rows and type gathered on the host.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from euler_tpu_torch.device import resolve_device
 from euler_tpu_torch.graph import device as device_graph
 from euler_tpu_torch.models import base
 from euler_tpu_torch.nn.layers import _TRUNC_STD, SparseEmbedding
+from euler_tpu_torch.ops import feature as feature_ops
 from euler_tpu_torch.ops import walk as walk_ops
 
 EPS = 1e-8
@@ -274,11 +278,13 @@ class _LsHNEModule(nn.Module):
 
 
 class LsHNE(base.Model):
-    """Multi-view LsHNE in device-sampling mode. ``path_patterns``: per
-    view, a list of metapaths, each a per-step list of edge-type lists.
-    Roots of ``node_type`` (-1: all) are drawn on the device, so
-    ``train.make_scan_train`` drives it. ``sparse_feature_dims`` sizes
-    each slot's embedding table; padding is id 0 under a zero mask."""
+    """Multi-view LsHNE, sampled on the device or on the host
+    (``device_sampling``). ``path_patterns``: per view, a list of
+    metapaths, each a per-step list of edge-type lists. In
+    device-sampling mode roots of ``node_type`` (-1: all) are drawn on the
+    device, so ``train.make_scan_train`` drives it.
+    ``sparse_feature_dims`` sizes each slot's embedding table; padding is
+    id 0 under a zero mask."""
 
     metric_name = "mrr"
 
@@ -300,16 +306,14 @@ class LsHNE(base.Model):
         src_type_num: int = 20,
         device_sampling: bool = False,
     ):
-        if not device_sampling:
-            raise NotImplementedError(
-                "euler_tpu_torch runs LsHNE with device_sampling=True; host "
-                "sampling through the graph engine client is not ported "
-                "for LsHNE yet (ROADMAP A0c)")
         if len(path_patterns) < 1:
             raise ValueError("need at least one view")
-        if max_id < 0:
+        if device_sampling and max_id < 0:
             raise ValueError("LsHNE needs max_id >= 0 (its tables are "
                              "sized max_id+2)")
+        # the device tables are the sampling mode's: a host batch carries
+        # its sparse rows and types
+        self.device_features = self.device_sampling = bool(device_sampling)
         self.node_type = node_type
         self.path_patterns = [[[list(s) for s in p] for p in v]
                               for v in path_patterns]
@@ -337,8 +341,10 @@ class LsHNE(base.Model):
 
     def build_consts(self, graph, device) -> dict:
         """Per-step slabs, the roots sampler, the typed negative sampler
-        (``tsampler``) and the sparse tables."""
+        (``tsampler``) and the sparse tables; none on the host."""
         consts = super().build_consts(graph, device)
+        if not self.device_sampling:
+            return consts
         steps = [s for v in self.path_patterns for p in v for s in p]
         self.add_sampling_consts(consts, graph, steps, device,
                                  roots_type=self.node_type)
@@ -350,15 +356,53 @@ class LsHNE(base.Model):
             [0] * len(self.feature_ids), device)
         return consts
 
-    def sample(self, graph, inputs):
-        raise NotImplementedError(
-            "LsHNE.sample walks on the host through the graph engine "
-            "client, not ported for LsHNE yet (ROADMAP A0c); "
-            "device-sampling batches come from "
-            "device_sample_batch")
+    def _node_inputs(self, graph, ids) -> dict:
+        """One node set's host inputs: each slot's padded sparse rows
+        (padding id 0) and the node type clipped at 0, a negative id read
+        as node 0."""
+        ids = np.asarray(ids).reshape(-1)
+        safe = np.where(ids < 0, 0, ids)
+        return {
+            "sparse": feature_ops.get_sparse_feature(
+                graph, safe, self.feature_ids, self.sparse_max_len,
+                default_values=[0] * len(self.feature_ids)),
+            "types": np.clip(graph.node_types(safe), 0, None)
+            .astype(np.int32),
+        }
 
-    def sample_embed(self, ids, device=None) -> dict:
-        """The batch that embeds ``ids`` (``module.embed``)."""
+    def sample(self, graph, inputs) -> dict:
+        """Host mode: per view, each metapath's walk from every root
+        through the engine's ``random_walk`` (-1 past a dead end), its
+        skip-gram pairs, a mask of the pairs with no -1, ``num_negs``
+        typed negatives a source from ``sample_node_with_src`` (a -1
+        source draws as node 0), and every node set's inputs."""
+        if self.device_sampling:
+            return super().sample(graph, inputs)
+        roots = np.asarray(inputs, dtype=np.int64).reshape(-1)
+        views = []
+        for patterns in self.path_patterns:
+            pairs = np.concatenate([
+                walk_ops.gen_pair(
+                    graph.random_walk(roots, list(pattern), p=1.0, q=1.0,
+                                      default_node=-1),
+                    self.left_win_size, self.right_win_size)
+                for pattern in patterns], axis=1).reshape(-1, 2)
+            src, pos = pairs[:, 0], pairs[:, 1]
+            negs = graph.sample_node_with_src(np.where(src < 0, 0, src),
+                                              self.num_negs)
+            views.append({
+                "src": self._node_inputs(graph, src),
+                "pos": self._node_inputs(graph, pos),
+                "negs": self._node_inputs(graph, negs),
+                "mask": ((src != -1) & (pos != -1)).astype(np.float32),
+            })
+        return {"views": views, "root": self._node_inputs(graph, roots)}
+
+    def sample_host_embed(self, graph, inputs) -> dict:
+        return {"root": self._node_inputs(
+            graph, np.asarray(inputs, dtype=np.int64))}
+
+    def device_embed_batch(self, ids, device=None) -> dict:
         ids = np.clip(np.asarray(ids, np.int64).reshape(-1), 0,
                       self.max_id + 1).astype(np.int32)
         return {"roots": torch.as_tensor(

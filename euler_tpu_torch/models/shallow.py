@@ -1,7 +1,7 @@
 """Shallow network-embedding models: LINE and Node2Vec (counterpart of
 ``euler_tpu/models/shallow.py``).
 
-Device-sampling mode is the path: the batch is root ids and a seed.
+In device-sampling mode the batch is root ids and a seed.
 LINE's positives are one neighbor draw per root (the single-hop kernel on
 a slab held as CUDA tensors); Node2Vec walks on the device
 (``device.random_walk``: one single-hop launch a step; the biased walks
@@ -10,14 +10,18 @@ over sorted alias tables, plain PyTorch) and cuts the walks into
 skip-gram pairs with ``ops.walk.pair_indices``. Negatives are Philox node
 draws. The modules also take host-given node sets (``{"src": ..., "pos":
 ..., "negs": ...}`` feature dicts), so they can be held against the flax
-modules without any sampling. Host sampling (``sample``) through the
-engine client is not ported for this model yet (ROADMAP A0c).
+modules without any sampling. On the host (``device_sampling=False``)
+``sample`` builds those node sets through the engine client: LINE's
+positives one ``sample_neighbor`` draw a root, Node2Vec's the engine's
+p/q ``random_walk`` cut into pairs by ``ops.walk.gen_pair``, the
+negatives ``sample_node`` draws, as the JAX package's host path does.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -157,10 +161,11 @@ class _ShallowUnsupModule(nn.Module):
 
 
 class _ShallowUnsupervised(base.Model):
-    """Shared host plumbing of LINE and Node2Vec in device-sampling mode:
+    """Shared host plumbing of LINE and Node2Vec: in device-sampling mode
     the adjacency of ``edge_type`` (id-sorted when ``adj_sorted``), typed
     negatives and roots of ``node_type``, the id embedding (``use_id``)
-    and an optional device feature table."""
+    and an optional device feature table; on the host, the (src, pos,
+    negs) node sets of ``sample``."""
 
     metric_name = "mrr"
     adj_sorted = False  # Node2Vec sets True for biased (p/q != 1) walks
@@ -181,22 +186,22 @@ class _ShallowUnsupervised(base.Model):
         device_sampling: bool = False,
     ):
         name = type(self).__name__
-        if not device_sampling:
-            raise NotImplementedError(
-                f"euler_tpu_torch runs {name} with device_sampling=True; "
-                "host sampling through the graph engine client is not "
-                "ported for the walk models yet (ROADMAP A0c)")
         if sparse_feature_idx or sparse_feature_max_ids:
             raise NotImplementedError(
                 f"{name}: sparse-feature slots (SparseEmbedding) are not "
                 "ported")
-        if feature_idx >= 0 and not device_features:
-            raise ValueError(
-                "device_sampling with dense features requires "
-                "device_features=True (the tables must be on the card)")
         if max_id < 0:
             raise ValueError(f"{name} needs max_id >= 0 (its tables are "
                              "sized max_id+2)")
+        self.device_features = base.resolve_device_features(
+            device_features, feature_idx, max_id)
+        # the id embedding needs no feature table: device sampling runs
+        # with use_id alone, and needs device features only for features
+        if device_sampling and not self.device_features and feature_idx >= 0:
+            raise ValueError(
+                "device_sampling with dense features requires "
+                "device_features=True (the tables must be on the card)")
+        self.device_sampling = bool(device_sampling)
         self.feature_dtype = feature_dtype
         self.node_type = node_type
         self.max_id = max_id
@@ -210,7 +215,7 @@ class _ShallowUnsupervised(base.Model):
             feature_dim=self.feature_dim if self.feature_idx >= 0 else 0,
             max_id=self.max_id if self.use_id else -1,
             num_negs=self.num_negs,
-            has_features=self.feature_idx >= 0,
+            has_features=self.device_features and self.feature_idx >= 0,
         )
 
     def make_module(self, generator=None) -> _ShallowUnsupModule:
@@ -219,21 +224,24 @@ class _ShallowUnsupervised(base.Model):
 
     def build_consts(self, graph, device) -> dict:
         consts = super().build_consts(graph, device)
+        if not self.device_sampling:
+            return consts
         return self.add_sampling_consts(
             consts, graph, [self.edge_type], device,
             negs_type=self.node_type, roots_type=self.node_type,
             sorted=self.adj_sorted,
         )
 
-    def sample(self, graph, inputs):
-        raise NotImplementedError(
-            f"{type(self).__name__}.sample draws on the host through the "
-            "graph engine client, not ported for the walk models yet "
-            "(ROADMAP A0c); device-sampling batches "
-            "come from device_sample_batch")
+    def _pack(self, graph, src, pos, negs) -> dict:
+        return {"src": self.host_node_inputs(graph, src),
+                "pos": self.host_node_inputs(graph, pos),
+                "negs": self.host_node_inputs(graph, negs)}
 
-    def sample_embed(self, ids, device=None) -> dict:
-        """The batch that embeds ``ids`` (``module.embed``)."""
+    def sample_host_embed(self, graph, inputs) -> dict:
+        """The sources alone: an export draws nothing."""
+        return {"src": self.host_node_inputs(graph, inputs)}
+
+    def device_embed_batch(self, ids, device=None) -> dict:
         return {"src": self.node_inputs(ids, device)}
 
 
@@ -263,6 +271,18 @@ class LINE(_ShallowUnsupervised):
             xent_loss=xent_loss, share_context=order in (1, "first"),
             adj_key=self.adj_key(self.edge_type), **self._module_common(),
         )
+
+    def sample(self, graph, inputs) -> dict:
+        """Host mode: each root's positive one ``sample_neighbor`` draw
+        (the default row where it has none), ``num_negs`` negatives a
+        root from ``sample_node``."""
+        if self.device_sampling:
+            return super().sample(graph, inputs)
+        src = np.asarray(inputs, dtype=np.int64).reshape(-1)
+        pos, _, _ = graph.sample_neighbor(src, self.edge_type, 1,
+                                          self.max_id + 1)
+        negs = graph.sample_node(len(src) * self.num_negs, self.node_type)
+        return self._pack(graph, src, pos.reshape(-1), negs)
 
 
 class Node2Vec(_ShallowUnsupervised):
@@ -295,9 +315,10 @@ class Node2Vec(_ShallowUnsupervised):
         self.walk_len = walk_len
         self.walk_p = walk_p
         self.walk_q = walk_q
-        # biased walks test parent membership over id-sorted rows; p = q
-        # = 1 keeps the plain draw, as the reference does
-        self.adj_sorted = walk_p != 1.0 or walk_q != 1.0
+        # biased walks on the card test parent membership over id-sorted
+        # rows; p = q = 1 keeps the plain draw, as the reference does
+        self.adj_sorted = self.device_sampling and (walk_p != 1.0
+                                                    or walk_q != 1.0)
         self.left_win_size = left_win_size
         self.right_win_size = right_win_size
         self.batch_size_ratio = walk_ops.pair_count(
@@ -310,3 +331,21 @@ class Node2Vec(_ShallowUnsupervised):
             right_win=right_win_size, walk_p=walk_p, walk_q=walk_q,
             walk_trials=walk_trials, **self._module_common(),
         )
+
+    def sample(self, graph, inputs) -> dict:
+        """Host mode: the engine's p/q ``random_walk`` from each root (the
+        default row past a dead end), its skip-gram pairs in the reference
+        kernel's order, ``num_negs`` negatives a pair from
+        ``sample_node``."""
+        if self.device_sampling:
+            return super().sample(graph, inputs)
+        roots = np.asarray(inputs, dtype=np.int64).reshape(-1)
+        paths = walk_ops.random_walk(graph, roots, self.edge_type,
+                                     self.walk_len, p=self.walk_p,
+                                     q=self.walk_q,
+                                     default_node=self.max_id + 1)
+        flat = walk_ops.gen_pair(paths, self.left_win_size,
+                                 self.right_win_size).reshape(-1, 2)
+        src, pos = flat[:, 0], flat[:, 1]
+        negs = graph.sample_node(len(src) * self.num_negs, self.node_type)
+        return self._pack(graph, src, pos, negs)

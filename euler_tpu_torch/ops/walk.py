@@ -1,12 +1,19 @@
-"""Skip-gram pair enumeration over walks (counterpart of
-``euler_tpu/ops/walk.py``): numpy, with the reference kernel's order
+"""Random walks on the host and skip-gram pair enumeration (counterpart
+of ``euler_tpu/ops/walk.py``): the walk is one call into the engine
+client, the pairs numpy, with the reference kernel's order
 (``tf_euler/kernels/gen_pair_op.cc``) and its exact, unpadded pair count.
-The walks themselves are drawn on the device (``graph/device.py``
-``random_walk`` and the biased walks)."""
+On the device the walks are ``graph/device.py``'s ``random_walk`` and
+the biased walks."""
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def random_walk(g, nodes, edge_types, walk_len, p=1.0, q=1.0,
+                default_node=-1):
+    """[n, walk_len+1] int64 node2vec walks (column 0 = start)."""
+    return g.random_walk(nodes, edge_types, walk_len, p, q, default_node)
 
 
 def pair_count(path_len: int, left_win: int, right_win: int) -> int:

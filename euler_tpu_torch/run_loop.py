@@ -35,10 +35,13 @@ import sys
 from typing import Optional
 
 import numpy as np
+import torch
 
 from euler_tpu_torch import models
 from euler_tpu_torch import train as train_lib
 from euler_tpu_torch.device import resolve_device
+from euler_tpu_torch.nn import metrics
+from euler_tpu_torch.nn.layers import Dense
 from euler_tpu_torch.serving import add_serve_flags, serve_flag_overrides
 
 log = logging.getLogger("euler_tpu_torch")
@@ -249,10 +252,64 @@ def build_graph(args):
     return Graph(directory=args.data_dir)
 
 
+class _SavedEmbeddingModule(torch.nn.Module):
+    """A trainable Dense over the batch's frozen ``"emb"`` rows, and the
+    supervised decoder."""
+
+    def __init__(self, emb_dim: int, num_classes: int, sigmoid_loss: bool,
+                 generator=None):
+        super().__init__()
+        self.sigmoid_loss = sigmoid_loss
+        self.predict = Dense(emb_dim, num_classes)
+        self.predict.reset_parameters(generator)
+
+    def embed(self, batch, consts=None):
+        return batch["emb"]
+
+    def forward(self, batch, consts=None):
+        logits = self.predict(batch["emb"].detach())
+        loss, predictions = models.base.supervised_decoder(
+            logits, batch["labels"], self.sigmoid_loss)
+        return models.ModelOutput(
+            embedding=batch["emb"], loss=loss, metric_name="f1",
+            metric=metrics.f1_counts(batch["labels"], predictions))
+
+
+class SavedEmbedding(models.Model):
+    """A frozen saved embedding (``embedding.npy`` of ``--mode
+    save_embedding``) and a trainable classifier over it (the JAX
+    package's ``SavedEmbedding``). Host batches: each id's row (an id
+    past the table reads its last row) and its labels from ``graph``; no
+    table lives on the device."""
+
+    metric_name = "f1"
+    device_features = False
+    device_sampling = False
+
+    def __init__(self, embedding: np.ndarray, label_idx, label_dim,
+                 num_classes=None, sigmoid_loss=True):
+        self.embedding = embedding.astype(np.float32)
+        self.label_idx = label_idx
+        self.label_dim = label_dim
+        self.num_classes = num_classes or label_dim
+        self.sigmoid_loss = sigmoid_loss
+
+    def make_module(self, generator=None) -> _SavedEmbeddingModule:
+        return _SavedEmbeddingModule(self.embedding.shape[1],
+                                     self.num_classes, self.sigmoid_loss,
+                                     generator)
+
+    def sample(self, graph, inputs) -> dict:
+        ids = np.asarray(inputs, dtype=np.int64).reshape(-1)
+        safe = np.clip(ids, 0, len(self.embedding) - 1)
+        return {"emb": self.embedding[safe],
+                "labels": graph.get_dense_feature(
+                    ids, [self.label_idx], [self.label_dim])}
+
+
 def build_model(args, graph):
-    """Model dispatch by the reference's model names. In device-sampling
-    mode every model the port has; in host mode the two GraphSAGE models
-    (the others raise, ROADMAP A0c)."""
+    """Model dispatch by the reference's model names, each sampled on the
+    host unless ``--device_sampling``."""
     fanouts = _int_list(args.fanouts)
     train_edge = _int_list(args.train_edge_type)
     all_edge = _int_list(args.all_edge_type)
@@ -347,8 +404,10 @@ def build_model(args, graph):
             feature_ids=[args.feature_idx if args.feature_idx >= 0 else 0],
             device_sampling=args.device_sampling)
     if name == "saved_embedding":
-        raise NotImplementedError(
-            "--model saved_embedding is not ported yet (ROADMAP A0c)")
+        emb = np.load(args.embedding_file
+                      or os.path.join(args.model_dir, "embedding.npy"))
+        return SavedEmbedding(emb, args.label_idx, args.label_dim,
+                              args.num_classes, args.sigmoid_loss)
     raise ValueError(f"unsupported model {name!r}")
 
 

@@ -64,7 +64,7 @@ import torch
 from euler_tpu_torch import telemetry as T
 from euler_tpu_torch.device import resolve_device
 from euler_tpu_torch.graph import native
-from euler_tpu_torch.models import base
+from euler_tpu_torch.models import GraphSage, SupervisedGraphSage, base
 from euler_tpu_torch.serving import EmbedFrontend, MicroBatcher, SLOTracker
 
 log = logging.getLogger("euler_tpu_torch.serve")
@@ -202,6 +202,11 @@ class EmbedServer:
                 "unique id (the determinism anchor); build the serving "
                 "model with device_sampling=False"
             )
+        if not isinstance(model, (SupervisedGraphSage, GraphSage)):
+            raise NotImplementedError(
+                f"EmbedServer serves the GraphSAGE models, whose per-id "
+                f"blocks concatenate hop by hop; serving "
+                f"{type(model).__name__} is not ported yet (ROADMAP A0d)")
         self.model = model
         self.graph = graph
         self.max_batch = int(max_batch)

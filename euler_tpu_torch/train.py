@@ -93,7 +93,9 @@ def train(
     """Train on one device (the card unless ``"cpu"`` is asked for) and
     return ``(state, history)``.
 
-    ``source_fn(step)`` gives the step's root ids. Prefetch workers call
+    ``source_fn(step)`` gives the step's root ids (or a model's
+    structured inputs, such as LasGNN's ``{"label", "groups"}``). Prefetch
+    workers call
     it and, for a host-sampling model, ``model.sample(graph, roots)``,
     ``prefetch_depth`` steps ahead on ``prefetch_threads`` threads, each
     seeding its engine RNG from ``seed``; the training thread uploads the
@@ -141,8 +143,9 @@ def train(
     step_fn = model.make_train_step()
 
     def make_batch(step):
-        roots = np.asarray(source_fn(step))
-        return roots if model.device_sampling else model.sample(graph, roots)
+        inputs = source_fn(step)
+        return (inputs if model.device_sampling
+                else model.sample(graph, inputs))
 
     def seed_worker(widx: int):
         # per-worker sampler streams from the run seed (the engine's RNG

@@ -34,6 +34,7 @@ from euler_tpu_torch.graph import device as tdev  # noqa: E402
 from euler_tpu_torch.graph import native as tnative  # noqa: E402
 from euler_tpu_torch.models import SupervisedGraphSage  # noqa: E402
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N = 300
 META = {
     "node_type_num": 3,
@@ -267,3 +268,73 @@ def test_local_mode_only_options_raise(graphs, tmp_path, kw):
         graphs[1].load_delta(str(tmp_path / "x.delta.1"))
     with pytest.raises(TypeError, match="unknown"):
         Graph(directory=str(tmp_path), no_such_option=1)
+
+
+NATIVE_DIRS = (os.path.join(ROOT, "euler_tpu", "graph", "_native"),
+               os.path.join(ROOT, "euler_tpu_torch", "graph", "_native"))
+# the comment lines the copy words without the reference's paths and
+# PR numbers; every other line is the reference's
+COPY_EDITED_COMMENTS = 5
+
+
+def _sources(d: str) -> list:
+    return sorted(n for n in os.listdir(d) if n.endswith((".cc", ".h")))
+
+
+def test_engine_copy_is_the_reference_but_five_comment_lines():
+    """The port's engine sources are the JAX package's, file for file and
+    code line for code line: only the five comment lines the copy edited
+    differ (its Makefile, which builds out of tree, is not compared)."""
+    ref, port = NATIVE_DIRS
+    assert _sources(port) == _sources(ref)
+    differing = []
+    for name in _sources(ref):
+        with open(os.path.join(ref, name)) as f:
+            a = f.read().splitlines()
+        with open(os.path.join(port, name)) as f:
+            b = f.read().splitlines()
+        assert len(a) == len(b), name
+        differing += [(name, x, y) for x, y in zip(a, b) if x != y]
+    assert len(differing) == COPY_EDITED_COMMENTS, differing
+    for name, x, y in differing:
+        assert x.lstrip().startswith("//") and y.lstrip().startswith(
+            "//"), (name, x, y)
+
+
+def test_bindings_match_the_jax_bindings():
+    """Each ``_sig(L.name, ...)`` of the port's ``graph/native.py`` gives
+    the function the JAX binding's restype and argtypes."""
+    import ast
+
+    with open(tnative.__file__) as f:
+        tree = ast.parse(f.read())
+    names = sorted({
+        node.args[0].attr for node in ast.walk(tree)
+        if isinstance(node, ast.Call) and getattr(node.func, "id", "") ==
+        "_sig" and isinstance(node.args[0], ast.Attribute)})
+    assert len(names) >= 36
+    tlib, jlib = tnative.lib(), jnative.lib()
+    for name in names:
+        t, j = getattr(tlib, name), getattr(jlib, name)
+        assert t.restype == j.restype, name
+        assert t.argtypes == j.argtypes and j.argtypes is not None, name
+
+
+def test_write_dat_carries_uint64_slots(tmp_path):
+    """``datasets.write_dat`` writes a MemoryGraph's sparse slots as uint64
+    features: the engine reads back each node's values and types."""
+    arrays = tdatasets.build_synthetic(50, 3, 4, 2, seed=2)
+    ptr = np.concatenate([[0], np.cumsum(np.arange(50) % 3)])
+    values = np.arange(ptr[-1]) * 7
+    arrays = dict(arrays, node_types=(np.arange(50) % 4).astype(np.int32),
+                  sparse_features=[(ptr, values)])
+    tdatasets.write_dat(arrays, str(tmp_path), num_partitions=2)
+    eng = Graph(directory=str(tmp_path))
+    mem = MemoryGraph(**arrays)
+    ids = np.arange(-1, 52)
+    for g_vals, m_vals in zip(eng.get_sparse_feature(ids, [0]),
+                              mem.get_sparse_feature(ids, [0])):
+        for a, b in zip(g_vals, m_vals):
+            np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(eng.node_types(ids), mem.node_types(ids))
+    eng.close()

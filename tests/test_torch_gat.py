@@ -345,11 +345,13 @@ def test_draws_go_through_the_single_hop_wrapper(syn, monkeypatch):
 
 def test_gat_entry_points_default_to_the_card(monkeypatch, syn):
     """init_state and device_sample_batch run on the card unless asked
-    for the CPU; host sampling and host features are refused."""
+    for the CPU; device sampling without a device feature table is
+    refused; host sampling builds no sampling table."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     opt = ttrain.get_optimizer("adam", LR)
-    with pytest.raises(NotImplementedError, match="device_sampling"):
-        TGAT(**{**_kw(), "device_sampling": False})
+    host = TGAT(**{**_kw(), "device_sampling": False})
+    assert host.device_features and not host.device_sampling
+    assert sorted(host.build_consts(syn, "cpu")) == ["features", "labels"]
     with pytest.raises(ValueError, match="feature_idx"):
         TGAT(**{**_kw(), "feature_idx": -1})
     m = TGAT(**_kw())
@@ -358,8 +360,7 @@ def test_gat_entry_points_default_to_the_card(monkeypatch, syn):
         m.init_state(syn, opt)
     with pytest.raises(RuntimeError, match="CUDA"):
         m.device_sample_batch([1, 2], seed=0)
-    with pytest.raises(NotImplementedError, match="engine client"):
-        m.sample(syn, [1, 2])
+    assert sorted(m.sample(syn, [1, 2])) == ["roots", "seed"]
     state = m.init_state(syn, opt, device="cpu")
     assert next(state["module"].parameters()).device.type == "cpu"
     assert state["consts"]["adj"]["et0"]["nbr"].device.type == "cpu"

@@ -446,14 +446,17 @@ def test_scalable_gcn_scan_train_runs_on_cpu(syn):
 
 def test_gcn_entry_points_default_to_the_card(monkeypatch, syn):
     """SupervisedGCN and ScalableGCN: init_state and device_sample_batch
-    run on the card unless asked for the CPU; host sampling, alias
-    tables and aggregators that are not sparse are refused."""
+    run on the card unless asked for the CPU; alias tables and
+    aggregators that are not sparse are refused; host sampling builds no
+    sampling table."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     opt = ttrain.get_optimizer("adam", LR)
     for cls, kw in ((TGCN, _gcn_kw("mean")), (TScalable,
                                               _scalable_kw("mean"))):
-        with pytest.raises(NotImplementedError, match="device_sampling"):
-            cls(**{**kw, "device_sampling": False})
+        host = cls(**{**kw, "device_sampling": False})
+        assert host.device_features and not host.device_sampling
+        assert sorted(host.build_consts(syn, "cpu")) == ["features",
+                                                         "labels"]
         m = cls(**kw)
         with pytest.raises(ValueError, match="alias"):
             m.set_sampling_options(alias=True)
@@ -461,8 +464,7 @@ def test_gcn_entry_points_default_to_the_card(monkeypatch, syn):
             m.init_state(syn, opt)
         with pytest.raises(RuntimeError, match="CUDA"):
             m.device_sample_batch([1, 2], seed=0)
-        with pytest.raises(NotImplementedError, match="engine client"):
-            m.sample(syn, [1, 2])
+        assert sorted(m.sample(syn, [1, 2])) == ["roots", "seed"]
         with pytest.raises(ValueError, match="sparse aggregator"):
             cls(**{**kw, "aggregator": "meanpool"}).make_module()
         with (pytest.warns(UserWarning) if cls is TScalable

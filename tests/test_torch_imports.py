@@ -165,7 +165,8 @@ def test_single_hop_kernel_wrapper_routes_by_device():
 
 def test_unsupervised_entry_points_default_to_the_card(monkeypatch):
     """GraphSage.init_state and device_sample_batch run on the card
-    unless asked for the CPU; host sampling is refused."""
+    unless asked for the CPU; host sampling over device feature tables
+    uploads the features alone."""
     from euler_tpu_torch import train
     from euler_tpu_torch.datasets import build_synthetic
     from euler_tpu_torch.graph import MemoryGraph
@@ -176,8 +177,9 @@ def test_unsupervised_entry_points_default_to_the_card(monkeypatch):
     kw = dict(node_type=0, edge_type=[0], max_id=29, metapath=[[0], [0]],
               fanouts=[2, 2], dim=8, num_negs=2, feature_idx=1,
               feature_dim=4, device_features=True)
-    with pytest.raises(NotImplementedError, match="device_sampling"):
-        GraphSage(**kw)
+    host = GraphSage(**kw)
+    assert host.device_features and not host.device_sampling
+    assert sorted(host.build_consts(g, "cpu")) == ["features"]
     m = GraphSage(**kw, device_sampling=True)
     with pytest.raises(RuntimeError, match="CUDA"):
         m.init_state(g, train.get_optimizer("adam", 0.01))

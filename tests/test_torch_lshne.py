@@ -571,18 +571,17 @@ def test_params_from_flax_fills_every_parameter(pair):
 
 def test_lshne_entry_points_default_to_the_card(monkeypatch, syn):
     """init_state and device_sample_batch run on the card unless asked
-    for the CPU; host sampling is refused."""
+    for the CPU; host sampling builds no device table."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     opt = ttrain.get_optimizer("adam", LR)
-    with pytest.raises(NotImplementedError, match="device_sampling"):
-        TLsHNE(**{**_kw(), "device_sampling": False})
+    host = TLsHNE(**{**_kw(), "device_sampling": False})
+    assert not host.device_sampling and host.build_consts(syn, "cpu") == {}
     m = TLsHNE(**_kw())
     with pytest.raises(RuntimeError, match="CUDA"):
         m.init_state(syn, opt)
     with pytest.raises(RuntimeError, match="CUDA"):
         m.device_sample_batch([1, 2], seed=0)
-    with pytest.raises(NotImplementedError, match="engine client"):
-        m.sample(syn, [1, 2])
+    assert sorted(m.sample(syn, [1, 2])) == ["roots", "seed"]
     with pytest.warns(UserWarning):
         state = m.init_state(syn, opt, device="cpu")
     assert state["consts"]["tsampler"]["ids"].device.type == "cpu"

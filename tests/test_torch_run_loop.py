@@ -290,15 +290,29 @@ def _args(fixture_dir, model_dir, *extra):
         list(extra)
 
 
-@pytest.mark.parametrize("device_sampling", ["0", "1"])
-@pytest.mark.parametrize("model", ["graphsage_supervised", "graphsage"])
-def test_train_eval_save_cycle(fixture_dir, tmp_path, model,
-                               device_sampling):
-    """run_loop.main on the CPU: train, evaluate, save_embedding on the
-    same --model_dir, then a relaunch that resumes at the last step and
-    trains nothing new, as tests/test_run_loop.py runs the JAX CLI."""
+# every --model of the JAX CLI: its held-out metric and embedding width
+# at COMMON's sizes (gat's embedding is its logits, lshne's dim is 128)
+CLI_MODELS = {
+    "graphsage_supervised": ("f1", 8), "graphsage": ("mrr", 8),
+    "gcn": ("f1", 8), "scalable_gcn": ("f1", 8), "scalable_sage": ("f1", 8),
+    "gat": ("f1", 3), "line": ("mrr", 8), "node2vec": ("mrr", 8),
+    "lshne": ("mrr", 128), "saved_embedding": ("f1", 8),
+}
+
+
+def _cycle(fixture_dir, tmp_path, model, *flags):
+    """train, evaluate, save_embedding on one --model_dir, then a
+    relaunch that resumes at the last step and trains nothing new; the
+    checks of each mode's output. saved_embedding classifies the export
+    of a graphsage_supervised run first."""
+    if model == "saved_embedding":
+        src = str(tmp_path / "src")
+        for mode in ("train", "save_embedding"):
+            run_loop.main(_args(fixture_dir, src, "--mode", mode),
+                          device="cpu")
+        flags += ("--embedding_file", os.path.join(src, "embedding.npy"))
     ck = str(tmp_path / "ck")
-    args = ["--model", model, "--device_sampling", device_sampling]
+    args = ["--model", model, *flags]
     for mode in ("train", "evaluate", "save_embedding", "train"):
         assert run_loop.main(_args(fixture_dir, ck, *args, "--mode", mode),
                              device="cpu") == 0
@@ -308,12 +322,33 @@ def test_train_eval_save_cycle(fixture_dir, tmp_path, model,
         import json
 
         result = json.load(f)
-    metric = "f1" if model == "graphsage_supervised" else "mrr"
+    metric, width = CLI_MODELS[model]
     assert 0.0 <= result[metric] <= 1.0 and result["model"] == model
     emb = np.load(os.path.join(ck, "embedding.npy"))
-    assert emb.shape == (17, 8) and np.isfinite(emb).all()
+    assert emb.shape == (17, width) and np.isfinite(emb).all()
     ids = np.loadtxt(os.path.join(ck, "id.txt"), dtype=np.int64)
     assert len(ids) == 17
+
+
+@pytest.mark.parametrize("device_sampling", ["0", "1"])
+@pytest.mark.parametrize("model", sorted(CLI_MODELS))
+def test_train_eval_save_cycle(fixture_dir, tmp_path, model,
+                               device_sampling):
+    """run_loop.main on the CPU at the CLI's defaults, every --model,
+    host-sampled and with --device_sampling 1, as tests/test_run_loop.py
+    runs the JAX CLI."""
+    _cycle(fixture_dir, tmp_path, model, "--device_sampling",
+           device_sampling)
+
+
+@pytest.mark.parametrize("model", ["graphsage_supervised", "graphsage",
+                                   "gcn", "scalable_gcn", "scalable_sage",
+                                   "gat"])
+def test_host_sampling_over_device_tables_cycle(fixture_dir, tmp_path,
+                                                model):
+    """--device_features 1 without --device_sampling: host-sampled node
+    sets, features and labels read from the tables on the device."""
+    _cycle(fixture_dir, tmp_path, model, "--device_features", "1")
 
 
 def test_save_embedding_is_the_restored_states(fixture_dir, tmp_path):
@@ -349,9 +384,6 @@ def test_save_embedding_is_the_restored_states(fixture_dir, tmp_path):
     (["--model_parallel", "2"], "A10"),
     (["--coordinator_addr", "localhost:1"], "A10"),
     (["--optimizer", "sgd"], "A4"),
-    (["--model", "saved_embedding"], "A0c"),
-    (["--model", "gat"], "A0c"),
-    (["--model", "graphsage", "--device_features", "1"], "A0c"),
 ])
 def test_unported_flags_raise(fixture_dir, tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=item):

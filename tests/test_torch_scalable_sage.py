@@ -386,18 +386,19 @@ def test_scan_train_runs_scalable_sage_on_cpu(syn, monkeypatch):
 
 def test_scalable_sage_entry_points_default_to_the_card(monkeypatch, syn):
     """init_state and device_sample_batch run on the card unless asked
-    for the CPU; host sampling and unported aggregators are refused."""
+    for the CPU; unported aggregators are refused; host sampling builds no
+    sampling table."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     opt = ttrain.get_optimizer("adam", LR)
-    with pytest.raises(NotImplementedError, match="device_sampling"):
-        TSage(**{**_kw(), "device_sampling": False})
+    host = TSage(**{**_kw(), "device_sampling": False})
+    assert host.device_features and not host.device_sampling
+    assert sorted(host.build_consts(syn, "cpu")) == ["features", "labels"]
     m = TSage(**_kw())
     with pytest.raises(RuntimeError, match="CUDA"):
         m.init_state(syn, opt)
     with pytest.raises(RuntimeError, match="CUDA"):
         m.device_sample_batch([1, 2], seed=0)
-    with pytest.raises(NotImplementedError, match="engine client"):
-        m.sample(syn, [1, 2])
+    assert sorted(m.sample(syn, [1, 2])) == ["roots", "seed"]
     with pytest.raises(ValueError, match="not ported"):
         TSage(**{**_kw(), "aggregator": "attention"}).make_module()
     state = m.init_state(syn, opt, device="cpu")
