@@ -195,7 +195,30 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    batch's bytes and upload ms, the loss, the metric, the peak of
    allocated device memory and a profiler window's device ms and busy
    share, beside the card's name and power limit.
-8. The ``kernels`` line; then the final ``ok`` line. Each phase prints
+8. Remote and shared graphs over phase 5's ppi files: (a) two shard
+   processes, ``python -m euler_tpu_torch.graph.service --shard_num 2``,
+   on a flat-file registry, each shard's load time printed; (b) 1,000
+   seeded ids read through ``Graph(mode="remote")`` equal the local
+   engine's reads (counts, types, full neighbours, dense features,
+   top-k); (c) ``run_loop --graph_mode remote --registry R --model
+   graphsage_supervised`` trains an epoch on the card through the
+   ``--sampler_depth`` ring of async fanouts, evaluates and exports, as
+   phase 5's paths (step ms, input stall, ids on the wire a step, the
+   client's feature and neighbour cache hits, peak memory, f1), then a
+   ``torch.profiler`` window of 10 remote-sampled ``train.train``
+   steps; (d) the rolling-restart drill of ``tests/
+   test_rolling_restart.py`` (same schedule, client settings and loss
+   tolerance): (c)'s training again while each shard in turn is
+   SIGTERM-drained and restarted on a new port, with zero failed calls;
+   (e) the same command as ``--graph_mode shared --registry
+   tcp://127.0.0.1:<free port>`` in this process; (f) (c)'s checkpoint
+   served over the remote graph to 16 client threads (200 requests of
+   1-16 ids), p50 and p99 against the 100 ms SLO, rows bit-equal to
+   ``embed_direct``; then a delta on shard 0 moves ``cache_gen``, the
+   stale blocks are evicted, and rows served afterwards are bit-equal to
+   ``embed_direct`` on the new graph. B1 and B2 launch 0 times on every
+   phase-8 path; the shards drain to exit code 0 on SIGTERM.
+9. The ``kernels`` line; then the final ``ok`` line. Each phase prints
    its wall time.
 """
 
@@ -208,6 +231,7 @@ import logging
 import os
 import re
 import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -327,6 +351,24 @@ SERVE_CPU_RTOL = 1e-4
 SERVE_CPU_ATOL = 1e-5
 # timed dispatches of one warm bucket
 SERVE_WARM_RUNS = 50
+# phase 8 (remote and shared graphs): two shard processes over phase 5's
+# ppi files, REMOTE_CHECK_IDS seeded ids read both ways, the JAX
+# rolling-restart drill's schedule (tests/test_rolling_restart.py: shard 0
+# after step 6, shard 1 after step 16) and loss tolerance, with its
+# client settings, and a delta of up to REMOTE_DELTA_IDS served ids on
+# shard 0
+REMOTE_SHARDS = 2
+REMOTE_CHECK_IDS = 1000
+SHARD_WAIT_S = 180.0
+DRILL_RESTARTS = {6: 0, 16: 1}
+DRILL_LOSS_TOL = 0.4
+DRILL_CLIENT = dict(retries=40, timeout_ms=2000, backoff_ms=10,
+                    quarantine_ms=200, deadline_ms=90000,
+                    rediscover_ms=250, neighbor_cache_mb=0)
+REMOTE_DELTA_IDS = 64
+BREAKDOWN_RUNS = 20
+PPI_FEATURE_DIM = 50
+PPI_LABEL_DIM = 121
 # NVIDIA H100 SXM data-sheet peaks (700 W): HBM bytes/s and
 # float32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -2213,10 +2255,10 @@ def run_loop_path(name: str, data_dir: str, model_dir: str, extra,
     eval.json's f1 and that embedding.npy is ``train.save_embedding`` of
     the restored state. Returns the launches, the steps' numbers and the
     trained state (captured from ``train.train``)."""
-    from euler_tpu_torch import run_loop
+    from euler_tpu_torch import heat, run_loop
     from euler_tpu_torch import train as train_lib
     from euler_tpu_torch.checkpoint import Checkpointer
-    from euler_tpu_torch.graph import sampling_kernels
+    from euler_tpu_torch.graph import native, sampling_kernels
 
     argv = ["--data_dir", data_dir, "--model_dir", model_dir,
             "--max_id", str(max_id), "--seed", str(seed), *RUN_LOOP_ARGS,
@@ -2230,6 +2272,8 @@ def run_loop_path(name: str, data_dir: str, model_dir: str, extra,
         return trained["state"], history
 
     torch.cuda.reset_peak_memory_stats()
+    native.reset_counters()
+    heat.heat_reset()
     for k in sampling_kernels.launches:
         sampling_kernels.launches[k] = 0
     train_lib.train = keep_state
@@ -2240,6 +2284,10 @@ def run_loop_path(name: str, data_dir: str, model_dir: str, extra,
     finally:
         train_lib.train = real_train
     launches = dict(sampling_kernels.launches)
+    # the transport's ledger and the client's fan-out of the training
+    # run (this process's side; a remote graph's shards keep their own)
+    wire = {"counters": native.counters(), "fanout": heat.heat_json()[
+        "fanout"]}
     peak = torch.cuda.max_memory_allocated()
     losses = np.array([w[1] for w in windows])
     if len(windows) != steps or not np.isfinite(losses).all():
@@ -2277,7 +2325,7 @@ def run_loop_path(name: str, data_dir: str, model_dir: str, extra,
     emb = np.load(os.path.join(model_dir, "embedding.npy"))
     args = run_loop.define_flags().parse_args(
         argv + ["--mode", "save_embedding"])
-    graph = run_loop.build_graph(args)
+    graph, services = run_loop.build_graph(args)
     model = run_loop.build_model(args, graph)
     restored = run_loop._restore_state(model, graph, args, device)
     want = train_lib.save_embedding(model, max_id, restored,
@@ -2312,9 +2360,12 @@ def run_loop_path(name: str, data_dir: str, model_dir: str, extra,
         f"{table_bytes(restored['consts'])} B; launches while evaluating "
         f"and exporting {dict((k, sampling_kernels.launches[k] - after[k]) for k in after)}")
     graph.close()
+    run_loop.stop_services(services)
     return {"launches": launches, "steps": steps, "step_ms": step_ms,
             "peak_bytes": peak, "state": trained["state"],
-            "restored": restored, "model": model}
+            "restored": restored, "model": model, "wire": wire,
+            "losses": losses, "eval": result, "stall_ms": stall_ms,
+            "stalled": stalled, "sample_ms": sample_ms}
 
 
 def profile_host_steps(model, graph, source_fn, seed: int, device: str,
@@ -2564,7 +2615,7 @@ def phase_serve(data_dir: str, model_dir: str, seed: int, smi: str,
             "--serve_max_wait_us", str(SERVE_WAIT_US)]
     args = run_loop.define_flags().parse_args(argv)
     args.mode = "evaluate"  # serve.main's inference config
-    graph = run_loop.build_graph(args)
+    graph, _ = run_loop.build_graph(args)
     model = run_loop.build_model(args, graph)
     native.reset_counters()
     T.telemetry_reset()
@@ -2775,7 +2826,7 @@ def zoo_path(name: str, data_dir: str, model_dir: str, extra, seed: int,
             "--max_id", str(max_id), "--seed", str(seed), *RUN_LOOP_ARGS,
             *extra]
     args = run_loop.define_flags().parse_args(argv)
-    graph = run_loop.build_graph(args)
+    graph, _ = run_loop.build_graph(args)
     model = run_loop.build_model(args, graph)
     assert not model.device_sampling
     for k in sampling_kernels.launches:
@@ -3065,6 +3116,445 @@ def phase_zoo(work: str, seed: int, smi: str, device: str = "cuda",
     return runs
 
 
+class Shard:
+    """One ``python -m euler_tpu_torch.graph.service`` shard process on a
+    flat-file registry, its output read on a thread (the serving line
+    carries its load time)."""
+
+    def __init__(self, idx: int, data_dir: str, reg: str):
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.idx, self.reg = idx, reg
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "euler_tpu_torch.graph.service",
+             "--data_dir", data_dir, "--shard_idx", str(idx),
+             "--shard_num", str(REMOTE_SHARDS), "--registry", reg],
+            cwd=root, env=dict(os.environ, PYTHONPATH=root),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.lines = []
+        self.up = threading.Event()
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip())
+            if "serving on" in line:
+                self.up.set()
+
+    def wait_up(self, timeout: float = SHARD_WAIT_S) -> tuple:
+        """Wait until the shard logged that it serves and its registry
+        entry accepts a connection; ``(load seconds as the shard logged
+        them, seconds from launch)``."""
+        deadline = time.monotonic() + timeout
+        while not self.up.wait(0.1):
+            if self.proc.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(f"shard {self.idx} never served:\n"
+                                     + "\n".join(self.lines[-20:]))
+        while True:
+            for f in os.listdir(self.reg):
+                if f.startswith(f"{self.idx}#"):
+                    host, port = f.split("#", 1)[1].rsplit("_", 1)
+                    try:
+                        with socket.create_connection((host, int(port)), 1):
+                            m = re.search(r"loaded in (\S+) s",
+                                          "\n".join(self.lines))
+                            return (float(m.group(1)),
+                                    time.perf_counter() - self.t0)
+                    except OSError:
+                        pass
+            if time.monotonic() > deadline:
+                raise AssertionError(f"shard {self.idx} never registered")
+            time.sleep(0.05)
+
+    def drain(self) -> int:
+        """SIGTERM: the service drains (deregister, finish in-flight
+        requests, close) and exits; its exit code."""
+        self.proc.send_signal(signal.SIGTERM)
+        rc = self.proc.wait(60)
+        self.reader.join(10)
+        return rc
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(30)
+
+
+def batch_parts(model, graph, seed: int) -> str:
+    """The two parts of a host batch of ``model`` over ``graph``, timed
+    alone (host clock, median of BREAKDOWN_RUNS batches of PPI_BATCH
+    roots): the fanout (submit to take of ``sample_fanout_async`` on a
+    remote graph, ``sample_fanout`` on a local one) and the hops'
+    feature and label reads (``_batch_from_hops``); then one id's
+    serving block (``sample_host_embed``), the unit a cold serve
+    dispatch draws once an id."""
+    rng = np.random.default_rng(seed)
+    fan, feat, block = [], [], []
+    for _ in range(BREAKDOWN_RUNS):
+        roots = rng.integers(0, model.max_id + 1, PPI_BATCH)
+        t0 = time.perf_counter()
+        h = graph.sample_fanout_async(roots, model.metapath, model.fanouts,
+                                      model.default_node)
+        hops = (h.take() if h is not None else graph.sample_fanout(
+            roots, model.metapath, model.fanouts, model.default_node))[0]
+        t1 = time.perf_counter()
+        model._batch_from_hops(graph, roots, hops)
+        t2 = time.perf_counter()
+        model.sample_host_embed(graph, roots[:1])
+        block.append((time.perf_counter() - t2) * 1e3)
+        fan.append((t1 - t0) * 1e3)
+        feat.append((t2 - t1) * 1e3)
+    return (f"fanout {statistics.median(fan):.4f} ms, feature and label "
+            f"reads {statistics.median(feat):.4f} ms, one id's serving "
+            f"block {statistics.median(block):.4f} ms")
+
+
+def free_port() -> int:
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def ppi_delta(local, ids, data_dir: str, path: str) -> np.ndarray:
+    """Write a delta that replaces the nodes ``ids`` with copies whose
+    feature slot 1 is raised by 1 (type, weight, neighbours and labels
+    read back from ``local``, unchanged); returns their new features."""
+    from euler_tpu_torch.graph.convert import pack_block, pack_delta
+
+    with open(os.path.join(data_dir, "meta.json")) as f:
+        meta = json.load(f)
+    fdim, ldim = PPI_FEATURE_DIM, PPI_LABEL_DIM
+    labels = local.get_dense_feature(ids, [0], [ldim])
+    feats = local.get_dense_feature(ids, [1], [fdim]) + 1.0
+    types, weights = local.node_types(ids), local.node_weights(ids)
+    blocks = []
+    for i, nid in enumerate(ids):
+        neighbor = {}
+        for t in range(meta["edge_type_num"]):
+            nbr, w, _, _ = local.get_full_neighbor([nid], [t])
+            neighbor[str(t)] = dict(zip(map(str, nbr.tolist()), w.tolist()))
+        blocks.append(pack_block({
+            "node_id": int(nid), "node_type": int(types[i]),
+            "node_weight": float(weights[i]), "neighbor": neighbor,
+            "uint64_feature": {}, "binary_feature": {}, "edge": [],
+            "float_feature": {"0": labels[i].tolist(),
+                              "1": feats[i].tolist()}}, meta))
+    with open(path, "wb") as f:
+        f.write(pack_delta(1, [], [], b"".join(blocks)))
+    return feats
+
+
+def serve_remote(data_dir: str, model_dir: str, reg: str, seed: int,
+                 smi: str, device: str, max_id: int, work: str) -> dict:
+    """(f) the remote run's checkpoint served over the remote graph:
+    SERVE_CLIENTS threads of ``serve_traffic``, rows bit-equal to
+    ``embed_direct``; then a delta on shard 0 moves ``cache_gen``,
+    evicts the stale blocks, and the rows served after it equal
+    ``embed_direct`` over the new graph (and differ where the delta
+    changed an id's features)."""
+    from euler_tpu_torch import run_loop, serve
+    from euler_tpu_torch.graph import Graph, native, sampling_kernels
+    from euler_tpu_torch.serving import EmbedClient
+
+    argv = ["--data_dir", data_dir, "--model_dir", model_dir,
+            "--max_id", str(max_id), "--seed", str(seed), *RUN_LOOP_ARGS,
+            "--graph_mode", "remote", "--registry", reg,
+            "--serve_port", "0", "--serve_max_batch", str(SERVE_MAX_BATCH),
+            "--serve_max_wait_us", str(SERVE_WAIT_US)]
+    args = run_loop.define_flags().parse_args(argv)
+    args.mode = "evaluate"  # serve.main's inference config
+    graph, services = run_loop.build_graph(args)
+    model = run_loop.build_model(args, graph)
+    for k in sampling_kernels.launches:
+        sampling_kernels.launches[k] = 0
+    server, frontend = serve.run_serve(model, graph, args, device,
+                                       block=False)
+    reqs = serve_traffic(max_id, seed)
+
+    def traffic(tag: str) -> dict:
+        results = [None] * len(reqs)
+        errors = []
+
+        def client(k0):
+            c = EmbedClient(frontend.address, timeout_s=60.0)
+            try:
+                for k in range(k0, len(reqs), SERVE_CLIENTS):
+                    t = time.perf_counter()
+                    rows = c.embed(reqs[k])
+                    results[k] = (rows, (time.perf_counter() - t) * 1e3)
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(repr(e))
+            finally:
+                c.close()
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        wall = time.perf_counter() - t0
+        if errors or any(t.is_alive() for t in threads) or None in results:
+            raise AssertionError(f"serve_remote clients failed: {errors[:5]}")
+        rows = {}
+        for req, (got, _) in zip(reqs, results):
+            for nid, row in zip(req, got):
+                want = server.embed_direct(nid)
+                if not np.array_equal(row, want):
+                    raise AssertionError(
+                        f"serve_remote {tag}: served row of id {nid} differs "
+                        f"from embed_direct (max abs "
+                        f"{np.abs(row - want).max()})")
+                rows[nid] = row
+        lat = np.array([r[1] for r in results])
+        p50, p99 = np.percentile(lat, 50), np.percentile(lat, 99)
+        log(f"(f) serve_remote {tag}: {SERVE_REQUESTS} requests from "
+            f"{SERVE_CLIENTS} clients ({sum(len(r) for r in reqs)} ids, "
+            f"{len(rows)} distinct) in {wall:.3f} s: client p50 {p50:.4f} "
+            f"ms, p99 {p99:.4f} ms against the {args.serve_slo_ms:g} ms SLO "
+            f"({'met' if p99 <= args.serve_slo_ms else 'missed'}); SLO "
+            f"tracker {server.stats()['slo']}; every served row bit-equal "
+            f"to embed_direct on {device}; cache_gen {graph.cache_gen} "
+            f"(card: {smi})")
+        return rows
+
+    try:
+        server.embed_direct(0)  # the first dispatch captures the bucket
+        before = traffic("before the delta")
+        gen0 = graph.cache_gen
+        local = Graph(directory=data_dir)
+        distinct = np.array(sorted(before), dtype=np.int64)
+        changed = distinct[graph.shard_of(distinct) == 0][:REMOTE_DELTA_IDS]
+        path = os.path.join(work, "ppi_shard0.delta.1")
+        feats = ppi_delta(local, changed, data_dir, path)
+        local.close()
+        native.reset_counters()
+        epoch = graph.load_delta(path, shard=0)
+        got = graph.get_dense_feature(changed, [1], [PPI_FEATURE_DIM])
+        if epoch != 1 or not np.array_equal(got, feats):
+            raise AssertionError(f"delta on shard 0: epoch {epoch}, the new "
+                                 "features not read back")
+        if not graph.cache_gen > gen0:
+            raise AssertionError(f"cache_gen {gen0} -> {graph.cache_gen} "
+                                 "after the delta")
+        after = traffic("after the delta")
+        evicted = native.counters()["epoch_stale_hits_evicted"]
+        moved = sum(not np.array_equal(before[i], after[i]) for i in changed)
+        if evicted < len(before) or moved != len(changed):
+            raise AssertionError(
+                f"after the delta: {evicted} stale hits evicted for "
+                f"{len(before)} cached ids, {moved} of {len(changed)} "
+                "changed ids' rows moved")
+        launches = dict(sampling_kernels.launches)
+        log(f"(f) delta on shard 0 ({len(changed)} nodes' features + 1): "
+            f"epoch {graph.shard_epoch(0)} / {graph.shard_epoch(1)}, "
+            f"cache_gen {gen0} -> {graph.cache_gen}, "
+            f"epoch_stale_hits_evicted {evicted} (the {len(before)} cached "
+            f"blocks and the client's native cache entries), the rows of "
+            f"all {len(changed)} changed ids moved; launches {launches}")
+    finally:
+        frontend.drain(grace_s=1.0)
+        server.close()
+        frontend.stop()
+        graph.close()
+        run_loop.stop_services(services)
+    return {"launches": launches}
+
+
+def rolling_drill(data_dir: str, reg: str, shards: dict, seed: int,
+                  smi: str, device: str, max_id: int, clean: list) -> dict:
+    """(d) the rolling-restart drill: ``train.train`` of (c)'s model and
+    run over the remote graph with the drill's client settings, each
+    shard in turn SIGTERM-drained and restarted on a new port at the
+    JAX drill's steps; no call may fail, and the final loss (mean of the
+    last 5 steps) must land within DRILL_LOSS_TOL of (c)'s."""
+    from euler_tpu_torch import run_loop
+    from euler_tpu_torch import train as train_lib
+    from euler_tpu_torch.graph import Graph, native, sampling_kernels
+
+    args = run_loop.define_flags().parse_args(
+        ["--data_dir", data_dir, "--max_id", str(max_id), "--seed",
+         str(seed), *RUN_LOOP_ARGS])
+    graph = Graph(mode="remote", registry=reg, **DRILL_CLIENT)
+    model = run_loop.build_model(args, graph)
+    restarts = []
+
+    def rolling(step):
+        idx = DRILL_RESTARTS.get(step)
+        if idx is None:
+            return
+        t0 = time.perf_counter()
+        rc = shards[idx].drain()
+        if rc != 0 or any(f.startswith(f"{idx}#") for f in os.listdir(reg)):
+            raise AssertionError(f"shard {idx}: SIGTERM exit {rc}, registry "
+                                 f"{os.listdir(reg)}")
+        shards[idx] = Shard(idx, data_dir, reg)
+        load_s, up_s = shards[idx].wait_up()
+        restarts.append((step, idx, time.perf_counter() - t0, load_s))
+
+    native.reset_counters()
+    for k in sampling_kernels.launches:
+        sampling_kernels.launches[k] = 0
+    steps = (max_id + 1) // PPI_BATCH
+    t0 = time.perf_counter()
+    try:
+        _, hist = train_lib.train(
+            model, graph, lambda step: graph.sample_node(PPI_BATCH, 0),
+            steps, learning_rate=PPI_LR, log_every=1, seed=seed,
+            device=device, step_hook=rolling, log_fn=lambda m: None)
+    finally:
+        graph.close()
+    wall = time.perf_counter() - t0
+    ctr = native.counters()
+    launches = dict(sampling_kernels.launches)
+    losses = [h["loss"] for h in hist]
+    drilled, base = float(np.mean(losses[-5:])), float(np.mean(clean[-5:]))
+    if (ctr["calls_failed"] or ctr["rpc_errors"]
+            or not np.isfinite(losses).all() or not drilled < losses[0]
+            or abs(drilled - base) >= DRILL_LOSS_TOL
+            or len(restarts) != len(DRILL_RESTARTS) or not ctr["retries"]
+            or not ctr["rediscoveries"]):
+        raise AssertionError(
+            f"rolling-restart drill: counters "
+            f"{ {k: v for k, v in ctr.items() if v} }, final loss {drilled} "
+            f"against {base}, restarts {restarts}")
+    log(f"(d) remote_ppi_drill: {steps} steps in {wall:.2f} s, shards "
+        f"drained and restarted (step, shard, seconds down, load s): "
+        f"{restarts}; calls_failed 0, rpc_errors 0, retries "
+        f"{ctr['retries']}, dials_failed {ctr['dials_failed']}, "
+        f"rediscoveries {ctr['rediscoveries']}, failovers "
+        f"{ctr['failovers']}; final loss (last 5) {drilled:.5f} against "
+        f"(c)'s {base:.5f} (tolerance {DRILL_LOSS_TOL}); launches "
+        f"{launches} (card: {smi})")
+    return {"launches": launches}
+
+
+def phase_remote(work: str, seed: int, smi: str, device: str = "cuda",
+                 ppi: dict | None = None) -> dict:
+    """Remote and shared graphs over phase 5's ppi files (phase 8 of the
+    module docstring)."""
+    log("== phase 8: remote")
+    from euler_tpu_torch import datasets
+    from euler_tpu_torch.graph import Graph, sampling_kernels
+
+    ppi = ppi or datasets.PPI
+    max_id = ppi["num_nodes"] - 1
+    data_dir = os.path.join(work, "ppi")
+    reg = os.path.join(work, "reg")
+    os.makedirs(reg)
+    runs = {}
+    shards = {}
+    try:
+        # (a) two shard processes on a flat-file registry
+        shards.update({s: Shard(s, data_dir, reg)
+                       for s in range(REMOTE_SHARDS)})
+        ups = [shards[s].wait_up() for s in range(REMOTE_SHARDS)]
+        log("(a) shards " + ", ".join(
+            f"{s}: loaded in {ld:.3f} s, serving {up:.2f} s after launch"
+            for s, (ld, up) in enumerate(ups))
+            + f"; registry {sorted(os.listdir(reg))}")
+        # (b) seeded ids through the remote client against the local engine
+        local = Graph(directory=data_dir)
+        remote = Graph(mode="remote", registry=reg)
+        ids = np.random.default_rng(seed).integers(0, max_id + 1,
+                                                   REMOTE_CHECK_IDS)
+        t0 = time.perf_counter()
+        checks = {
+            "counts": lambda g: (g.num_nodes, g.num_edges,
+                                 g.type_weight_sums()),
+            "node_types": lambda g: g.node_types(ids),
+            "full_neighbors": lambda g: g.get_full_neighbor(ids, [0]),
+            "dense_features": lambda g: g.get_dense_feature(
+                ids, [0, 1], [PPI_LABEL_DIM, PPI_FEATURE_DIM]),
+            "top_k": lambda g: g.get_top_k_neighbor(ids, [0], 10),
+        }
+        for name, read in checks.items():
+            a, b = read(remote), read(local)
+            flat = [(x, y) for x, y in zip(a, b)] if isinstance(a, tuple) \
+                else [(a, b)]
+            if not all(np.array_equal(np.asarray(x), np.asarray(y))
+                       for x, y in flat):
+                raise AssertionError(f"remote {name} differ from local")
+        log(f"(b) {REMOTE_CHECK_IDS} seeded ids over the wire equal the "
+            f"local engine's: {', '.join(checks)} "
+            f"({time.perf_counter() - t0:.3f} s; {remote.num_shards} shards, "
+            f"{remote.num_partitions} partitions, placement "
+            f"{remote.has_placement})")
+        remote.close()
+        local.close()
+        # (c) python -m euler_tpu_torch --graph_mode remote
+        r = run_loop_path("remote_ppi", data_dir,
+                          os.path.join(work, "m_remote"),
+                          ["--graph_mode", "remote", "--registry", reg],
+                          seed, smi, device, max_id)
+        wire, steps = r["wire"], r["steps"]
+        fan = wire["fanout"]
+        on_wire = sum(v["ids_on_wire"] for v in fan.values())
+        c = wire["counters"]
+        log(f"(c) remote_ppi: step {r['step_ms']:.4f} ms (median of steps "
+            f"11-{steps}), input stall {r['stall_ms']:.4f} ms a step, "
+            f"{r['stalled']} of {steps} steps waited over 1 ms, the "
+            f"pipeline's wait on a step's fanout {r['sample_ms']:.4f} ms; "
+            f"ids on the wire {on_wire / steps:.1f} a step (client fan-out "
+            f"{fan}); feature cache hits {c['cache_hits']} misses "
+            f"{c['cache_misses']}, neighbour cache hits "
+            f"{c['nbr_cache_hits']} misses {c['nbr_cache_misses']}, ids "
+            f"deduped {c['ids_deduped']}, async submits "
+            f"{c['async_submits']}, calls_failed {c['calls_failed']}; peak "
+            f"{r['peak_bytes']} B; eval {r['eval']} (card: {smi})")
+        if r["launches"] != {"sample_fanout2": 0, "sample_neighbor": 0} \
+                or c["calls_failed"] or not c["async_submits"]:
+            raise AssertionError(f"remote_ppi: launches {r['launches']}, "
+                                 f"counters {c}")
+        graph = Graph(mode="remote", registry=reg)
+        log("(c) remote train.train profiled over steps 11-20: "
+            + profile_host_steps(
+                r["model"], graph,
+                lambda step: graph.sample_node(PPI_BATCH, 0), seed, device)
+            + f" (card: {smi})")
+        local = Graph(directory=data_dir)
+        log("(c) a batch's parts, host clock, median of "
+            f"{BREAKDOWN_RUNS}: " + "; ".join(
+                f"{name}: " + batch_parts(r["model"], g, seed)
+                for name, g in (("remote", graph), ("local engine", local))))
+        local.close()
+        graph.close()
+        runs["remote_ppi"] = {k: r[k] for k in ("launches", "steps",
+                                                "step_ms", "peak_bytes")}
+        # (d) the rolling-restart drill
+        runs["remote_ppi_drill"] = rolling_drill(
+            data_dir, reg, shards, seed, smi, device, max_id, r["losses"])
+        # (e) shared mode in one process, a tcp:// registry hosted by it
+        sh = run_loop_path(
+            "shared_ppi", data_dir, os.path.join(work, "m_shared"),
+            ["--graph_mode", "shared", "--registry",
+             f"tcp://127.0.0.1:{free_port()}"], seed, smi, device, max_id)
+        if sh["launches"] != {"sample_fanout2": 0, "sample_neighbor": 0} \
+                or sh["wire"]["counters"]["calls_failed"]:
+            raise AssertionError(f"shared_ppi: launches {sh['launches']}, "
+                                 f"counters {sh['wire']['counters']}")
+        runs["shared_ppi"] = {k: sh[k] for k in ("launches", "steps",
+                                                 "step_ms", "peak_bytes")}
+        # (f) serving over the remote graph, and a delta under it
+        runs["serve_remote"] = serve_remote(
+            data_dir, os.path.join(work, "m_remote"), reg, seed, smi, device,
+            max_id, work)
+        for s in range(REMOTE_SHARDS):
+            rc = shards[s].drain()
+            if rc != 0:
+                raise AssertionError(f"shard {s} exited {rc} on SIGTERM")
+    finally:
+        for sh_ in shards.values():
+            sh_.kill()
+    moved = {p: r["launches"] for p, r in runs.items()
+             if any(r["launches"].values())}
+    if moved:
+        raise AssertionError(f"phase 8 paths launched kernels: {moved}")
+    return runs
+
+
 def add_runs(runs: dict, new: dict) -> None:
     """``runs.update(new)``, raising where a path's name is taken: the
     kernels line counts launches by path name."""
@@ -3099,8 +3589,11 @@ def main() -> int:
         t5 = time.perf_counter()
         log(f"phase 6: {t5 - t4:.1f} s")
         add_runs(runs, phase_zoo(work, args.seed, smi))
-    log(f"phase 7: {time.perf_counter() - t5:.1f} s")
-    log("== phase 8: kernels")
+        t6 = time.perf_counter()
+        log(f"phase 7: {t6 - t5:.1f} s")
+        add_runs(runs, phase_remote(work, args.seed, smi))
+    log(f"phase 8: {time.perf_counter() - t6:.1f} s")
+    log("== phase 9: kernels")
     meta = {
         "sample_fanout2": dict(
             source="euler_tpu_torch/csrc/sample_fanout2.cu",

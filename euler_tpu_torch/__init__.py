@@ -14,7 +14,8 @@ launches the kernel or raises.
 """
 
 from euler_tpu_torch.device import resolve_device
+from euler_tpu_torch.graph import Graph, GraphService
 
 __version__ = "0.1.0"
 
-__all__ = ["resolve_device"]
+__all__ = ["Graph", "GraphService", "resolve_device"]

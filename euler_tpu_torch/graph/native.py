@@ -28,6 +28,8 @@ import subprocess
 import tempfile
 import time
 
+import numpy as np
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NATIVE_DIR = os.path.join(_PKG, "graph", "_native")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "euler_tpu_torch",
@@ -120,8 +122,13 @@ def lib() -> ctypes.CDLL:
     _sig(L.eg_destroy, None, [p])
     _sig(L.eg_load, c.c_int, [p, c.c_char_p, c.c_int, c.c_int])
     _sig(L.eg_load_files, c.c_int, [p, c.POINTER(c.c_char_p), c.c_int])
+    _sig(L.eg_load_deltas, c.c_int, [p, c.c_char_p])
     _sig(L.eg_graph_epoch, c.c_uint64, [p])
     _sig(L.eg_seed, None, [c.c_uint64])
+    _sig(L.eg_stat_count, c.c_int, [])
+    _sig(L.eg_stat_name, c.c_char_p, [c.c_int])
+    _sig(L.eg_stats_snapshot, None, [u64p, u64p, u64p])
+    _sig(L.eg_stats_reset, None, [])
     _sig(L.eg_num_nodes, c.c_int64, [p])
     _sig(L.eg_num_edges, c.c_int64, [p])
     _sig(L.eg_node_type_num, c.c_int32, [p])
@@ -199,6 +206,70 @@ def lib() -> ctypes.CDLL:
     _sig(L.eg_telemetry_set_enabled, None, [c.c_int])
     _sig(L.eg_telemetry_reset, None, [])
     _sig(L.eg_telemetry_json, c.c_int, [c.c_char_p, c.c_int])
+    _sig(L.eg_telemetry_set_slow_capacity, None, [c.c_int])
+    _sig(
+        L.eg_telemetry_record_span,
+        None,
+        [c.c_int, c.c_int, c.c_int, c.c_int, c.c_uint64, c.c_uint64,
+         c.c_uint64, c.c_uint64, c.c_uint64],
+    )
+    # the remote client, shard service, registry, heat profiler and
+    # failpoints (remote and shared graphs)
+    _sig(L.eg_remote_ping, c.c_int, [p, c.c_int])
+    _sig(L.eg_remote_scrape, c.c_int, [p, c.c_int, c.c_char_p, c.c_int])
+    _sig(L.eg_remote_history, c.c_int, [p, c.c_int, c.c_char_p, c.c_int])
+    _sig(L.eg_heat_enabled, c.c_int, [])
+    _sig(L.eg_heat_set_enabled, None, [c.c_int])
+    _sig(L.eg_heat_set_topk, None, [c.c_int])
+    _sig(L.eg_heat_record, None, [c.c_int, c.c_int, u64p, c.c_int64])
+    _sig(L.eg_heat_estimate, c.c_uint64, [c.c_int, c.c_uint64])
+    _sig(L.eg_heat_json, c.c_int, [c.c_char_p, c.c_int])
+    _sig(L.eg_heat_reset, None, [])
+    _sig(L.eg_remote_heat, c.c_int, [p, c.c_int, c.c_char_p, c.c_int])
+    _sig(L.eg_fault_config, c.c_int, [c.c_char_p, c.c_uint64])
+    _sig(L.eg_fault_clear, None, [])
+    _sig(L.eg_fault_count, c.c_int, [])
+    _sig(L.eg_fault_name, c.c_char_p, [c.c_int])
+    _sig(L.eg_fault_injected, None, [u64p])
+    _sig(L.eg_remote_create, p, [c.c_char_p])
+    _sig(L.eg_remote_shards, c.c_int, [p])
+    _sig(L.eg_remote_partitions, c.c_int, [p])
+    _sig(L.eg_remote_replica_count, c.c_int, [p, c.c_int])
+    _sig(L.eg_remote_has_placement, c.c_int, [p])
+    _sig(L.eg_remote_route, None, [p, u64p, c.c_int, i32p])
+    _sig(L.eg_remote_strict_error, c.c_int, [p, c.c_char_p, c.c_int])
+    _sig(L.eg_remote_epoch, c.c_uint64, [p, c.c_int])
+    _sig(L.eg_remote_cache_gen, c.c_uint64, [p])
+    _sig(L.eg_remote_load_delta, c.c_int64, [p, c.c_int, c.c_char_p])
+    _sig(
+        L.eg_remote_sample_async,
+        c.c_int,
+        [
+            p, u64p, c.c_int, i32p, i32p, i32p, c.c_int, c.c_uint64,
+            c.POINTER(u64p), c.POINTER(f32p), c.POINTER(i32p),
+        ],
+    )
+    _sig(L.eg_remote_async_poll, c.c_int, [p, c.c_int])
+    _sig(L.eg_remote_async_take, c.c_int, [p, c.c_int])
+    _sig(
+        L.eg_service_start,
+        p,
+        [c.c_char_p, c.c_int, c.c_int, c.c_char_p, c.c_int, c.c_char_p,
+         c.c_char_p],
+    )
+    _sig(L.eg_service_port, c.c_int, [p])
+    _sig(L.eg_service_drain, None, [p, c.c_int])
+    _sig(L.eg_service_load_delta, c.c_int64, [p, c.c_char_p])
+    _sig(L.eg_service_epoch, c.c_uint64, [p])
+    _sig(L.eg_service_stop, None, [p])
+    _sig(L.eg_registry_start, p, [c.c_char_p, c.c_int, c.c_int])
+    _sig(L.eg_registry_port, c.c_int, [p])
+    _sig(L.eg_registry_stop, None, [p])
+    _sig(
+        L.eg_registry_query,
+        c.c_int,
+        [c.c_char_p, c.c_int, c.c_int, c.c_char_p, c.c_int],
+    )
     _lib = L
     return L
 
@@ -237,3 +308,55 @@ def counter_add(name: str, n: int = 1) -> None:
         _counter_ids = {L.eg_counter_name(i).decode(): i
                         for i in range(L.eg_counter_count())}
     lib().eg_counter_add(_counter_ids[name], n)
+
+
+def stats() -> dict:
+    """Snapshot of the engine's span timers (process-global: engine
+    calls, remote client round trips and served shard requests all
+    record here, ``_native/eg_stats.h``): ``{op: {count, total_ms,
+    avg_us, max_us}}`` for the ops with a count."""
+    L = lib()
+    n = L.eg_stat_count()
+    counts, total, mx = (np.zeros(n, dtype=np.uint64) for _ in range(3))
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    L.eg_stats_snapshot(counts.ctypes.data_as(u64p),
+                        total.ctypes.data_as(u64p), mx.ctypes.data_as(u64p))
+    return {
+        L.eg_stat_name(i).decode(): {
+            "count": int(counts[i]),
+            "total_ms": float(total[i]) / 1e6,
+            "avg_us": float(total[i]) / float(counts[i]) / 1e3,
+            "max_us": float(mx[i]) / 1e3,
+        }
+        for i in range(n) if counts[i]
+    }
+
+
+def stats_reset() -> None:
+    """Zero the engine's span timers."""
+    lib().eg_stats_reset()
+
+
+def fault_config(spec: str, seed: int = 0) -> None:
+    """Install a process-global deterministic failpoint spec (the JAX
+    package's FAULTS.md grammar), e.g. ``recv_frame:err@0.5,dial:delay@
+    200``. The same ``seed`` fires the same pattern of faults at each
+    point. A malformed spec raises ``ValueError`` and installs nothing;
+    an empty spec clears."""
+    if lib().eg_fault_config(spec.encode(), seed) != 0:
+        raise ValueError(lib().eg_last_error().decode())
+
+
+def fault_clear() -> None:
+    """Remove every installed failpoint."""
+    lib().eg_fault_clear()
+
+
+def fault_injected() -> dict:
+    """``{failpoint: fires since its last config}``, every failpoint
+    present."""
+    L = lib()
+    n = L.eg_fault_count()
+    arr = (ctypes.c_uint64 * n)()
+    L.eg_fault_injected(arr)
+    return {L.eg_fault_name(i).decode(): int(arr[i]) for i in range(n)}

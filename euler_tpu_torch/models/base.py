@@ -334,10 +334,13 @@ class Model:
         model needs less."""
         return self.sample(graph, inputs)
 
+    # ---- split sampling (``train``'s ``sampler_depth`` pipeline) ----
+    # ``sample_start`` submits a step's graph queries without waiting and
+    # returns a pending token; ``sample_finish`` blocks on it and builds
+    # the batch. By default start samples in full and finish unwraps, so
+    # every model is correct; a model with an async path
+    # (SupervisedGraphSage) overrides both.
     def sample_start(self, graph, inputs):
-        """The non-blocking half of ``sample`` (the JAX package's
-        ``sampler_depth`` pipeline over remote graphs). A local engine
-        has no wire to overlap, so it samples in full here."""
         return self.sample(graph, inputs)
 
     def sample_finish(self, graph, pending) -> dict:

@@ -199,11 +199,38 @@ class SupervisedGraphSage(base.Model):
         inputs = np.asarray(inputs, dtype=np.int64).reshape(-1)
         ids_per_hop, _, _ = graph.sample_fanout(
             inputs, self.metapath, self.fanouts, self.default_node)
+        return self._batch_from_hops(graph, inputs, ids_per_hop)
+
+    def _batch_from_hops(self, graph, inputs, ids_per_hop) -> dict:
         hops = [self.host_node_inputs(graph, ids) for ids in ids_per_hop]
         if self.device_features:  # labels read from the device table
             return {"hops": hops}
         return {"hops": hops, "labels": graph.get_dense_feature(
             inputs, [self.label_idx], [self.label_dim])}
+
+    def sample_start(self, graph, inputs):
+        """The non-blocking half of ``sample`` (``train``'s
+        ``sampler_depth`` pipeline): the whole fanout submitted as one
+        async op of a remote graph, whose hop chain runs on the client's
+        dispatcher pool. A graph without the async path (local, or its
+        pool of async ops full) samples in full here."""
+        if self.device_sampling:
+            return self.sample(graph, inputs)
+        inputs = np.asarray(inputs, dtype=np.int64).reshape(-1)
+        submit = getattr(graph, "sample_fanout_async", None)
+        handle = (submit(inputs, self.metapath, self.fanouts,
+                         self.default_node) if submit is not None else None)
+        if handle is None:
+            return self.sample(graph, inputs)
+        return (inputs, handle)
+
+    def sample_finish(self, graph, pending) -> dict:
+        if not (isinstance(pending, tuple) and len(pending) == 2
+                and hasattr(pending[1], "take")):
+            return pending  # sample_start built the batch already
+        inputs, handle = pending
+        ids_per_hop, _, _ = handle.take()
+        return self._batch_from_hops(graph, inputs, ids_per_hop)
 
 
 class _ScalableSageModule(nn.Module):

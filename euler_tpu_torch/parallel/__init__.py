@@ -1,7 +1,8 @@
-"""Input pipeline (counterpart of ``euler_tpu.parallel``): the prefetch
-workers of ``train.train``. Multi-device training is not ported yet
-(ROADMAP A10)."""
+"""Input pipelines (counterpart of ``euler_tpu.parallel``): the prefetch
+workers of ``train.train`` and the split-sampler ring of its
+``sampler_depth``. Multi-device training is not ported yet (ROADMAP
+A10)."""
 
-from euler_tpu_torch.parallel.prefetch import prefetch
+from euler_tpu_torch.parallel.prefetch import pipeline, prefetch
 
-__all__ = ["prefetch"]
+__all__ = ["pipeline", "prefetch"]

@@ -1,10 +1,12 @@
-"""Host prefetch pipeline (counterpart of ``euler_tpu/parallel/prefetch.py``
-``prefetch``).
+"""Host input pipelines (counterpart of ``euler_tpu/parallel/prefetch.py``).
 
-The sampler runs in background threads (the engine releases the GIL)
-and builds batch k+1..k+depth as numpy arrays while the training thread
-drives step k on the card. Only the training thread touches CUDA: it
-uploads each batch after taking it from here.
+``prefetch``: the sampler runs in background threads (the engine releases
+the GIL) and builds batch k+1..k+depth as numpy arrays while the training
+thread drives step k on the card. ``pipeline``: one sampler thread keeps
+``depth`` steps of a split sampler submitted to the remote client's own
+dispatcher (``Graph.sample_fanout_async``) and finishes them in order.
+Only the training thread touches CUDA: it uploads each batch after
+taking it from here.
 
 ``timings``, when given a dict, collects two lists a run: ``"sample"``,
 each batch's build seconds in its worker, and ``"input_stall"``, the
@@ -18,6 +20,7 @@ from __future__ import annotations
 import queue
 import threading
 import time
+from collections import deque
 from typing import Callable, Iterator
 
 
@@ -130,3 +133,81 @@ def prefetch(
             cv.notify_all()
         for t in threads:
             t.join(timeout=1.0)
+
+
+def pipeline(
+    start_fn: Callable[[int], object],
+    finish_fn: Callable[[int, object], dict],
+    num_steps: int,
+    depth: int = 2,
+    start: int = 0,
+    worker_init: Callable[[int], None] | None = None,
+    timings: dict | None = None,
+) -> Iterator[dict]:
+    """Yield num_steps batches for steps start..start+num_steps over a
+    split sampler (``train.train``'s ``sampler_depth``), kept ``depth``
+    submits ahead of the consumer.
+
+    ``start_fn(step)`` submits the step's sampling without blocking (a
+    remote graph: one async op whose hop chain runs on the client's
+    dispatcher pool, no Python thread held) and returns a pending token;
+    ``finish_fn(step, pending)`` blocks on it and builds the batch. One
+    sampler thread keeps up to ``depth`` steps submitted and finishes
+    them strictly in order into a bounded queue. ``timings`` collects
+    what ``prefetch`` does: ``"sample"`` is the sampler thread's wait in
+    ``finish_fn`` a step (near 0 when the ring hides the wire). An
+    exception in either function is raised to the consumer at its step;
+    tokens still in the ring are dropped (their handles recycle their
+    native slots when collected)."""
+    stall = sample = None
+    if timings is not None:
+        stall = timings.setdefault("input_stall", [])
+        sample = timings.setdefault("sample", [])
+    depth = max(1, int(depth))
+    # bounded: at most depth submitted and depth+1 finished batches exist
+    out: "queue.Queue" = queue.Queue(maxsize=depth + 1)
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                out.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def sampler():
+        inflight: deque = deque()
+        step = 0
+        try:
+            if worker_init is not None:
+                worker_init(0)
+            while not stop.is_set() and (inflight or step < num_steps):
+                while step < num_steps and len(inflight) < depth:
+                    inflight.append((step, start_fn(step + start)))
+                    step += 1
+                cur, pending = inflight.popleft()
+                t0 = time.perf_counter()
+                batch = finish_fn(cur + start, pending)
+                if sample is not None:
+                    sample.append(time.perf_counter() - t0)
+                if not put(batch):
+                    return
+        except Exception as e:
+            put(e)
+
+    t = threading.Thread(target=sampler, daemon=True)
+    t.start()
+    try:
+        for _ in range(num_steps):
+            t_wait = time.perf_counter()
+            item = out.get()  # the sampler thread produces in order
+            if stall is not None:
+                stall.append(time.perf_counter() - t_wait)
+            if isinstance(item, Exception):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        t.join(timeout=1.0)

@@ -1,12 +1,19 @@
 """Training / evaluation / embedding-export CLI driver (counterpart of
 ``euler_tpu/run_loop.py``), on one CUDA device.
 
-The flag surface is the JAX package's. ``--mode train`` builds a local
-``Graph(directory=--data_dir)`` from ``.dat`` partitions, draws
-``--batch_size`` roots a step on the host and trains through
-``train.train`` (host sampling through the engine and prefetch, or with
-``--device_sampling`` the fanouts drawn on the card), checkpointing into
-``--model_dir``; ``--mode evaluate`` and ``--mode save_embedding``
+The flag surface is the JAX package's. ``--graph_mode local`` (the
+default) loads ``.dat`` partitions into an embedded engine
+(``Graph(directory=--data_dir)``); ``--graph_mode remote`` connects the
+engine's remote client to running shards (``--registry``, a flat-file
+directory or ``tcp://host:port``, or ``--shards``); ``--graph_mode
+shared`` serves this process's shard of ``--data_dir`` itself
+(``graph.service.GraphService``, one process so far), waits for it on
+``--registry`` (hosting the registry when it is ``tcp://``) and connects
+to it as a remote graph. ``--mode train`` draws ``--batch_size`` roots a
+step on the host and trains through ``train.train`` (host sampling
+through the engine and prefetch, or over a remote graph through the
+``--sampler_depth`` ring of async fanouts; with ``--device_sampling``
+the fanouts drawn on the card), checkpointing into ``--model_dir``; ``--mode evaluate`` and ``--mode save_embedding``
 restore the latest checkpoint and write ``eval.json`` or
 ``embedding.npy`` and ``id.txt`` there. ``--serve_after 1`` trains,
 then serves the checkpoint (``serve.run_serve``, with the training
@@ -14,9 +21,10 @@ sampling config) until SIGTERM or SIGINT; the ``--serve_*`` flags
 configure it and are refused without it (``check_serve_flags``).
 
 Flags of features not ported yet raise ``NotImplementedError`` naming
-their ROADMAP item when set away from their defaults: remote and shared
-graphs and their client knobs (A0b), traces, metrics lines and
-postmortems (A11), several devices or processes (A10). Flags whose
+their ROADMAP item when set away from their defaults: staged data
+(``--stream``, A0e), traces, metrics lines and postmortems (A11),
+several devices or processes (A10; shared mode over several processes
+with them). Flags whose
 default turns such a feature on (``--blackbox``, ``--devprof``) keep
 their defaults; the run logs one line saying what is not there.
 ``--telemetry 0`` switches the native histograms off (the serve phases
@@ -51,23 +59,7 @@ _OPTIMIZER_NAMES = ("adagrad", "adam", "momentum", "sgd")
 
 # flags of features not ported yet: (flag, default, ROADMAP item, what)
 _NOT_PORTED = (
-    ("stream", False, "A0b", "streaming ingest of remote data"),
-    ("graph_mode", "local", "A0b", "remote and shared graphs"),
-    ("registry", "", "A0b", "the shard registry"),
-    ("rediscover_ms", None, "A0b", "the remote client"),
-    ("backoff_ms", None, "A0b", "the remote client"),
-    ("deadline_ms", None, "A0b", "the remote client"),
-    ("feature_cache_mb", None, "A0b", "the remote client's caches"),
-    ("neighbor_cache_mb", None, "A0b", "the remote client's caches"),
-    ("cache_policy", None, "A0b", "the remote client's caches"),
-    ("placement", None, "A0b", "placement routing"),
-    ("strict", False, "A0b", "the remote client"),
-    ("fault", "", "A0b", "transport failpoints"),
-    ("fault_seed", 0, "A0b", "transport failpoints"),
-    ("service_host", "", "A0b", "the shard service"),
-    ("service_workers", None, "A0b", "the shard service"),
-    ("service_pending", None, "A0b", "the shard service"),
-    ("shards", "", "A0b", "the remote client"),
+    ("stream", False, "A0e", "streaming ingest of staged data"),
     ("model_parallel", 1, "A10", "model-parallel tables"),
     ("num_devices", None, "A10", "data parallelism over devices"),
     ("coordinator_addr", "", "A10", "multi-process training"),
@@ -245,11 +237,151 @@ def check_serve_flags(args) -> None:
         )
 
 
-def build_graph(args):
-    """The local engine over ``--data_dir``'s ``.dat`` partitions."""
+def _remote_graph(args, registry, shards=None):
     from euler_tpu_torch.graph import Graph
 
-    return Graph(directory=args.data_dir)
+    return Graph(
+        mode="remote", registry=registry, shards=shards,
+        rediscover_ms=args.rediscover_ms, backoff_ms=args.backoff_ms,
+        deadline_ms=args.deadline_ms,
+        feature_cache_mb=args.feature_cache_mb,
+        neighbor_cache_mb=args.neighbor_cache_mb,
+        cache_policy=args.cache_policy, placement=args.placement,
+        strict=args.strict or None, fault=args.fault or None,
+        fault_seed=args.fault_seed if args.fault else None)
+
+
+def _wait_for_shards(args, tcp_registry: bool) -> None:
+    """Wait until ``--num_processes`` shards are live on ``--registry``:
+    listed by a TCP registry (its entries expire without heartbeats), or
+    in a flat-file registry with an address that accepts a connection
+    (entries a killed run left behind are skipped). Raises after 120 s."""
+    import socket
+    import time
+
+    from euler_tpu_torch.graph import registry as registry_mod
+
+    dead: dict = {}  # entry -> when its dead verdict expires
+
+    def alive(entry: str) -> bool:
+        # an entry is "<shard>#<host>_<port>" (eg_service.cc); a dead
+        # verdict is kept 5 s, so a shard not yet listening is re-probed
+        if dead.get(entry, 0.0) > time.time():
+            return False
+        try:
+            host, port = entry.split("#", 1)[1].rsplit("_", 1)
+            with socket.create_connection((host, int(port)), 1.0):
+                dead.pop(entry, None)
+                return True
+        except (OSError, ValueError):
+            dead[entry] = time.time() + 5.0
+            return False
+
+    def live_shards() -> set:
+        if tcp_registry:
+            try:
+                return set(registry_mod.query(args.registry))
+            except ConnectionError:
+                return set()
+        return {f.split("#", 1)[0] for f in os.listdir(args.registry)
+                if "#" in f and not f.endswith(".tmp") and alive(f)}
+
+    deadline = time.time() + 120.0
+    while True:
+        live = live_shards()
+        if len(live) >= args.num_processes:
+            return
+        if time.time() > deadline:
+            hint = ("" if tcp_registry else "; stale entries from a killed "
+                    "run are ignored: clear the registry directory")
+            raise TimeoutError(
+                f"only live shards {sorted(live)} in {args.registry} after "
+                f"120 s (need {args.num_processes}{hint})")
+        time.sleep(0.1)
+
+
+def build_graph(args):
+    """The graph of ``--graph_mode`` and the services this process
+    started for it, ``(graph, services)``: a local engine over
+    ``--data_dir``, the remote client over ``--registry`` or
+    ``--shards``, or (shared) this process's shard served by a
+    ``GraphService`` (and the ``tcp://`` registry hosted here), then the
+    remote client over it. The caller drains and stops the services
+    after closing the graph. The JAX CLI's refusals hold: the remote
+    client's flags raise on a local graph."""
+    from euler_tpu_torch.graph import Graph, GraphService
+
+    services = []
+    if args.fault and args.graph_mode == "local":
+        raise ValueError(
+            "--fault needs --graph_mode=remote or shared (failpoints sit "
+            "in the transport)")
+    if args.graph_mode == "local" and (
+            args.feature_cache_mb is not None or args.strict
+            or args.neighbor_cache_mb is not None
+            or args.cache_policy is not None or args.placement is not None):
+        raise ValueError(
+            "--feature_cache_mb/--neighbor_cache_mb/--cache_policy/"
+            "--placement/--strict need --graph_mode=remote or shared (they "
+            "configure the remote client's request path; a local graph "
+            "reads its own memory)")
+    if args.graph_mode == "local":
+        return Graph(directory=args.data_dir), services
+    if args.graph_mode == "remote":
+        return _remote_graph(
+            args, args.registry or None,
+            args.shards.split(",") if args.shards else None), services
+    # shared: serve this process's shard, then connect to the cluster
+    if not args.registry:
+        raise ValueError("--graph_mode=shared needs --registry")
+    from euler_tpu_torch.graph import registry as registry_mod
+
+    tcp_registry = args.registry.startswith("tcp://")
+    try:
+        if tcp_registry:
+            # the registry of a one-process run lives here (process 0
+            # hosts it; several processes are ROADMAP A10); port 0 binds
+            # a free port, which the shard and the client then use
+            host, port = registry_mod.parse_tcp_url(args.registry)
+            services.append(registry_mod.RegistryServer(port=port))
+            if port == 0:
+                args.registry = f"tcp://{host}:{services[-1].port}"
+        services.append(GraphService(
+            args.data_dir, shard_idx=args.process_id,
+            shard_num=args.num_processes,
+            host=args.service_host or _advertised_host(args.registry),
+            registry=args.registry, workers=args.service_workers,
+            pending=args.service_pending))
+        _wait_for_shards(args, tcp_registry)
+        return _remote_graph(args, args.registry), services
+    except BaseException:
+        stop_services(services)
+        raise
+
+
+def _advertised_host(registry: str) -> str:
+    """The address a shared-mode shard advertises when ``--service_host``
+    is empty: the interface that routes to a ``tcp://`` registry on
+    another host (other hosts must dial it), else loopback."""
+    import socket
+
+    from euler_tpu_torch.graph import registry as registry_mod
+
+    parsed = registry_mod.parse_tcp_url(registry)
+    if parsed is None or parsed[0] in ("127.0.0.1", "localhost"):
+        return "127.0.0.1"
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as probe:
+        probe.connect((parsed[0], 9))  # routing only: a UDP connect sends nothing
+        return probe.getsockname()[0]
+
+
+def stop_services(services) -> None:
+    """Drain each shard service (in-flight requests finish), then stop
+    it; a registry server just stops."""
+    for s in services:
+        if hasattr(s, "drain"):
+            s.drain()
+        s.stop()
 
 
 class _SavedEmbeddingModule(torch.nn.Module):
@@ -428,6 +560,7 @@ def run_train(model, graph, args, device=None):
         log_every=args.log_steps, seed=args.seed,
         prefetch_depth=args.prefetch_depth,
         prefetch_threads=args.prefetch_threads,
+        sampler_depth=args.sampler_depth,
         checkpoint_dir=args.model_dir or None, device=device)
 
 
@@ -500,11 +633,13 @@ def main(argv=None, device=None) -> int:
     check_flags(args)
     check_serve_flags(args)
     dev = resolve_device(device)
-    graph = build_graph(args)
     if not args.telemetry:
+        # before any graph or service exists, so not even discovery
+        # records histograms
         from euler_tpu_torch.telemetry import set_telemetry
 
         set_telemetry(False)
+    graph, services = build_graph(args)
     try:
         model = build_model(args, graph)
         if args.max_degree is not None or args.alias_sampling:
@@ -525,6 +660,14 @@ def main(argv=None, device=None) -> int:
             run_save_embedding(model, graph, args, dev)
     finally:
         graph.close()
+        # the transport's and (shared mode) the shard's survivability
+        # ledger, then the services: in-flight shard requests finish
+        from euler_tpu_torch.graph.native import counters
+
+        ledger = {k: v for k, v in counters().items() if v}
+        if ledger:
+            log.info("transport/server counters: %s", ledger)
+        stop_services(services)
     return 0
 
 

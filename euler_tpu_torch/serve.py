@@ -9,7 +9,12 @@ Determinism is a serving feature: each id's neighborhood is sampled once,
 with an engine seed derived from the id (``_id_seed``), and cached
 (``--serve_sample_cache``), so an id's embedding is bit-stable across
 requests and across co-batched traffic, and equal to
-:meth:`EmbedServer.embed_direct`.
+:meth:`EmbedServer.embed_direct`. Over a remote graph the shards draw
+with their own RNGs, which the id's seed does not reach: the cache alone
+keeps a row stable. Its entries are keyed by the graph's ``cache_gen``,
+which a shard's delta moves, so a block drawn before a graph refresh is
+evicted (``epoch_stale_hits_evicted``) and drawn again from the new
+snapshot.
 
 A block is bit-stable only while each engine draw runs on the calling
 thread: ``eg_seed`` seeds that thread's RNG, and the engine's neighbor
@@ -446,7 +451,10 @@ def run_serve(model, graph, args, device=None, block: bool = True):
     out (stop accepting, finish in-flight requests, drain the batch
     queue); it installs signal handlers, so it must run on the main
     thread. ``block=False`` returns the live ``(server, frontend)``; the
-    caller then owns ``frontend.stop()`` and ``server.close()``."""
+    caller then owns ``frontend.stop()`` and ``server.close()``. The
+    caller also owns the graph and the services ``run_loop.build_graph``
+    started for it (the serve CLI and ``run_loop`` stop them after the
+    graph closes)."""
     server = build_server(model, graph, args, device).start()
     frontend = EmbedFrontend(
         server,
@@ -492,7 +500,9 @@ def main(argv=None, device=None) -> int:
     raises).
 
     The run_loop flag surface (graph, model and checkpoint flags mean the
-    same) plus the serve flags; the model is built with the inference
+    same, ``--graph_mode remote`` and ``shared`` included: the services
+    a shared run starts are drained and stopped on the way out) plus the
+    serve flags; the model is built with the inference
     sampling config (``--all_edge_type`` metapaths, as evaluate and
     save_embedding), so ``--mode`` is ignored."""
     from euler_tpu_torch import run_loop
@@ -506,15 +516,17 @@ def main(argv=None, device=None) -> int:
     dev = resolve_device(device)
     if not args.telemetry:
         T.set_telemetry(False)
-    graph = run_loop.build_graph(args)
+    graph, services = run_loop.build_graph(args)
     try:
         model = run_loop.build_model(args, graph)
         run_serve(model, graph, args, dev, block=True)
     finally:
+        graph.close()
         ledger = {k: v for k, v in native.counters().items() if v}
         if ledger:
             log.info("serve counters at exit: %s", ledger)
-        graph.close()
+        # a shared-mode shard (and its tcp:// registry) started here
+        run_loop.stop_services(services)
     return 0
 
 

@@ -1,21 +1,23 @@
 """Observability over the engine's native telemetry (counterpart of
-``euler_tpu/telemetry.py``), the local-process half.
+``euler_tpu/telemetry.py``).
 
 The engine (``graph/_native/eg_telemetry``, ``eg_phase``) keeps
-log2-bucketed histograms and the counters; this module reads them and
-renders them:
+log2-bucketed histograms (per RPC op on the client and the server, dial,
+retry backoff, the serve phases), the counters and a slowest-N span
+journal on each side; shards answer the STATS wire opcode with their
+dump plus the admission gauges. This module reads them and renders them:
 
-    telemetry.telemetry_json()     this process's dump (counters, hists)
-    telemetry.metrics_text()       Prometheus text, this process
-    telemetry.set_telemetry(False) process-global kill-switch
+    telemetry.telemetry_json()        this process's dump
+    telemetry.metrics_text()          Prometheus text, this process
+    telemetry.metrics_text(graph=g)   every shard of a live cluster
+    telemetry.slow_spans()            the local slow-span journal
+    telemetry.scrape(g, shard)        one shard's dump
+    telemetry.set_telemetry(False)    process-global kill-switch
 
 and records the serving layer's samples (``record_serve_phase``,
 ``record_serve_batch``), which land in the same native histogram map as
-everything else, keys ``serve:<phase>`` and ``serve_batch``.
-
-Reading other processes (``scrape``, ``ping``, ``slow_spans``,
-``metrics_text(graph=...)``) needs remote graphs, which the port does
-not have yet: those raise ``NotImplementedError`` naming ROADMAP A0b.
+everything else, keys ``serve:<phase>`` and ``serve_batch``. Training
+records no step phases yet (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -36,10 +38,6 @@ PHASES = ("input_stall", "sample", "h2d", "device", "host", "step",
 # Serve-request phase order, as eg_phase.h ServePhase (the serving layer
 # records by index through eg_serve_record).
 SERVE_PHASES = ("queue_wait", "sample", "dispatch", "total")
-
-_REMOTE = ("{} reads a remote shard's telemetry; remote graphs are not "
-           "ported to euler_tpu_torch yet (ROADMAP A0b)")
-
 
 def bucket_of(us: int) -> int:
     """Bucket index of a microsecond value (the native HistBucketOf)."""
@@ -100,15 +98,52 @@ def telemetry_json() -> dict:
 
 
 def scrape(graph, shard: int) -> dict:
-    raise NotImplementedError(_REMOTE.format("scrape"))
+    """One live shard's dump over the STATS wire opcode: the shape of
+    :func:`telemetry_json` plus a ``gauges`` section (handler pool,
+    workers busy, queue depth, open connections, draining, epoch),
+    fetched with the graph's own transport settings."""
+    if getattr(graph, "mode", None) != "remote":
+        raise ValueError("scrape() needs a mode='remote' graph (a local "
+                         "graph is this process: use telemetry_json())")
+    h = graph._h
+    return _json_abi(
+        lambda buf, cap: lib().eg_remote_scrape(h, shard, buf, cap))
 
 
 def ping(graph, shard: int) -> bool:
-    raise NotImplementedError(_REMOTE.format("ping"))
+    """One ping round trip to ``shard`` through the whole transport
+    (retries, deadline, wire negotiation): True when it answered."""
+    if getattr(graph, "mode", None) != "remote":
+        raise ValueError("ping() needs a mode='remote' graph")
+    return lib().eg_remote_ping(graph._h, shard) == 1
+
+
+def record_span(total_us: int, op: int = 0, side: str = "client",
+                outcome: int = 0, shard: int = -1, trace: int = 0,
+                queue_us: int = 0, handler_us: int = 0,
+                wire_us: int = 0) -> None:
+    """Offer a span to the local journal (the primitive the native
+    transport records through)."""
+    lib().eg_telemetry_record_span(
+        1 if side == "server" else 0, int(op), int(outcome), int(shard),
+        int(trace), int(queue_us), int(handler_us), int(wire_us),
+        int(total_us))
 
 
 def slow_spans(graph=None, shard: int | None = None) -> list:
-    raise NotImplementedError(_REMOTE.format("slow_spans"))
+    """The slowest-N spans, slowest first: the local journal, or a live
+    shard's when ``graph`` and ``shard`` name one. Trace ids come back
+    as ints (0: not propagated)."""
+    data = telemetry_json() if graph is None else scrape(graph, shard)
+    spans = data["slow_spans"]
+    for s in spans:
+        s["trace"] = int(s["trace"])
+    return spans
+
+
+def set_slow_capacity(n: int) -> None:
+    """Resize the slowest-N span journal (the ``slow_spans=`` key)."""
+    lib().eg_telemetry_set_slow_capacity(int(n))
 
 
 def telemetry_enabled() -> bool:
@@ -409,10 +444,12 @@ def _render(sources: list) -> str:
 
 
 def metrics_text(graph=None, shard: int | None = None) -> str:
-    """Prometheus text exposition of this process's telemetry. Every
-    family's header is emitted even at zero count, so dashboards can be
-    built before traffic exists. A ``graph`` (every shard of a remote
-    cluster) raises: remote graphs are ROADMAP A0b."""
-    if graph is not None:
-        raise NotImplementedError(_REMOTE.format("metrics_text(graph=...)"))
-    return _render([(telemetry_json(), {})])
+    """Prometheus text exposition: of this process with no arguments;
+    with a remote ``graph``, of every shard of the live cluster over the
+    STATS opcode, one series set a shard (label ``shard="N"``), or of
+    ``shard`` alone. Every family's header is emitted even at zero
+    count, so dashboards can be built before traffic exists."""
+    if graph is None:
+        return _render([(telemetry_json(), {})])
+    shards = [shard] if shard is not None else range(graph.num_shards)
+    return _render([(scrape(graph, s), {"shard": str(s)}) for s in shards])

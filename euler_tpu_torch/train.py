@@ -18,7 +18,7 @@ from euler_tpu_torch.device import resolve_device
 from euler_tpu_torch.graph import device as device_graph
 from euler_tpu_torch.models import base
 from euler_tpu_torch.nn import metrics
-from euler_tpu_torch.parallel import prefetch
+from euler_tpu_torch.parallel import pipeline, prefetch
 
 log = logging.getLogger("euler_tpu_torch")
 
@@ -81,6 +81,7 @@ def train(
     seed: int = 42,
     prefetch_depth: int = 2,
     prefetch_threads: int = 2,
+    sampler_depth: int = 2,
     state: Optional[dict] = None,
     log_fn=None,
     checkpoint_dir: Optional[str] = None,
@@ -112,6 +113,15 @@ def train(
     wait for a batch (``input_stall_ms``), the steps that waited over a
     millisecond (``stalled_steps``) and the mean build time of a batch in
     its worker (``sample_ms``).
+
+    On a remote graph (``graph.mode == "remote"``) a host-sampling model
+    samples through ``parallel.pipeline`` instead, when ``sampler_depth``
+    is above 0: one sampler thread keeps ``sampler_depth`` steps submitted
+    (``model.sample_start``, for SupervisedGraphSage one
+    ``Graph.sample_fanout_async``) and finishes them in order
+    (``model.sample_finish``), so the next steps' wire time overlaps this
+    step; ``sample_ms`` is then that thread's wait on a step's op. A
+    local graph has no wire to overlap and keeps ``prefetch``.
 
     Not ported: ``mesh`` (multi-device, ROADMAP A10), ``profile_dir`` and
     ``phase_profile`` (the step-phase profiler, ROADMAP A11)."""
@@ -146,6 +156,9 @@ def train(
         inputs = source_fn(step)
         return (inputs if model.device_sampling
                 else model.sample(graph, inputs))
+
+    use_pipeline = (sampler_depth > 0 and not model.device_sampling
+                    and getattr(graph, "mode", None) == "remote")
 
     def seed_worker(widx: int):
         # per-worker sampler streams from the run seed (the engine's RNG
@@ -189,10 +202,18 @@ def train(
         window_metrics = []
         t0 = time.time()
 
-    for batch in prefetch(make_batch, num_steps - start_step,
-                          prefetch_depth, prefetch_threads,
-                          start=start_step, worker_init=seed_worker,
-                          timings=timings):
+    if use_pipeline:
+        batches = pipeline(
+            lambda step: model.sample_start(graph, source_fn(step)),
+            lambda step, pending: model.sample_finish(graph, pending),
+            num_steps - start_step, sampler_depth, start=start_step,
+            worker_init=seed_worker, timings=timings)
+    else:
+        batches = prefetch(make_batch, num_steps - start_step,
+                           prefetch_depth, prefetch_threads,
+                           start=start_step, worker_init=seed_worker,
+                           timings=timings)
+    for batch in batches:
         if model.device_sampling:
             batch = model.device_sample_batch(
                 batch, _step_seed(seed, steps_done), dev)

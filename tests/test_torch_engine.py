@@ -260,13 +260,24 @@ def test_tables_from_the_engine_equal_the_memory_graph(tmp_path):
     {"registry": "tcp://localhost:1"},
 ])
 def test_local_mode_only_options_raise(graphs, tmp_path, kw):
-    """Remote and shared modes, streams, deltas and the remote client's
-    options name ROADMAP A0b; so does load_delta."""
-    with pytest.raises(NotImplementedError, match="A0b"):
-        Graph(directory=str(tmp_path), **kw)
-    with pytest.raises(NotImplementedError, match="A0b"):
-        graphs[1].load_delta(str(tmp_path / "x.delta.1"))
-    with pytest.raises(TypeError, match="unknown"):
+    """On a local graph (here over an empty directory) each option raises
+    what the JAX client raises: a remote graph without a registry, mode
+    'shared', the remote client's keys, and a load of no partitions;
+    ``stream=`` is staged data and names ROADMAP A0e. A missing delta
+    file raises in both, and an unknown keyword is a TypeError."""
+    with pytest.raises(Exception) as jerr:
+        euler_tpu.Graph(directory=str(tmp_path), **kw)
+    if "stream" in kw:
+        with pytest.raises(NotImplementedError, match="A0e"):
+            Graph(directory=str(tmp_path), **kw)
+    else:
+        with pytest.raises(type(jerr.value)) as terr:
+            Graph(directory=str(tmp_path), **kw)
+        assert str(terr.value).split(":")[0] == str(jerr.value).split(":")[0]
+    for g in graphs[:2]:
+        with pytest.raises(RuntimeError):
+            g.load_delta(str(tmp_path / "x.delta.1"))
+    with pytest.raises(TypeError, match="unexpected keyword"):
         Graph(directory=str(tmp_path), no_such_option=1)
 
 

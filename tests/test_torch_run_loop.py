@@ -359,7 +359,7 @@ def test_save_embedding_is_the_restored_states(fixture_dir, tmp_path):
         run_loop.main(_args(fixture_dir, ck, "--mode", mode), device="cpu")
     args = run_loop.define_flags().parse_args(
         _args(fixture_dir, ck, "--mode", "save_embedding"))
-    graph = run_loop.build_graph(args)
+    graph, _ = run_loop.build_graph(args)
     model = run_loop.build_model(args, graph)
     state = run_loop._restore_state(model, graph, args, "cpu")
     want = ttrain.save_embedding(model, 16, state, batch_size=8,
@@ -369,10 +369,11 @@ def test_save_embedding_is_the_restored_states(fixture_dir, tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--graph_mode", "remote"], "A0b"),
-    (["--stream", "1"], "A0b"),
-    (["--shards", "localhost:1"], "A0b"),
-    (["--feature_cache_mb", "8"], "A0b"),
+    (["--graph_mode", "shared", "--registry", "r", "--num_processes", "2"],
+     "A10"),
+    (["--stream", "1"], "A0e"),
+    (["--graph_mode", "remote", "--stream", "1"], "A0e"),
+    (["--process_id", "1"], "A10"),
     (["--metrics_file", "m.jsonl"], "A11"),
     (["--serve_after", "1", "--trace_file", "t.json"], "A11"),
     (["--trace_file", "t.json"], "A11"),

@@ -376,10 +376,13 @@ def test_histograms_reach_every_surface_and_kill_switch(server):
     T.set_telemetry(True)
     server.embed([1, 2])
     assert T.serve_hists()["total"]["count"] == 1
+    # the remote surfaces refuse a graph that is not remote, as JAX's do
     for fn, args in ((T.scrape, (None, 0)), (T.ping, (None, 0)),
-                     (T.slow_spans, ()), (T.metrics_text, (object(),))):
-        with pytest.raises(NotImplementedError, match="A0b"):
-            fn(*args)
+                     (T.metrics_text, (server.graph, 0))):
+        for mod in (T, JT):
+            with pytest.raises(ValueError, match="mode='remote'"):
+                getattr(mod, fn.__name__)(*args)
+    assert isinstance(T.slow_spans(), list)
 
 
 def test_bucket_helpers_match_jax():
@@ -655,7 +658,7 @@ def test_restore_serving_state_raises_then_serves_the_trained_state(
     args = run_loop.define_flags().parse_args(
         base + ["--serve_port", "0", "--serve_max_batch", "4"])
     args.mode = "evaluate"  # what serve.main sets
-    graph = run_loop.build_graph(args)
+    graph, _ = run_loop.build_graph(args)
     server = frontend = None
     try:
         model = run_loop.build_model(args, graph)
