@@ -218,8 +218,32 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    stale blocks are evicted, and rows served afterwards are bit-equal to
    ``embed_direct`` on the new graph. B1 and B2 launch 0 times on every
    phase-8 path; the shards drain to exit code 0 on SIGTERM.
-9. The ``kernels`` line; then the final ``ok`` line. Each phase prints
-   its wall time.
+9. Training's observability plane, on phase 5's ppi files: (a)
+   ``run_loop --device_sampling 1`` for an epoch with every plane on
+   (``--telemetry 1 --devprof 1 --blackbox 1 --metrics_every 10
+   --metrics_file --trace_file --profile_dir --postmortem_dir``): B1 once
+   a step; each step phase (input_stall, sample, h2d, device, host,
+   step) recorded once a step, with p50 and p99 printed; a metrics line
+   every 10 steps; the merged trace valid, one B1 kernel event in each
+   of the 10 profiled steps (``torch.profiler`` over steps 10-19), each
+   inside its step's ``device`` phase give or take 1 ms, and the
+   profiled steps' device ms, device events, kernels and busy share a
+   step; the memory gauge equal to ``torch.cuda.memory_allocated``
+   at a sample; no postmortem; (b) the step fence's cost: the median host
+   step of steps 11-111 with ``--telemetry 1`` (each step fenced on its
+   loss) and ``0``, in the order 1, 0, 0, 1, one log window a run;
+   (c) run_loop_host's step split into its phases; (f) the console's
+   ``stats phases``, ``stats devprof`` and ``nb`` on the ppi files;
+   (d) serve_ppi's ``stats()["devprof"]`` over phase 5's host
+   checkpoint: one capture (one compile), no recompile, and a
+   ``strict_bucket`` server that raises ``devprof.RecompileError`` on a
+   changed layout and keeps its one capture; (e) a child process that
+   imports only the port, holds 64 MiB on the card, arms
+   ``--postmortem_dir`` and dies by SIGSEGV leaves one postmortem that
+   ``postmortem_read`` parses, its resource ring's device memory the
+   child's ``memory_allocated``.
+10. The ``kernels`` line; then the final ``ok`` line. Each phase prints
+    its wall time.
 """
 
 from __future__ import annotations
@@ -2737,6 +2761,8 @@ def phase_serve(data_dir: str, model_dir: str, seed: int, smi: str,
             stage_ms = f"{statistics.median(times):.4f} ms"
             replay_ms = f"{cuda_ms(bucket._graph.replay):.4f} ms"
         dev = server.stats()["devprof"]
+        up = sum(int(np.prod(shape)) * np.dtype(dt).itemsize
+                 for _, shape, dt in server._bucket.signature)
         log(f"(e) captures {dev['captures']}, re-captures "
             f"{dev['recaptures']}, replays {dev['replays']}, launches "
             f"{launches}; (f) one dispatch of {SERVE_MAX_BATCH} ids: cold "
@@ -2745,7 +2771,7 @@ def phase_serve(data_dir: str, model_dir: str, seed: int, smi: str,
             f"(min {min(warm):.4f}, max {max(warm):.4f}), of which staging "
             f"{stage_ms} (median, to a sync) and the graph's replay "
             f"{replay_ms} (device, median of 100); "
-            f"{dev['h2d_bytes'] // dev['replays']} B up and "
+            f"{up} B up and "
             f"{SERVE_MAX_BATCH * PPI_DIM * 4} B down a full dispatch; a "
             f"block {stats['cache']['bytes'] // stats['cache']['entries']}"
             f" B (card: {smi})")
@@ -3555,6 +3581,360 @@ def phase_remote(work: str, seed: int, smi: str, device: str = "cuda",
     return runs
 
 
+# phase 9 (training's observability plane): the metrics line period, the
+# steps torch.profiler captures (train.train's profile_steps), the
+# slack a kernel's device event may lie outside its step's device phase,
+# the fence drill's --telemetry values in turn and the child process's
+# device allocation
+OBS_METRICS_EVERY = 10
+OBS_PROFILE_STEPS = (10, 20)
+OBS_WINDOW_SLACK_US = 1000
+OBS_FENCE_ORDER = ("1", "0", "0", "1")
+OBS_CHILD_BYTES = 64 << 20
+OBS_PLANES = ["--telemetry", "1", "--devprof", "1", "--blackbox", "1"]
+
+
+def phase_rows(hists: dict) -> dict:
+    """{phase: {count, mean_ms, p50_ms, p99_ms}} of the step phases
+    recorded, in ``telemetry.PHASES`` order."""
+    from euler_tpu_torch import telemetry as T
+
+    rows = {}
+    for name in T.PHASES:
+        h = hists.get(name)
+        if not h or not h["count"]:
+            continue
+        pct = T.percentiles(h, (50, 99))
+        rows[name] = {"count": h["count"],
+                      "mean_ms": round(h["sum_us"] / h["count"] / 1e3, 4),
+                      "p50_ms": round(pct[50] / 1e3, 4),
+                      "p99_ms": round(pct[99] / 1e3, 4)}
+    return rows
+
+
+def observed_run(argv, device: str, steps: int, reset: bool = True):
+    """``run_loop.main(argv)`` with the launch counts and (``reset``) the
+    telemetry set to 0 just before and read just after; B1 must launch
+    once a step. Returns the launches, the per-step host times of
+    ``step_hook`` and the phase rows."""
+    from euler_tpu_torch import devprof
+    from euler_tpu_torch import telemetry as T
+    from euler_tpu_torch import train as train_lib
+    from euler_tpu_torch.graph import native, sampling_kernels
+
+    stamps = []
+    real_train = train_lib.train
+
+    def stamped(*a, **k):
+        hook = k.get("step_hook")
+
+        def step_hook(step):
+            stamps.append(time.perf_counter())
+            if hook is not None:
+                hook(step)
+
+        k["step_hook"] = step_hook
+        return real_train(*a, **k)
+
+    if reset:
+        native.reset_counters()
+        T.telemetry_reset()
+        devprof.devprof_reset()
+    for k in sampling_kernels.launches:
+        sampling_kernels.launches[k] = 0
+    train_lib.train = stamped
+    try:
+        run_loop_main(argv, device)
+    finally:
+        train_lib.train = real_train
+    launches = dict(sampling_kernels.launches)
+    want = steps if "--device_sampling" in argv else 0
+    if launches != {"sample_fanout2": want, "sample_neighbor": 0}:
+        raise AssertionError(f"{argv}: launches {launches}, want B1 {want}")
+    if len(stamps) != steps:
+        raise AssertionError(f"{len(stamps)} steps of {steps}")
+    return launches, np.diff(stamps) * 1e3, phase_rows(T.phase_hists())
+
+
+def check_trace(trace_file: str, steps: int, device: str) -> dict:
+    """The merged trace of (a): valid, a ``step`` slice a step, one B1
+    kernel event a profiled step, each inside its step's ``device`` phase
+    window (give or take OBS_WINDOW_SLACK_US). Returns the profiled
+    steps' device lanes a step (kernels, device events, device ms) over
+    their ``step`` slices (wall ms a step)."""
+    from euler_tpu_torch import trace as TR
+
+    with open(trace_file) as f:
+        trace = json.load(f)
+    events = TR.validate_chrome_trace(trace)
+    phases = [e for e in events if e.get("cat") == "phase"]
+    by_name = {}
+    for e in phases:
+        by_name.setdefault(e["name"], {})[e["args"]["step"]] = e
+    if sorted(by_name.get("step", {})) != list(range(steps)):
+        raise AssertionError(f"trace: step slices for "
+                             f"{sorted(by_name.get('step', {}))[:5]}...")
+    dev_events = [e for e in events if e.get("cat") == "device"]
+    b1 = [e for e in dev_events if "fanout2_kernel" in e["name"]]
+    profiled = range(*OBS_PROFILE_STEPS)
+    if device != "cuda":  # a CPU rehearsal: the capture has no device lane
+        b1 = [{"ts": by_name["device"][s]["ts"], "dur": 0} for s in profiled]
+    if len(b1) != len(profiled):
+        raise AssertionError(f"trace: {len(b1)} B1 events over "
+                             f"{len(profiled)} profiled steps")
+    for step in profiled:
+        d = by_name["device"][step]
+        lo = d["ts"] - OBS_WINDOW_SLACK_US
+        hi = d["ts"] + d["dur"] + OBS_WINDOW_SLACK_US
+        if not any(lo <= e["ts"] and e["ts"] + e["dur"] <= hi for e in b1):
+            raise AssertionError(
+                f"trace: no B1 event inside step {step}'s device phase "
+                f"[{lo}, {hi}] us: {[(e['ts'], e['dur']) for e in b1]}")
+    slices = [by_name["step"][s] for s in profiled]
+    t0 = min(e["ts"] for e in slices)
+    t1 = max(e["ts"] + e["dur"] for e in slices)
+    window = [e for e in dev_events if t0 <= e["ts"] <= t1]
+    n = len(profiled)
+    # the unprofiled steps after the warm-up: the wall the busy share is
+    # taken over (the profiler slows the host it records)
+    plain = [by_name["step"][s]["dur"] for s in range(OBS_PROFILE_STEPS[0],
+                                                       steps)
+             if s not in profiled]
+    return {"events": len(events), "b1_events": len(b1),
+            "kernels_a_step": sum(e["args"]["kind"] == "kernel"
+                                  for e in window) / n,
+            "device_events_a_step": len(window) / n,
+            "device_ms_a_step": sum(e["dur"] for e in window) / n / 1e3,
+            "wall_ms_a_step": (t1 - t0) / n / 1e3,
+            "step_ms_unprofiled": statistics.median(plain) / 1e3}
+
+
+SEGV_CHILD = r"""
+import os, signal, sys, time
+import torch
+from euler_tpu_torch import blackbox, devprof
+held = torch.empty(int(sys.argv[2]), dtype=torch.uint8, device="cuda")
+devprof.install(device="cuda")
+blackbox.install(sys.argv[1], sample_ms=50)
+n, buffers = devprof.sample_device_mem()
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "euler_tpu")]
+print(f"allocated {n} buffers {buffers} bad {bad}", flush=True)
+time.sleep(0.5)  # the blackbox sampler takes the gauge into its ring
+os.kill(os.getpid(), signal.SIGSEGV)
+"""
+
+
+def segv_child(pm_dir: str, device: str) -> tuple:
+    """A child process that imports only the port, holds
+    OBS_CHILD_BYTES on the card, arms the postmortem and dies by SIGSEGV;
+    returns its exit code, its output and the parsed postmortem."""
+    from euler_tpu_torch import blackbox
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    code = SEGV_CHILD if device == "cuda" else SEGV_CHILD.replace(
+        '"cuda"', '"cpu"')
+    proc = subprocess.run(
+        [sys.executable, "-c", code, pm_dir, str(OBS_CHILD_BYTES)],
+        cwd=root, env=dict(os.environ, PYTHONPATH=root), capture_output=True,
+        text=True, timeout=120)
+    dumps = blackbox.postmortem_read(pm_dir)
+    if proc.returncode != -signal.SIGSEGV or len(dumps) != 1:
+        raise AssertionError(
+            f"(e) the child exited {proc.returncode} with {len(dumps)} "
+            f"postmortems:\n{proc.stdout}\n{proc.stderr[-3000:]}")
+    return proc, dumps[0]
+
+
+def phase_observe(work: str, seed: int, smi: str, device: str = "cuda",
+                  max_id: int = 56943) -> dict:
+    """Training's observability plane on phase 5's ppi files and phase 6's
+    checkpoint: (a) run_loop_device with every plane on for an epoch (B1
+    once a step; each phase counted once a step; a metrics line every
+    OBS_METRICS_EVERY steps; the merged trace valid, B1's kernel inside
+    each profiled step's device phase; the memory gauge equal to
+    ``torch.cuda.memory_allocated`` at the sample); (b) the step fence's
+    cost: the median host step of steps 11-111 with ``--telemetry`` 1 and
+    0; (c) run_loop_host's step split into its phases; (d) serve_ppi's
+    ``stats()["devprof"]``: one capture, no recompile, and a strict
+    bucket's drill raising ``devprof.RecompileError``; (e) a port-only
+    child killed by SIGSEGV leaves a postmortem with the card's memory
+    in its resource ring; (f) the console's ``stats phases``, ``stats
+    devprof`` and ``nb`` on the ppi files."""
+    log("== phase 9: training's observability plane")
+    import io
+
+    from euler_tpu_torch import console, devprof, run_loop, serve
+    from euler_tpu_torch import telemetry as T
+    from euler_tpu_torch.graph import native, sampling_kernels
+
+    data_dir = os.path.join(work, "ppi")
+    obs = os.path.join(work, "obs")
+    steps = (max_id + 1) // PPI_BATCH
+    base = ["--data_dir", data_dir, "--max_id", str(max_id), "--seed",
+            str(seed), *RUN_LOOP_ARGS]
+    runs = {}
+    # (a) every plane on
+    argv = base + ["--model_dir", os.path.join(obs, "m_planes"),
+                   "--device_sampling", "1", *OBS_PLANES,
+                   "--metrics_every", str(OBS_METRICS_EVERY),
+                   "--metrics_file", os.path.join(obs, "metrics.jsonl"),
+                   "--trace_file", os.path.join(obs, "trace.json"),
+                   "--profile_dir", os.path.join(obs, "profile"),
+                   "--postmortem_dir", os.path.join(obs, "postmortems")]
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    launches, _, rows = observed_run(argv, device, steps)
+    wall = time.perf_counter() - t0
+    runs["run_loop_device_planes"] = {"launches": launches}
+    for name in ("input_stall", "sample", "h2d", "device", "host", "step"):
+        if rows.get(name, {}).get("count") != steps:
+            raise AssertionError(f"(a) phase {name}: {rows.get(name)}, "
+                                 f"want {steps} samples")
+    with open(os.path.join(obs, "metrics.jsonl")) as f:
+        lines = [json.loads(x) for x in f]
+    if [x["step"] for x in lines] != list(
+            range(OBS_METRICS_EVERY, steps + 1, OBS_METRICS_EVERY)):
+        raise AssertionError(f"(a) metrics lines at steps "
+                             f"{[x['step'] for x in lines]}")
+    tr = check_trace(os.path.join(obs, "trace.json"), steps, device)
+    if os.listdir(os.path.join(obs, "postmortems")):
+        raise AssertionError("(a) a postmortem was written by a clean run")
+    nbytes, buffers = devprof.sample_device_mem()
+    res = T.telemetry_json()["resource"]
+    alloc = (torch.cuda.memory_allocated() if device == "cuda"
+             else nbytes)
+    if not nbytes == res["device_mem_bytes"] == alloc:
+        raise AssertionError(f"(a) memory gauge {res['device_mem_bytes']}, "
+                             f"sample {nbytes}, memory_allocated {alloc}")
+    busy = tr["device_ms_a_step"] / tr["step_ms_unprofiled"]
+    log(f"(a) run_loop_device with every plane on: {wall:.2f} s, {steps} "
+        f"steps, launches {launches}; phases (ms) {rows}; "
+        f"{len(lines)} metrics lines, the last {lines[-1]}; trace "
+        f"{tr['events']} events, B1 inside each of the "
+        f"{OBS_PROFILE_STEPS[1] - OBS_PROFILE_STEPS[0]} profiled steps' "
+        f"device phase (+-{OBS_WINDOW_SLACK_US} us); profiled steps "
+        f"{OBS_PROFILE_STEPS[0]}-{OBS_PROFILE_STEPS[1] - 1}: device "
+        f"{tr['device_ms_a_step']:.4f} ms a step over "
+        f"{tr['device_events_a_step']:.1f} device events "
+        f"({tr['kernels_a_step']:.1f} kernels) a step, wall "
+        f"{tr['wall_ms_a_step']:.4f} ms a step under the profiler; busy "
+        f"share {busy:.4f} of the unprofiled steps' median "
+        f"{tr['step_ms_unprofiled']:.4f} ms (steps "
+        f"{OBS_PROFILE_STEPS[1]}-{steps - 1}); "
+        f"memory gauge {res['device_mem_bytes']} B = memory_allocated, "
+        f"peak gauge {res['device_mem_peak_bytes']} B, {buffers} live "
+        f"blocks, reserved {devprof.last_device_mem().get('reserved')} B; "
+        f"compiles {devprof.compile_summary()['compiles']} (card: {smi})")
+    # (b) the fence's cost: one window a run, so only the fence syncs
+    fence = {"1": [], "0": []}
+    for i, tel in enumerate(OBS_FENCE_ORDER):
+        argv = base + ["--model_dir", os.path.join(obs, f"m_fence{i}"),
+                       "--device_sampling", "1", "--telemetry", tel,
+                       "--log_steps", str(10 * steps)]
+        name = f"run_loop_device_telemetry{tel}_{i}"
+        launches, step_ms, _ = observed_run(argv, device, steps)
+        runs[name] = {"launches": launches}
+        fence[tel].append(statistics.median(step_ms[10:]))
+    T.set_telemetry(True)
+    log(f"(b) the step fence: median host step of steps 11-{steps}, "
+        f"--telemetry 1 (fenced) {[round(float(x), 4) for x in fence['1']]}"
+        f" ms, --telemetry 0 (unfenced) "
+        f"{[round(float(x), 4) for x in fence['0']]} "
+        f"ms (runs in the order {OBS_FENCE_ORDER}; card: {smi})")
+    # (c) run_loop_host's step, phase by phase
+    argv = base + ["--model_dir", os.path.join(obs, "m_host"), *OBS_PLANES]
+    launches, step_ms, host_rows = observed_run(argv, device, steps)
+    runs["run_loop_host_planes"] = {"launches": launches}
+    log(f"(c) run_loop_host by phase (ms): {host_rows}; median host step "
+        f"{statistics.median(step_ms[10:]):.4f} ms (card: {smi})")
+    # (f) the console on the ppi files
+    con = console.Console()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        con.execute(f'con "directory={data_dir}"')
+        con.execute("stats phases")
+        con.execute("stats devprof")
+        con.execute('nb "0, 1, 2" "0"')
+    con.graph.close()
+    out = buf.getvalue().splitlines()
+    if not (out[0].startswith(f"connected: {max_id + 1} nodes") and
+            [x.split(":")[0] for x in out[-3:]] == ["node 0", "node 1",
+                                                    "node 2"]
+            and any(x.startswith("devprof on") for x in out)):
+        raise AssertionError("(f) console:\n" + "\n".join(out))
+    log(f"(f) python -m euler_tpu_torch.console on the ppi files (card: "
+        f"{smi}):\n  " + "\n  ".join(out))
+    # (d) serving's device plane
+    argv = base + ["--model_dir", os.path.join(work, "m2"), "--serve_port",
+                   "0", "--serve_max_batch", str(SERVE_MAX_BATCH)]
+    args = run_loop.define_flags().parse_args(argv)
+    args.mode = "evaluate"
+    graph, _ = run_loop.build_graph(args)
+    model = run_loop.build_model(args, graph)
+    native.reset_counters()
+    T.telemetry_reset()
+    devprof.devprof_reset()
+    for k in sampling_kernels.launches:
+        sampling_kernels.launches[k] = 0
+    server = serve.build_server(model, graph, args, device)
+    try:
+        ids = np.random.default_rng(seed).integers(0, max_id + 1, 200)
+        for off in range(0, len(ids), 40):
+            server._embed_unique(np.unique(ids[off:off + 40]))
+        dev = server.stats()["devprof"]
+        if (dev["captures"], dev["recaptures"], dev["recompiles"],
+                dev["serve_recompiles"]) != (1, 0, 0, 0) or dev[
+                "compile_events"] != (1 if device == "cuda" else 0):
+            raise AssertionError(f"(d) serve_ppi devprof {dev}")
+        strict = serve.EmbedServer(model, graph, server._state,
+                                   max_batch=SERVE_MAX_BATCH,
+                                   strict_bucket=True)
+        blk = strict._block(int(ids[0]))
+        want = strict._forward([blk])
+        other = dict(blk, labels=np.zeros(
+            (1, blk["labels"].shape[1] + 1), blk["labels"].dtype))
+        try:
+            strict._forward([other])
+            raise AssertionError("(d) the strict bucket took a changed "
+                                 "layout")
+        except devprof.RecompileError as e:
+            drill = str(e)
+        if not np.array_equal(strict._forward([blk]), want) or (
+                strict._captures, strict._recaptures) != (1, 0):
+            raise AssertionError("(d) the strict bucket lost its capture")
+        led = devprof.recompile_ledger()
+        ctr = native.counters()
+        log(f"(d) serve_ppi stats()['devprof'] after 200 ids: {dev}; the "
+            f"strict drill raised RecompileError ({drill}), kept its one "
+            f"capture, ledger {[(e['fn'], e['diff']) for e in led]}, "
+            f"serve_recompiles {ctr['serve_recompiles']}, device_recompiles "
+            f"{ctr['device_recompiles']}; launches "
+            f"{dict(sampling_kernels.launches)} (card: {smi})")
+        runs["serve_ppi_devprof"] = {"launches": dict(
+            sampling_kernels.launches)}
+    finally:
+        server.close()
+        graph.close()
+    # (e) a port-only child killed by SIGSEGV
+    t0 = time.perf_counter()
+    proc, doc = segv_child(os.path.join(obs, "segv"), device)
+    said = dict(zip(proc.stdout.split()[::2], proc.stdout.split()[1::2]))
+    hist = doc["resource_history"]
+    if (not hist or hist[-1]["device_mem_bytes"] != int(said["allocated"])
+            or said["bad"] != "[]" or (device == "cuda" and int(
+                said["allocated"]) < OBS_CHILD_BYTES)):
+        raise AssertionError(f"(e) postmortem resource {hist[-1:]}, child "
+                             f"said {proc.stdout!r}")
+    log(f"(e) child pid {doc['pid']} died by {doc['signal_name']} (exit "
+        f"{proc.returncode}) in {time.perf_counter() - t0:.2f} s; its "
+        f"postmortem parses: {len(doc['rings'])} rings, "
+        f"{len(doc['backtrace_symbols'])} frames, resource ring "
+        f"{len(hist)} samples, the last {hist[-1]} (memory_allocated in the "
+        f"child {said['allocated']} B; card: {smi})")
+    return runs
+
+
 def add_runs(runs: dict, new: dict) -> None:
     """``runs.update(new)``, raising where a path's name is taken: the
     kernels line counts launches by path name."""
@@ -3592,8 +3972,11 @@ def main() -> int:
         t6 = time.perf_counter()
         log(f"phase 7: {t6 - t5:.1f} s")
         add_runs(runs, phase_remote(work, args.seed, smi))
-    log(f"phase 8: {time.perf_counter() - t6:.1f} s")
-    log("== phase 9: kernels")
+        t7 = time.perf_counter()
+        log(f"phase 8: {t7 - t6:.1f} s")
+        add_runs(runs, phase_observe(work, args.seed, smi))
+    log(f"phase 9: {time.perf_counter() - t7:.1f} s")
+    log("== phase 10: kernels")
     meta = {
         "sample_fanout2": dict(
             source="euler_tpu_torch/csrc/sample_fanout2.cu",

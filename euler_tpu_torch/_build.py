@@ -14,6 +14,8 @@ the package, named by a hash of the sources (headers included) and flags
 (a changed source builds anew), and loaded with ``ctypes``. Pointers and
 the stream pass as ``c_void_p``; each C entry returns
 ``cudaGetLastError()`` after its launch, which the wrapper raises on.
+A build (not a load of an earlier one) is a compile for the device
+plane: ``devprof.record_compile`` counts it with its wall time.
 """
 
 from __future__ import annotations
@@ -151,5 +153,8 @@ def load_library() -> ctypes.CDLL:
         t0 = time.perf_counter()
         _compile_and_link(out)
         build_seconds = time.perf_counter() - t0
+        from euler_tpu_torch import devprof
+
+        devprof.record_compile(build_seconds * 1e6)
     _lib = _declare(ctypes.CDLL(out))
     return _lib

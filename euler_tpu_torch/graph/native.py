@@ -213,6 +213,23 @@ def lib() -> ctypes.CDLL:
         [c.c_int, c.c_int, c.c_int, c.c_int, c.c_uint64, c.c_uint64,
          c.c_uint64, c.c_uint64, c.c_uint64],
     )
+    # training's observability: step phases and prefetch gauges, the
+    # device-memory gauges, the flight recorder and its postmortems
+    _sig(L.eg_phase_record, None, [c.c_int, c.c_uint64])
+    _sig(L.eg_phase_gauge, None, [c.c_int, c.c_uint64])
+    _sig(L.eg_devprof_set_mem, None, [c.c_int64, c.c_int64])
+    _sig(L.eg_blackbox_enabled, c.c_int, [])
+    _sig(L.eg_blackbox_set_enabled, None, [c.c_int])
+    _sig(L.eg_blackbox_init, c.c_int, [c.c_char_p, c.c_int, c.c_int])
+    _sig(
+        L.eg_blackbox_record,
+        None,
+        [c.c_int, c.c_int, c.c_int, c.c_uint64, c.c_uint64, c.c_int],
+    )
+    _sig(L.eg_blackbox_json, c.c_int, [c.c_char_p, c.c_int])
+    _sig(L.eg_blackbox_history, c.c_int, [c.c_char_p, c.c_int])
+    _sig(L.eg_blackbox_dump, c.c_int, [c.c_char_p])
+    _sig(L.eg_blackbox_reset, None, [])
     # the remote client, shard service, registry, heat profiler and
     # failpoints (remote and shared graphs)
     _sig(L.eg_remote_ping, c.c_int, [p, c.c_int])

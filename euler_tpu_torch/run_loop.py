@@ -20,15 +20,25 @@ then serves the checkpoint (``serve.run_serve``, with the training
 sampling config) until SIGTERM or SIGINT; the ``--serve_*`` flags
 configure it and are refused without it (``check_serve_flags``).
 
+The observability planes are the JAX package's. ``--telemetry`` (on by
+default; 0 is the kill-switch) records the step phases
+(``train.train``'s ``phase_profile``, fenced on each step's loss) and
+the native histograms; ``--metrics_every N`` appends a
+``telemetry.snapshot`` line to ``--metrics_file`` (default
+``<model_dir>/metrics.jsonl``) every N steps; ``--trace_file`` writes the
+merged Chrome trace when training ends (step phases, the slow-span
+journals, and with ``--profile_dir`` the ``torch.profiler`` capture of
+steps 10-20 with the card's kernels); ``--devprof`` counts compiles
+(kernel builds, CUDA-graph captures), uploads and downloads and samples
+the card's memory each second; ``--blackbox 0`` stops the flight
+recorder; ``--postmortem_dir`` arms the fatal-signal postmortem, and an
+unhandled exception writes ``postmortem.<pid>.exception.json`` there.
+
 Flags of features not ported yet raise ``NotImplementedError`` naming
 their ROADMAP item when set away from their defaults: staged data
-(``--stream``, A0e), traces, metrics lines and postmortems (A11),
-several devices or processes (A10; shared mode over several processes
-with them). Flags whose
-default turns such a feature on (``--blackbox``, ``--devprof``) keep
-their defaults; the run logs one line saying what is not there.
-``--telemetry 0`` switches the native histograms off (the serve phases
-record there; training records no step phases yet).
+(``--stream``, A0e), XLA's compilation cache (``--compile_cache``, A11:
+the port caches its built kernels under ``build/``), several devices or
+processes (A10; shared mode over several processes with them).
 
 Usage:  python -m euler_tpu_torch --data_dir ... --model graphsage_supervised
 """
@@ -45,7 +55,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from euler_tpu_torch import models
+from euler_tpu_torch import blackbox, models
 from euler_tpu_torch import train as train_lib
 from euler_tpu_torch.device import resolve_device
 from euler_tpu_torch.nn import metrics
@@ -65,19 +75,9 @@ _NOT_PORTED = (
     ("coordinator_addr", "", "A10", "multi-process training"),
     ("num_processes", 1, "A10", "multi-process training"),
     ("process_id", 0, "A10", "multi-process training"),
-    ("metrics_every", 0, "A11", "metrics lines (telemetry)"),
-    ("metrics_file", "", "A11", "metrics lines (telemetry)"),
-    ("postmortem_dir", "", "A11", "postmortems (the blackbox)"),
-    ("trace_file", "", "A11", "the merged trace"),
-    ("profile_dir", "", "A11", "the step-phase profiler"),
-    ("compile_cache", None, "A11", "the XLA compilation cache"),
-)
-
-# on by default in the JAX package, not ported: one log line at start
-_DEFAULT_ON = (
-    ("telemetry", "training's step-phase histograms"),
-    ("blackbox", "the flight recorder"),
-    ("devprof", "the device-plane profiler"),
+    ("compile_cache", None, "A11",
+     "XLA's persistent compilation cache (the port's kernels are cached "
+     "built under build/)"),
 )
 
 
@@ -199,8 +199,7 @@ def define_flags(parser: Optional[argparse.ArgumentParser] = None):
 
 def check_flags(args) -> None:
     """Raise for a flag of an unported feature set away from its default
-    (it would otherwise do nothing), and log the default-on features that
-    are not there."""
+    (it would otherwise do nothing)."""
     for name, default, item, what in _NOT_PORTED:
         value = getattr(args, name)
         if value != default and not (name == "num_devices" and value == 1):
@@ -211,10 +210,6 @@ def check_flags(args) -> None:
         raise NotImplementedError(
             f"--optimizer={args.optimizer} is not ported yet (ROADMAP A4); "
             "the port has adam")
-    off = [what for name, what in _DEFAULT_ON if getattr(args, name)]
-    if off:
-        log.info("not ported yet (ROADMAP A11), so not recorded: %s",
-                 "; ".join(off))
 
 
 def check_serve_flags(args) -> None:
@@ -554,14 +549,49 @@ def run_train(model, graph, args, device=None):
     def source_fn(step):
         return np.asarray(graph.sample_node(batch, args.train_node_type))
 
-    return train_lib.train(
-        model, graph, source_fn, num_steps=_num_steps(args),
-        optimizer=args.optimizer, learning_rate=args.learning_rate,
-        log_every=args.log_steps, seed=args.seed,
-        prefetch_depth=args.prefetch_depth,
-        prefetch_threads=args.prefetch_threads,
-        sampler_depth=args.sampler_depth,
-        checkpoint_dir=args.model_dir or None, device=device)
+    step_hook = None
+    if args.metrics_every > 0:
+        from euler_tpu_torch.telemetry import append_metrics_line
+
+        metrics_path = args.metrics_file or os.path.join(
+            args.model_dir or ".", "metrics.jsonl")
+        os.makedirs(os.path.dirname(metrics_path) or ".", exist_ok=True)
+
+        def step_hook(step, _path=metrics_path):
+            if step % args.metrics_every == 0:
+                append_metrics_line(_path, step)
+
+    recorder = None
+    if args.trace_file:
+        from euler_tpu_torch.trace import TraceRecorder
+
+        recorder = TraceRecorder().start()
+    try:
+        return train_lib.train(
+            model, graph, source_fn, num_steps=_num_steps(args),
+            optimizer=args.optimizer, learning_rate=args.learning_rate,
+            log_every=args.log_steps, seed=args.seed,
+            prefetch_depth=args.prefetch_depth,
+            prefetch_threads=args.prefetch_threads,
+            sampler_depth=args.sampler_depth,
+            checkpoint_dir=args.model_dir or None,
+            profile_dir=args.profile_dir or None, step_hook=step_hook,
+            device=device)
+    finally:
+        if recorder is not None:
+            # written on an interrupted run too: the trace of a run that
+            # died mid-step is the one worth reading
+            recorder.stop()
+            from euler_tpu_torch.trace import write_trace
+
+            os.makedirs(os.path.dirname(args.trace_file) or ".",
+                        exist_ok=True)
+            # the --profile_dir capture's device lanes merge in, aligned
+            # by the marker train() stamped into it
+            trace = write_trace(args.trace_file, recorder, graph,
+                                profile_dir=args.profile_dir or None)
+            log.info("trace: %d events -> %s (open in ui.perfetto.dev)",
+                     len(trace["traceEvents"]), args.trace_file)
 
 
 def _restore_state(model, graph, args, device=None):
@@ -624,6 +654,23 @@ def run_save_embedding(model, graph, args, device=None):
     return out
 
 
+def setup_planes(args, device) -> None:
+    """Arm the observability planes from the flags, before any graph or
+    service exists (so discovery records too, and a crash while loading
+    leaves a postmortem): the telemetry and flight-recorder switches,
+    the device plane for ``device`` with its memory sampled each second,
+    and with ``--postmortem_dir`` the fatal-signal dump (labelled with
+    ``--process_id``)."""
+    from euler_tpu_torch import devprof
+    from euler_tpu_torch.telemetry import set_telemetry
+
+    set_telemetry(bool(args.telemetry))
+    blackbox.set_blackbox(bool(args.blackbox))
+    devprof.setup(enabled=args.devprof, device=device, sample_ms=1000)
+    if args.postmortem_dir:
+        blackbox.install(args.postmortem_dir, shard=args.process_id)
+
+
 def main(argv=None, device=None) -> int:
     """Run one mode on ``device``: the card unless the caller asks for
     the CPU (``device="cpu"``, as the tests do); with no card it raises."""
@@ -633,13 +680,26 @@ def main(argv=None, device=None) -> int:
     check_flags(args)
     check_serve_flags(args)
     dev = resolve_device(device)
-    if not args.telemetry:
-        # before any graph or service exists, so not even discovery
-        # records histograms
-        from euler_tpu_torch.telemetry import set_telemetry
+    setup_planes(args, dev)
 
-        set_telemetry(False)
-    graph, services = build_graph(args)
+    def exception_postmortem():
+        # the Python twin of the fatal-signal dump, in its format (signal
+        # 0, "exception"); the exception itself still propagates
+        if not args.postmortem_dir:
+            return
+        path = os.path.join(args.postmortem_dir,
+                            f"postmortem.{os.getpid()}.exception.json")
+        try:
+            blackbox.write_postmortem(path)
+            log.error("unhandled exception; postmortem: %s", path)
+        except Exception:
+            log.exception("postmortem dump failed")
+
+    try:
+        graph, services = build_graph(args)
+    except Exception:
+        exception_postmortem()
+        raise
     try:
         model = build_model(args, graph)
         if args.max_degree is not None or args.alias_sampling:
@@ -658,6 +718,9 @@ def main(argv=None, device=None) -> int:
             run_evaluate(model, graph, args, dev)
         else:
             run_save_embedding(model, graph, args, dev)
+    except Exception:
+        exception_postmortem()
+        raise
     finally:
         graph.close()
         # the transport's and (shared mode) the shard's survivability

@@ -37,11 +37,15 @@ dispatch then (1) concatenates the padded blocks into pinned staging,
 graph and (4) copies out the first n rows. On the CPU (``device="cpu"``,
 as the tests run) the same padded forward runs eagerly. One lock guards
 staging, replay and read-back, which ``embed_direct`` from any thread and
-the batcher's dispatch thread share. A dispatch whose shapes or dtypes
-differ from the captured bucket's bumps ``serve_recompiles`` and
-captures again, or raises :class:`RecompileError` under
-``strict_bucket``. A capture or replay that fails raises: the server
-never falls back to an eager forward on the card.
+the batcher's dispatch thread share. The dispatch is watched by
+``devprof.watch`` (name ``embed_step``): each capture is a compile
+(``device_compiles`` and the ``phase:compile`` histogram), and a
+dispatch whose shapes or dtypes differ from the captured bucket's is a
+recompile: it is journaled with the leaves that drifted and bumps
+``device_recompiles`` and ``serve_recompiles``, then captures again, or
+under ``strict_bucket`` raises ``devprof.RecompileError`` and keeps the
+bucket it has. A capture or replay that fails raises: the server never
+falls back to an eager forward on the card.
 
 Usage (inference sampling, ``--all_edge_type`` metapaths, as evaluate
 and save_embedding use):
@@ -66,6 +70,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from euler_tpu_torch import devprof
 from euler_tpu_torch import telemetry as T
 from euler_tpu_torch.device import resolve_device
 from euler_tpu_torch.graph import native
@@ -93,10 +98,9 @@ def _id_seed(seed: int, nid: int) -> int:
     return (h * _MIX) & _MASK or 1
 
 
-class RecompileError(RuntimeError):
-    """A dispatch's shapes or dtypes differ from the captured bucket's
-    under ``strict_bucket``: the fixed-bucket forward must be captured
-    exactly once."""
+# a dispatch's shapes or dtypes differ from the captured bucket's under
+# strict_bucket: the fixed-bucket forward must be captured exactly once
+RecompileError = devprof.RecompileError
 
 
 def _host_leaf(x: np.ndarray) -> np.ndarray:
@@ -118,6 +122,27 @@ def _signature(blocks: list) -> tuple:
         (path, (sum(p[i][1].shape[0] for p in parts),) + x.shape[1:],
          _host_leaf(x).dtype.str)
         for i, (path, x) in enumerate(first))
+
+
+class _LeafSpec:
+    """One padded leaf's shape and dtype: what the watched dispatch's
+    signature reads of it."""
+
+    __slots__ = ("shape", "dtype")
+
+    def __init__(self, shape, dtype_str: str):
+        self.shape = shape
+        self.dtype = np.dtype(dtype_str)
+
+
+class _Dispatch:
+    """One dispatch's signature, padded blocks and row count: a single
+    constant leaf of the watched call's signature."""
+
+    __slots__ = ("sig", "blocks", "n")
+
+    def __init__(self, sig: tuple, blocks: list, n: int):
+        self.sig, self.blocks, self.n = sig, blocks, n
 
 
 def _torch_dtype(dtype_str: str) -> torch.dtype:
@@ -226,6 +251,16 @@ class EmbedServer:
         self._bucket = None
         self._forward_lock = threading.Lock()
         self._captures = self._replays = self._recaptures = 0
+        self._refused = 0  # changed buckets refused under strict_bucket
+
+        def dispatch(specs, job):
+            return self._dispatch(job)
+
+        # a capture (or a refused one) is a compile of the watched call
+        dispatch._cache_size = lambda: self._captures + self._refused
+        self._watched = devprof.watch(
+            dispatch, name="embed_step", strict=self.strict_bucket,
+            on_recompile=lambda e: native.counter_add("serve_recompiles"))
         self._cache: OrderedDict = OrderedDict()
         self._cache_bytes = 0
         self._cache_lock = threading.Lock()
@@ -275,7 +310,8 @@ class EmbedServer:
     def stats(self) -> dict:
         """Live serving stats (the frontend's ``stats`` op): the SLO
         verdict, serve-phase percentiles, serve counters, the coalescing
-        ledger, the bucket's captures and replays (``devprof``) and the
+        ledger, ``devprof`` (``devprof.compile_summary()`` with the
+        bucket's device, captures, replays and re-captures) and the
         sample cache's entries and host bytes."""
         data = T.telemetry_json()
         phases = {}
@@ -307,13 +343,11 @@ class EmbedServer:
                          if k.startswith("serve_")},
             "batch": batch,
             "devprof": {
+                **devprof.compile_summary(data),
                 "device": str(self.device),
                 "captures": self._captures,
                 "replays": self._replays,
                 "recaptures": self._recaptures,
-                "serve_recompiles": ctr.get("serve_recompiles", 0),
-                "h2d_bytes": ctr.get("h2d_bytes", 0),
-                "d2h_bytes": ctr.get("d2h_bytes", 0),
             },
             "cache": cache,
         }
@@ -362,36 +396,41 @@ class EmbedServer:
         n = len(blocks)
         padded = blocks + [blocks[0]] * (self.max_batch - n)
         sig = _signature(padded)
+        specs = tuple(_LeafSpec(shape, dt) for _, shape, dt in sig)
+        devprof.count_h2d([x for b in padded for _, x in base.batch_leaves(b)])
         with self._forward_lock:
-            if self._bucket is None or self._bucket.signature != sig:
-                self._capture(sig, padded)
-            rows = self._bucket.run(padded, n)
-            self._replays += 1
-        if self.device.type == "cuda":
-            native.counter_add(
-                "h2d_bytes",
-                sum(int(np.prod(shape)) * np.dtype(dt).itemsize
-                    for _, shape, dt in sig))
-            native.counter_add("d2h_bytes", rows.nbytes)
+            rows = self._watched(specs, _Dispatch(sig, padded, n))
+        if rows is None:  # refused, and devprof off did not raise it
+            raise RecompileError(
+                f"serve bucket changed after capture: {sig} under "
+                "strict_bucket")
+        devprof.count_d2h(rows)
+        return rows
+
+    def _dispatch(self, job: _Dispatch):
+        """The watched call: fix the bucket at the dispatch's signature
+        if it has none or another (a capture; refused under
+        strict_bucket, which returns None), then run it."""
+        if self._bucket is None or self._bucket.signature != job.sig:
+            if self._bucket is not None and self.strict_bucket:
+                self._refused += 1
+                return None
+            self._capture(job.sig, job.blocks)
+        rows = self._bucket.run(job.blocks, job.n)
+        self._replays += 1
         return rows
 
     def _capture(self, sig: tuple, blocks: list) -> None:
-        """Fix the bucket at ``sig`` (on the card: capture its graph); a
-        bucket already fixed at other shapes is the guard's case."""
+        """Fix the bucket at ``sig``: on the card, capture its graph (a
+        compile for the device plane)."""
         if self._bucket is not None:
-            native.counter_add("serve_recompiles", 1)
-            diff = [(a[0], a[1:], b[1:]) for a, b in
-                    zip(self._bucket.signature, sig) if a != b]
-            msg = (f"serve bucket changed after capture: {diff or sig} "
-                   "(path, captured, now); the fixed-bucket forward is the "
-                   "bit-parity anchor")
-            if self.strict_bucket:
-                raise RecompileError(msg)
-            log.warning("%s; capturing again", msg)
             self._recaptures += 1
             self._bucket = None  # its graph and buffers go first
+        t0 = time.monotonic()
         self._bucket = self._bucket_cls(sig, blocks, self._embed_fn,
                                         self._state, self.device)
+        if self.device.type == "cuda":
+            devprof.record_compile((time.monotonic() - t0) * 1e6)
         self._captures += 1
 
     def _embed_unique(self, uids: np.ndarray) -> np.ndarray:
@@ -514,8 +553,8 @@ def main(argv=None, device=None) -> int:
     args.mode = "evaluate"  # inference sampling config (all_edge_type)
     run_loop.check_flags(args)
     dev = resolve_device(device)
-    if not args.telemetry:
-        T.set_telemetry(False)
+    # the planes before the first capture, so the device plane sees it
+    run_loop.setup_planes(args, dev)
     graph, services = run_loop.build_graph(args)
     try:
         model = run_loop.build_model(args, graph)

@@ -3,8 +3,8 @@
 
 The engine (``graph/_native/eg_telemetry``, ``eg_phase``) keeps
 log2-bucketed histograms (per RPC op on the client and the server, dial,
-retry backoff, the serve phases), the counters and a slowest-N span
-journal on each side; shards answer the STATS wire opcode with their
+retry backoff, the step and serve phases), the counters and a slowest-N
+span journal on each side; shards answer the STATS wire opcode with their
 dump plus the admission gauges. This module reads them and renders them:
 
     telemetry.telemetry_json()        this process's dump
@@ -12,18 +12,22 @@ dump plus the admission gauges. This module reads them and renders them:
     telemetry.metrics_text(graph=g)   every shard of a live cluster
     telemetry.slow_spans()            the local slow-span journal
     telemetry.scrape(g, shard)        one shard's dump
+    telemetry.snapshot(step)          one compact metrics record
     telemetry.set_telemetry(False)    process-global kill-switch
 
-and records the serving layer's samples (``record_serve_phase``,
-``record_serve_batch``), which land in the same native histogram map as
-everything else, keys ``serve:<phase>`` and ``serve_batch``. Training
-records no step phases yet (ROADMAP A11).
-"""
+It records the training loop's step phases and the prefetch pipeline's
+gauges (``record_phase``, ``record_prefetch_gauges``: histograms
+``phase:<name>``, ``prefetch_depth`` and ``prefetch_busy``), which
+``append_metrics_line`` writes as JSONL (``run_loop --metrics_every``)
+and a ``trace.TraceRecorder`` taps through ``set_trace_sink``, and the
+serving layer's samples (``record_serve_phase``, ``record_serve_batch``,
+keys ``serve:<phase>`` and ``serve_batch``)."""
 
 from __future__ import annotations
 
 import ctypes
 import json
+import time
 
 from euler_tpu_torch.graph.native import lib
 
@@ -31,7 +35,9 @@ from euler_tpu_torch.graph.native import lib
 # bucket b (1..26) = [2^(b-1), 2^b) us; bucket 27 = [2^26, inf).
 NUM_BUCKETS = 28
 
-# Step-phase order, as eg_phase.h StepPhase.
+# Step-phase order, as eg_phase.h StepPhase (record_phase records by
+# index). "compile" is the device plane's (devprof.py): kernel builds and
+# CUDA-graph captures, not part of a step.
 PHASES = ("input_stall", "sample", "h2d", "device", "host", "step",
           "compile")
 
@@ -160,6 +166,38 @@ def telemetry_reset() -> None:
     """Zero every histogram and the serve-SLO gauges (the enabled flag
     survives)."""
     lib().eg_telemetry_reset()
+
+
+# the trace recorder's tap (trace.TraceRecorder): fn(phase, us, step) on
+# every record_phase while a capture is active; None costs one read
+_trace_sink = None
+
+
+def set_trace_sink(fn) -> None:
+    """Install (or clear, with None) the per-event phase sink, the trace
+    recorder's tap into :func:`record_phase`."""
+    global _trace_sink
+    _trace_sink = fn
+
+
+def record_phase(phase: str, us: float, step: int | None = None) -> None:
+    """One step-phase sample in us (``PHASES``), into the
+    ``phase:<phase>`` histogram (the kill-switch is honoured natively)
+    and, while a trace capture is active, the recorder's buffer."""
+    lib().eg_phase_record(PHASES.index(phase), max(int(us), 0))
+    sink = _trace_sink
+    if sink is not None:
+        sink(phase, us, step)
+
+
+def record_prefetch_gauges(queue_depth: int, workers_busy: int) -> None:
+    """One prefetch sample at the consumer's dequeue: ready batches
+    waiting and workers inside make_batch, the two value histograms that
+    tell a starved queue (depth 0, workers busy) from slow or dead
+    workers (depth 0, workers idle)."""
+    L = lib()
+    L.eg_phase_gauge(0, max(int(queue_depth), 0))
+    L.eg_phase_gauge(1, max(int(workers_busy), 0))
 
 
 def record_serve_phase(phase: str, us: float) -> None:
@@ -453,3 +491,53 @@ def metrics_text(graph=None, shard: int | None = None) -> str:
         return _render([(telemetry_json(), {})])
     shards = [shard] if shard is not None else range(graph.num_shards)
     return _render([(scrape(graph, s), {"shard": str(s)}) for s in shards])
+
+
+# ---------------------------------------------------------------------------
+# JSONL lines (run_loop --metrics_every)
+# ---------------------------------------------------------------------------
+
+
+def _pct_row(h: dict) -> dict:
+    pct = percentiles(h, (50, 99))
+    return {"count": h["count"], "p50_us": round(pct.get(50, 0.0), 1),
+            "p99_us": round(pct.get(99, 0.0), 1)}
+
+
+def snapshot(step: int | None = None) -> dict:
+    """One compact metrics record of this process: the nonzero counters,
+    each client op's count and p50/p99 us, each step phase's count and
+    p50/p99 us, the mean consumer stall a step (``input_stall_ms``) and
+    the prefetch pipeline's mean queue depth and busy workers."""
+    data = telemetry_json()
+    ops = {}
+    for key, h in data["hist"].items():
+        kind, _, op = key.partition(":")
+        if kind == "client_call" and h["count"]:
+            ops[op] = _pct_row(h)
+    hists = phase_hists(data)
+    phases = {name: _pct_row(h) for name, h in hists.items() if h["count"]}
+    out = {
+        "step": step,
+        "unix_ms": int(time.time() * 1000),
+        "counters": {k: v for k, v in data["counters"].items() if v},
+        "ops": ops,
+        "phases": phases,
+    }
+    stall = hists.get("input_stall")
+    if stall and stall["count"]:
+        out["input_stall_ms"] = round(
+            stall["sum_us"] / stall["count"] / 1000.0, 3)
+    for key, name in (("prefetch_depth", "mean_queue_depth"),
+                      ("prefetch_busy", "mean_workers_busy")):
+        h = data["hist"].get(key)
+        if h and h["count"]:
+            out.setdefault("prefetch", {})[name] = round(
+                h["sum_us"] / h["count"], 2)
+    return out
+
+
+def append_metrics_line(path: str, step: int | None = None) -> None:
+    """Append one :func:`snapshot` line to a JSONL file."""
+    with open(path, "a") as f:
+        f.write(json.dumps(snapshot(step)) + "\n")

@@ -69,6 +69,41 @@ def _step_seed(seed: int, step: int) -> int:
     return (seed * 1_000_003 + step + 1) % (1 << 32)
 
 
+def _fence(t) -> None:
+    """Wait for the work queued before ``t`` was produced: the stream's
+    queue on the card (nothing to wait for on the CPU)."""
+    if t.is_cuda:
+        torch.cuda.current_stream(t.device).synchronize()
+
+
+def _start_profiler(profile_dir: str, dev, warmup: int, active: int):
+    """A started ``torch.profiler`` capture into ``profile_dir`` (CPU
+    activity, and CUDA on the card) on a schedule of ``warmup`` steps,
+    whose events are dropped, then ``active`` recorded ones: a capture
+    can miss the device events of its first moments after a start, and
+    the warm-up step takes that loss."""
+    from torch.profiler import (ProfilerActivity, profile, schedule,
+                                tensorboard_trace_handler)
+
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts,
+                   schedule=schedule(wait=0, warmup=warmup, active=active,
+                                     repeat=1),
+                   on_trace_ready=tensorboard_trace_handler(profile_dir))
+    prof.start()
+    return prof
+
+
+def _stamp_align() -> None:
+    """The alignment marker, in the recorded part of a capture."""
+    from euler_tpu_torch.trace import align_annotation
+
+    with align_annotation():
+        pass
+
+
 def train(
     model,
     graph,
@@ -87,6 +122,7 @@ def train(
     checkpoint_dir: Optional[str] = None,
     checkpoint_every: int = 0,
     profile_dir: Optional[str] = None,
+    profile_steps: tuple = (10, 20),
     step_hook=None,
     phase_profile: Optional[bool] = None,
     device=None,
@@ -123,16 +159,38 @@ def train(
     step; ``sample_ms`` is then that thread's wait on a step's op. A
     local graph has no wire to overlap and keeps ``prefetch``.
 
-    Not ported: ``mesh`` (multi-device, ROADMAP A10), ``profile_dir`` and
-    ``phase_profile`` (the step-phase profiler, ROADMAP A11)."""
+    ``phase_profile`` records the step phases into the engine's telemetry
+    (``telemetry.record_phase``): ``input_stall`` at the consumer and the
+    queue gauges (in ``prefetch`` or ``pipeline``), ``sample`` around the
+    batch's build in its worker (the roots, and for a host-sampling model
+    its ``sample``), ``h2d`` around the upload on the training thread
+    (``models.base.to_device``, or ``device_sample_batch``'s roots),
+    ``device`` around the step, fenced on its loss (the loop then waits
+    for each step: the card no longer runs ahead of the host, while the
+    prefetch workers still overlap it), ``host`` for the rest of the
+    loop's body and ``step`` from one body's end to the next. None (the
+    default) follows the telemetry kill-switch. ``devprof.count_h2d``
+    counts each upload's bytes and ``count_d2h`` each window's fetched
+    losses and metrics; the first step logs the compiles it took
+    (``devprof.compile_summary``: kernel builds and CUDA-graph captures).
+    ``profile_dir`` runs ``torch.profiler`` (CPU and, on the card, CUDA
+    activities) over steps ``profile_steps[0]`` to ``profile_steps[1]``
+    (after one warm-up step, whose events it drops) and writes the
+    capture there through ``tensorboard_trace_handler``, stamped with
+    ``trace.align_annotation`` where its recording starts, so
+    ``trace.write_trace(..., profile_dir=)`` puts its kernels on the
+    phases' timeline.
+
+    Not ported: ``mesh`` (multi-device, ROADMAP A10)."""
     if mesh is not None:
         raise NotImplementedError(
             "train(mesh=...) is multi-device training, not ported yet "
             "(ROADMAP A10); the port trains on one device")
-    if profile_dir or phase_profile:
-        raise NotImplementedError(
-            "profile_dir and phase_profile are the step-phase profiler, "
-            "not ported yet (ROADMAP A11)")
+    from euler_tpu_torch import devprof, telemetry
+
+    if phase_profile is None:
+        phase_profile = telemetry.telemetry_enabled()
+    record_phase = telemetry.record_phase
     dev = resolve_device(device)
     say = log_fn or log.info
     if state is None:
@@ -153,9 +211,23 @@ def train(
     step_fn = model.make_train_step()
 
     def make_batch(step):
+        t0 = time.perf_counter()
         inputs = source_fn(step)
-        return (inputs if model.device_sampling
-                else model.sample(graph, inputs))
+        batch = (inputs if model.device_sampling
+                 else model.sample(graph, inputs))
+        if phase_profile:
+            record_phase("sample", (time.perf_counter() - t0) * 1e6,
+                         step=step)
+        return batch
+
+    def finish_batch(step, pending):
+        # "sample" is the wait on the step's async op
+        t0 = time.perf_counter()
+        batch = model.sample_finish(graph, pending)
+        if phase_profile:
+            record_phase("sample", (time.perf_counter() - t0) * 1e6,
+                         step=step)
+        return batch
 
     use_pipeline = (sampler_depth > 0 and not model.device_sampling
                     and getattr(graph, "mode", None) == "remote")
@@ -187,6 +259,8 @@ def train(
         for m in window_metrics:
             acc = _metric_accumulate(name, acc, m.cpu().numpy())
         loss_v = float(last_loss)
+        # the loop's device-to-host read: the window's metrics and loss
+        devprof.count_d2h((window_metrics, last_loss))
         mv = _metric_value(name, acc)
         sps = len(window_metrics) / (time.time() - t0)
         stalls, stall_ms = window_ms("input_stall")
@@ -205,31 +279,76 @@ def train(
     if use_pipeline:
         batches = pipeline(
             lambda step: model.sample_start(graph, source_fn(step)),
-            lambda step, pending: model.sample_finish(graph, pending),
-            num_steps - start_step, sampler_depth, start=start_step,
-            worker_init=seed_worker, timings=timings)
+            finish_batch, num_steps - start_step, sampler_depth,
+            start=start_step, worker_init=seed_worker, timings=timings,
+            profile=phase_profile, record_sample=False)
     else:
         batches = prefetch(make_batch, num_steps - start_step,
                            prefetch_depth, prefetch_threads,
                            start=start_step, worker_init=seed_worker,
-                           timings=timings)
+                           timings=timings, profile=phase_profile,
+                           record_sample=False)
+    profiler = None
+    p0, p1 = profile_steps
+    warm = 1 if p0 > 0 else 0
+    t_step = time.perf_counter()
     for batch in batches:
+        cur = steps_done  # the step's index, as the prefetch labels it
+        if profile_dir and cur - start_step == p0 - warm:
+            profiler = _start_profiler(profile_dir, dev, warm, p1 - p0)
+            if not warm:
+                _stamp_align()
+        t_h2d = time.perf_counter()
         if model.device_sampling:
             batch = model.device_sample_batch(
                 batch, _step_seed(seed, steps_done), dev)
         else:
             batch = base.to_device(batch, dev)
+        devprof.count_h2d(batch)
+        if phase_profile:
+            record_phase("h2d", (time.perf_counter() - t_h2d) * 1e6,
+                         step=cur)
+        t_dev = time.perf_counter()
         last_loss, metric = step_fn(state, batch)
+        if cur == start_step and devprof.devprof_enabled():
+            cs = devprof.compile_summary()
+            say(f"first step dispatched: {cs['compile_events']} compile(s) "
+                f"(kernel builds and CUDA-graph captures), "
+                f"{cs['compile_ms_total']:.0f} ms compile time")
+        if phase_profile:
+            _fence(last_loss)
+            t_host = time.perf_counter()
+            record_phase("device", (t_host - t_dev) * 1e6, step=cur)
         window_metrics.append(metric)
         steps_done += 1
         if step_hook is not None:
             step_hook(steps_done)
+        if profiler is not None:
+            done = steps_done - start_step
+            if done == p1:
+                _fence(last_loss)  # the recorded steps' device work
+            profiler.step()
+            if done == p0 and warm:
+                _stamp_align()
+            if done == p1:
+                profiler.stop()
+                profiler = None
+                say(f"profiler trace written to {profile_dir}")
         if len(window_metrics) == log_every:
             flush()
         if ckpt and steps_done % checkpoint_every == 0:
             ckpt.save(steps_done, state, force=True)
+        if phase_profile:
+            now = time.perf_counter()
+            record_phase("host", (now - t_host) * 1e6, step=cur)
+            record_phase("step", (now - t_step) * 1e6, step=cur)
+            t_step = now
     if window_metrics:  # the last, partial window
         flush()
+    if profiler is not None:  # the run ended inside the capture
+        _fence(last_loss)
+        profiler.stop()
+        say(f"profiler trace written to {profile_dir}")
     if ckpt:
         # a relaunch that resumed at num_steps ran nothing new: no save
         if steps_done > start_step and steps_done % checkpoint_every != 0:

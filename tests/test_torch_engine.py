@@ -324,6 +324,12 @@ def test_bindings_match_the_jax_bindings():
         if isinstance(node, ast.Call) and getattr(node.func, "id", "") ==
         "_sig" and isinstance(node.args[0], ast.Attribute)})
     assert len(names) >= 36
+    # training's observability families are bound too
+    assert {"eg_phase_record", "eg_phase_gauge", "eg_devprof_set_mem",
+            "eg_blackbox_init", "eg_blackbox_enabled",
+            "eg_blackbox_set_enabled", "eg_blackbox_reset",
+            "eg_blackbox_json", "eg_blackbox_history", "eg_blackbox_dump",
+            "eg_blackbox_record"} <= set(names)
     tlib, jlib = tnative.lib(), jnative.lib()
     for name in names:
         t, j = getattr(tlib, name), getattr(jlib, name)

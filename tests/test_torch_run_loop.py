@@ -374,13 +374,8 @@ def test_save_embedding_is_the_restored_states(fixture_dir, tmp_path):
     (["--stream", "1"], "A0e"),
     (["--graph_mode", "remote", "--stream", "1"], "A0e"),
     (["--process_id", "1"], "A10"),
-    (["--metrics_file", "m.jsonl"], "A11"),
-    (["--serve_after", "1", "--trace_file", "t.json"], "A11"),
-    (["--trace_file", "t.json"], "A11"),
-    (["--metrics_every", "5"], "A11"),
-    (["--postmortem_dir", "pm"], "A11"),
-    (["--profile_dir", "prof"], "A11"),
     (["--compile_cache", "1"], "A11"),
+    (["--compile_cache", "0"], "A11"),
     (["--num_devices", "2"], "A10"),
     (["--model_parallel", "2"], "A10"),
     (["--coordinator_addr", "localhost:1"], "A10"),
@@ -390,6 +385,25 @@ def test_unported_flags_raise(fixture_dir, tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=item):
         run_loop.main(_args(fixture_dir, str(tmp_path / "ck"), *extra),
                       device="cpu")
+
+
+@pytest.mark.parametrize("extra", [
+    ["--metrics_file", "m.jsonl"],
+    ["--metrics_every", "5"],
+    ["--trace_file", "t.json"],
+    ["--serve_after", "1", "--trace_file", "t.json"],
+    ["--postmortem_dir", "pm"],
+    ["--profile_dir", "prof"],
+    ["--telemetry", "0", "--blackbox", "0", "--devprof", "0"],
+])
+def test_observability_flags_pass_check_flags(fixture_dir, tmp_path, extra):
+    """The observability flags are ported: check_flags lets them
+    through (run_loop's own runs of them are in
+    test_torch_observability.py)."""
+    args = run_loop.define_flags().parse_args(
+        _args(fixture_dir, str(tmp_path / "ck"), *extra))
+    run_loop.check_flags(args)
+    assert not hasattr(run_loop, "_DEFAULT_ON")
 
 
 def test_entry_points_default_to_the_card(fixture_dir, tmp_path,

@@ -34,7 +34,7 @@ from euler_tpu.serving import EmbedClient as JClient  # noqa: E402
 from euler_tpu.serving import SLOTracker as JSLOTracker  # noqa: E402
 from euler_tpu.train import get_optimizer as jget_optimizer  # noqa: E402
 
-from euler_tpu_torch import run_loop, serve  # noqa: E402
+from euler_tpu_torch import devprof, run_loop, serve  # noqa: E402
 from euler_tpu_torch import telemetry as T  # noqa: E402
 from euler_tpu_torch import train as ttrain  # noqa: E402
 from euler_tpu_torch.checkpoint import Checkpointer  # noqa: E402
@@ -348,9 +348,19 @@ def test_stats_shape(server):
         assert ph["count"] >= 1 and ph["p99_us"] >= ph["p50_us"] >= 0
     assert s["counters"]["serve_requests"] == 1
     assert s["batch"] == {"dispatches": 1, "mean_unique_ids": 3.0}
-    assert s["devprof"] == {"device": "cpu", "captures": 1, "replays": 1,
-                            "recaptures": 0, "serve_recompiles": 0,
-                            "h2d_bytes": 0, "d2h_bytes": 0}
+    dev = s["devprof"]
+    assert set(dev) == set(devprof.compile_summary()) | {
+        "device", "captures", "replays", "recaptures"}
+    assert {k: dev[k] for k in ("device", "captures", "replays",
+                                "recaptures", "recompiles",
+                                "serve_recompiles")} == {
+        "device": "cpu", "captures": 1, "replays": 1, "recaptures": 0,
+        "recompiles": 0, "serve_recompiles": 0}
+    # the padded bucket up, the three rows down
+    rows = server.embed([1, 2, 3])
+    dev2 = server.stats()["devprof"]
+    assert dev2["d2h_bytes"] - dev["d2h_bytes"] == rows.nbytes
+    assert dev2["h2d_bytes"] - dev["h2d_bytes"] == dev["h2d_bytes"] > 0
     assert s["cache"]["entries"] == 3
 
 
@@ -699,11 +709,17 @@ def test_bucket_guard(tgraph, jstate, strict):
     blk = srv._block(10)
     other = dict(blk, labels=np.zeros((1, 4), np.float32))
     if strict:
-        with pytest.raises(serve.RecompileError, match="bucket changed"):
+        with pytest.raises(devprof.RecompileError,
+                           match="embed_step recompiled after warmup"):
             srv._forward([other])
+        # the captured bucket stays: its row is served unchanged
+        np.testing.assert_array_equal(srv._forward([blk])[0], want)
     else:
         np.testing.assert_array_equal(srv._forward([other])[0], want)
     assert tnative.counters()["serve_recompiles"] == 1
+    led = devprof.recompile_ledger()[-1]
+    assert led["fn"] == "embed_step" and led["diff"] == [
+        "leaf3: (8, 3) float32 -> (8, 4) float32"]
     dev = srv.stats()["devprof"]
     assert (dev["captures"], dev["recaptures"]) == (
         (1, 0) if strict else (2, 1))
