@@ -242,7 +242,26 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    ``--postmortem_dir`` and dies by SIGSEGV leaves one postmortem that
    ``postmortem_read`` parses, its resource ring's device memory the
    child's ``memory_allocated``.
-10. The ``kernels`` line; then the final ``ok`` line. Each phase prints
+10. Serving the zoo: phase 7's checkpoints (``work/z_<name>``) and
+    LasGNN's (phase 7 saves its trained state) served at their full
+    widths by ``serve.run_serve`` (max_batch 64, max_wait_us 2000), each
+    path with the launch counts set to 0 just before it and read just
+    after: serve_gcn and serve_scalable_gcn (exact-size blocks joined
+    with offsets into buckets at the model's caps, a dispatch past them
+    split into more forwards), serve_scalable_sage, serve_gat,
+    serve_line, serve_node2vec, serve_lshne, serve_saved_embedding and
+    serve_lasgnn (leaf by leaf). On each, 4 client threads send 40
+    requests each of 1-16 ids (``serve_traffic``'s shape); every served
+    row equals ``embed_direct`` on the card bit for bit; one bucket
+    equals the CPU's eager forward of the same blocks (rtol 1e-4, atol
+    1e-5); exactly one capture, no re-capture, no B1 or B2 launch; it
+    prints the client's p50 and p99, the first (capturing), a cold and a
+    warm dispatch of 64 ids, the bucket's bytes and the mean bytes up a
+    forward, the forwards a dispatch, and the peak of allocated device
+    memory. Then ``python -m euler_tpu_torch.serve --model gcn`` answers
+    one embed over the wire, bit-equal to the in-process row, and drains
+    to exit code 0 on SIGTERM.
+11. The ``kernels`` line; then the final ``ok`` line. Each phase prints
     its wall time.
 """
 
@@ -375,6 +394,12 @@ SERVE_CPU_RTOL = 1e-4
 SERVE_CPU_ATOL = 1e-5
 # timed dispatches of one warm bucket
 SERVE_WARM_RUNS = 50
+# phase 10 (serving the zoo): ZOO_SERVE_CLIENTS threads of
+# ZOO_SERVE_REQUESTS requests each on every path, at the serve defaults
+# above, and ZOO_SERVE_WARM_RUNS timed warm dispatches
+ZOO_SERVE_CLIENTS = 4
+ZOO_SERVE_REQUESTS = 40
+ZOO_SERVE_WARM_RUNS = 20
 # phase 8 (remote and shared graphs): two shard processes over phase 5's
 # ppi files, REMOTE_CHECK_IDS seeded ids read both ways, the JAX
 # rolling-restart drill's schedule (tests/test_rolling_restart.py: shard 0
@@ -2557,14 +2582,14 @@ def phase_engine(seed: int, smi: str, device: str = "cuda",
     return runs
 
 
-def serve_traffic(max_id: int, seed: int) -> list:
-    """SERVE_REQUESTS requests of 1 to SERVE_MAX_IDS ids: each id from the
-    hot set or the whole graph by a fair coin, a quarter of the requests
-    with their first id repeated at the end."""
+def serve_traffic(max_id: int, seed: int, n: int = SERVE_REQUESTS) -> list:
+    """``n`` requests of 1 to SERVE_MAX_IDS ids: each id from the hot set
+    or the whole graph by a fair coin, a quarter of the requests with
+    their first id repeated at the end."""
     rng = np.random.default_rng(seed)
     hot = rng.choice(max_id + 1, SERVE_HOT, replace=False)
     reqs = []
-    for _ in range(SERVE_REQUESTS):
+    for _ in range(n):
         k = int(rng.integers(1, SERVE_MAX_IDS + 1))
         ids = np.where(rng.random(k) < 0.5, rng.choice(hot, k),
                        rng.integers(0, max_id + 1, k))
@@ -2612,6 +2637,118 @@ def serve_cli(argv, device: str):
     return proc, lines, addr["a"], reader
 
 
+def drive_clients(address: str, reqs: list, clients: int,
+                  name: str) -> tuple:
+    """``reqs`` sent over the wire by ``clients`` ``EmbedClient`` threads
+    (request k by thread k % clients); returns each request's rows, its
+    latency ms at the client and the wall seconds. Raises if a client
+    failed or hung."""
+    from euler_tpu_torch.serving import EmbedClient
+
+    results = [None] * len(reqs)
+    errors = []
+
+    def client(k0):
+        c = EmbedClient(address, timeout_s=60.0)
+        try:
+            for k in range(k0, len(reqs), clients):
+                t = time.perf_counter()
+                rows = c.embed(reqs[k])
+                results[k] = (rows, (time.perf_counter() - t) * 1e3)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+        finally:
+            c.close()
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads) or None in results:
+        raise AssertionError(f"{name} clients failed: {errors[:5]}")
+    return ([r[0] for r in results], np.array([r[1] for r in results]),
+            wall)
+
+
+def check_direct(server, reqs: list, rows: list, name: str) -> dict:
+    """Every served row bit-equal to ``embed_direct``; returns ``{id:
+    row}``."""
+    direct = {}
+    for req, got in zip(reqs, rows):
+        for nid, row in zip(req, got):
+            if nid not in direct:
+                direct[nid] = server.embed_direct(nid)
+            if not np.array_equal(row, direct[nid]):
+                raise AssertionError(
+                    f"{name}: served row of id {nid} differs from "
+                    f"embed_direct (max abs {np.abs(row - direct[nid]).max()})")
+    return direct
+
+
+def cpu_bucket_err(model, graph, server, blocks: list, lr: float,
+                   name: str, device: str) -> float:
+    """One forward of ``blocks`` on the server's device against the CPU's
+    eager forward of the same blocks (the module and stores copied to
+    the CPU), within SERVE_CPU_RTOL / SERVE_CPU_ATOL; returns the max
+    abs error."""
+    from euler_tpu_torch import serve
+    from euler_tpu_torch import train as train_lib
+
+    cpu_state = model.init_state(
+        graph, train_lib.get_optimizer("adam", lr), device="cpu")
+    cpu_state["module"].load_state_dict(
+        {k: v.cpu() for k, v in
+         server._state["module"].state_dict().items()})
+    for dst, src in zip(cpu_state.get("stores", ()),
+                        server._state.get("stores", ())):
+        dst.copy_(src.cpu())
+    cpu = serve.EmbedServer(model, graph, cpu_state,
+                            max_batch=SERVE_MAX_BATCH)
+    want, got = cpu._forward(blocks), server._forward(blocks)
+    err = float(np.abs(got - want).max())
+    if not np.allclose(got, want, rtol=SERVE_CPU_RTOL, atol=SERVE_CPU_ATOL):
+        raise AssertionError(f"{name} bucket on {device} against the CPU: "
+                             f"max abs err {err}")
+    return err
+
+
+def check_serve_cli(argv, device: str, probe: int, probe_row,
+                    what: str) -> str:
+    """``python -m euler_tpu_torch.serve argv`` answers id ``probe`` over
+    the wire bit-equal to ``probe_row`` and drains to exit code 0 on
+    SIGTERM; returns the line to log."""
+    from euler_tpu_torch.serving import EmbedClient
+
+    t0 = time.perf_counter()
+    proc, lines, addr, reader = serve_cli(argv, device)
+    try:
+        up = time.perf_counter() - t0
+        c = EmbedClient(addr, timeout_s=60.0)
+        row = c.embed([probe])[0]
+        c.close()
+        if not np.array_equal(row, probe_row):
+            raise AssertionError(f"the serve CLI's row ({what}) differs "
+                                 "from the in-process server's")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(10)
+    reader.join(10)
+    if rc != 0 or not any("serve SLO at exit" in x for x in lines):
+        raise AssertionError(f"the serve CLI ({what}) exited {rc}:\n"
+                             + "\n".join(lines[-40:]))
+    return (f"python -m euler_tpu_torch.serve {what} served on {addr} "
+            f"after {up:.2f} s; id {probe}'s row over the wire bit-equal "
+            f"to the in-process server's; SIGTERM drained it to exit code "
+            f"{rc}")
+
+
 def phase_serve(data_dir: str, model_dir: str, seed: int, smi: str,
                 device: str = "cuda", max_id: int = 56943) -> dict:
     """serve_ppi: run_loop_host's checkpoint (phase 5 (f)) served at ppi's
@@ -2629,9 +2766,7 @@ def phase_serve(data_dir: str, model_dir: str, seed: int, smi: str,
     log("== phase 6: serve_ppi")
     from euler_tpu_torch import run_loop, serve
     from euler_tpu_torch import telemetry as T
-    from euler_tpu_torch import train as train_lib
     from euler_tpu_torch.graph import native, sampling_kernels
-    from euler_tpu_torch.serving import EmbedClient
 
     argv = ["--data_dir", data_dir, "--model_dir", model_dir,
             "--max_id", str(max_id), "--seed", str(seed), *RUN_LOOP_ARGS,
@@ -2656,33 +2791,9 @@ def phase_serve(data_dir: str, model_dir: str, seed: int, smi: str,
         first_ms = (time.perf_counter() - t0) * 1e3
         # (b) concurrent mixed traffic through the frontend
         reqs = serve_traffic(max_id, seed)
-        results = [None] * len(reqs)
-        errors = []
-
-        def client(k0):
-            c = EmbedClient(frontend.address, timeout_s=60.0)
-            try:
-                for k in range(k0, len(reqs), SERVE_CLIENTS):
-                    t = time.perf_counter()
-                    rows = c.embed(reqs[k])
-                    results[k] = (rows, (time.perf_counter() - t) * 1e3)
-            except Exception as e:  # noqa: BLE001 - reported below
-                errors.append(repr(e))
-            finally:
-                c.close()
-
-        t0 = time.perf_counter()
-        threads = [threading.Thread(target=client, args=(i,))
-                   for i in range(SERVE_CLIENTS)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(300)
-        wall = time.perf_counter() - t0
-        if errors or any(t.is_alive() for t in threads) or None in results:
-            raise AssertionError(f"serve_ppi clients failed: {errors[:5]}")
+        results, lat, wall = drive_clients(frontend.address, reqs,
+                                           SERVE_CLIENTS, "serve_ppi")
         stats = server.stats()
-        lat = np.array([r[1] for r in results])
         launches = dict(sampling_kernels.launches)
         peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
         log(f"(b) {SERVE_REQUESTS} requests from {SERVE_CLIENTS} clients "
@@ -2697,33 +2808,14 @@ def phase_serve(data_dir: str, model_dir: str, seed: int, smi: str,
             f"{first_ms:.3f} ms; sample cache {stats['cache']} (host "
             f"bytes); max_memory_allocated {peak} B (card: {smi})")
         # (c) bit parity with the direct path
-        direct = {}
-        for req, (rows, _) in zip(reqs, results):
-            for nid, row in zip(req, rows):
-                if nid not in direct:
-                    direct[nid] = server.embed_direct(nid)
-                if not np.array_equal(row, direct[nid]):
-                    raise AssertionError(
-                        f"served row of id {nid} differs from embed_direct "
-                        f"(max abs {np.abs(row - direct[nid]).max()})")
+        direct = check_direct(server, reqs, results, "serve_ppi")
         log(f"(c) every served row ({sum(len(r) for r in reqs)}) bit-equal "
             f"to embed_direct on {device} ({len(direct)} ids)")
         # (d) one bucket against the CPU's eager forward
         uids = sorted(direct)[:SERVE_MAX_BATCH]
-        blocks = [server._block(i) for i in uids]
-        cpu_state = model.init_state(
-            graph, train_lib.get_optimizer("adam", PPI_LR), device="cpu")
-        cpu_state["module"].load_state_dict(
-            {k: v.cpu() for k, v in
-             server._state["module"].state_dict().items()})
-        cpu = serve.EmbedServer(model, graph, cpu_state,
-                                max_batch=SERVE_MAX_BATCH)
-        want, got = cpu._forward(blocks), server._forward(blocks)
-        err = float(np.abs(got - want).max())
-        if not np.allclose(got, want, rtol=SERVE_CPU_RTOL,
-                           atol=SERVE_CPU_ATOL):
-            raise AssertionError(f"serve_ppi bucket on {device} against the "
-                                 f"CPU: max abs err {err}")
+        err = cpu_bucket_err(model, graph, server,
+                             [server._block(i) for i in uids], PPI_LR,
+                             "serve_ppi", device)
         log(f"(d) one bucket of {len(uids)} ids on {device} against the "
             f"CPU's eager forward: max abs err {err:.3e} (rtol "
             f"{SERVE_CPU_RTOL}, atol {SERVE_CPU_ATOL})")
@@ -2783,29 +2875,8 @@ def phase_serve(data_dir: str, model_dir: str, seed: int, smi: str,
         frontend.stop()
         graph.close()
     # (g) the serve CLI, drained by SIGTERM
-    t0 = time.perf_counter()
-    proc, lines, addr, reader = serve_cli(argv, device)
-    try:
-        up = time.perf_counter() - t0
-        c = EmbedClient(addr, timeout_s=60.0)
-        row = c.embed([probe])[0]
-        c.close()
-        if not np.array_equal(row, probe_row):
-            raise AssertionError("the serve CLI's row differs from the "
-                                 "in-process server's")
-        proc.send_signal(signal.SIGTERM)
-        rc = proc.wait(120)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait(10)
-    reader.join(10)
-    if rc != 0 or not any("serve SLO at exit" in x for x in lines):
-        raise AssertionError(f"the serve CLI exited {rc}:\n"
-                             + "\n".join(lines[-40:]))
-    log(f"(g) python -m euler_tpu_torch.serve served on {addr} after "
-        f"{up:.2f} s; id {probe}'s row over the wire bit-equal to the "
-        f"in-process server's; SIGTERM drained it to exit code {rc}")
+    log("(g) " + check_serve_cli(argv, device, probe, probe_row,
+                                 "(serve_ppi)"))
     return {"serve_ppi": {"launches": launches}}
 
 
@@ -2998,13 +3069,15 @@ def lasgnn_host_inputs(graph, batch: int) -> dict:
             "groups": [roots[:, None], np.concatenate([pos, neg])]}
 
 
-def zoo_lasgnn(graph, seed: int, smi: str, device: str) -> dict:
+def zoo_lasgnn(graph, seed: int, smi: str, device: str,
+               model_dir: str) -> dict:
     """LasGNN host-sampled through ``train.train`` over the engine, on
-    host-drawn inputs, for ZOO_LASGNN_STEPS steps, then
-    ``train.evaluate`` over EVAL_BATCHES fresh batches and a profiler
-    window of 10 steps; the counts set to 0 just before and read just
-    after."""
+    host-drawn inputs, for ZOO_LASGNN_STEPS steps (the state then saved
+    in ``model_dir``, which phase 10 serves), then ``train.evaluate``
+    over EVAL_BATCHES fresh batches and a profiler window of 10 steps;
+    the counts set to 0 just before and read just after."""
     from euler_tpu_torch import train
+    from euler_tpu_torch.checkpoint import Checkpointer
     from euler_tpu_torch.graph import sampling_kernels
 
     max_id = graph.num_nodes - 1
@@ -3020,6 +3093,9 @@ def zoo_lasgnn(graph, seed: int, smi: str, device: str) -> dict:
         num_steps=ZOO_LASGNN_STEPS, learning_rate=PPI_LR, log_every=1,
         seed=seed, device=device, log_fn=lambda msg: None)
     wall = time.perf_counter() - t0
+    ckpt = Checkpointer(model_dir)
+    ckpt.save(ZOO_LASGNN_STEPS, state, force=True)
+    ckpt.close()
     losses = np.array([h["loss"] for h in history])
     head, tail = losses[:10].mean(), losses[-10:].mean()
     if not (np.isfinite(losses).all() and tail < head):
@@ -3136,9 +3212,187 @@ def phase_zoo(work: str, seed: int, smi: str, device: str = "cuda",
         max_id)
     log(f"lshne_host path: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    runs["lasgnn_host"] = zoo_lasgnn(graph, seed, smi, device)
+    runs["lasgnn_host"] = zoo_lasgnn(graph, seed, smi, device,
+                                     os.path.join(work, "z_lasgnn"))
     log(f"lasgnn_host path: {time.perf_counter() - t0:.1f} s")
     graph.close()
+    return runs
+
+
+def serve_zoo_path(name: str, argv: list, seed: int, smi: str, device: str,
+                   max_id: int, model=None) -> tuple:
+    """One served checkpoint, the launch counts set to 0 just before and
+    read just after: (a) ``serve.run_serve`` restores ``--model_dir``
+    (``model``, when given, in place of ``run_loop.build_model``'s, in the
+    inference config) and the first dispatch captures the bucket; (b)
+    ZOO_SERVE_CLIENTS client threads send ZOO_SERVE_REQUESTS requests each
+    (``serve_traffic``); (c) every served row equals ``embed_direct`` bit
+    for bit; (d) one bucket (the first forward of 64 served ids) equals
+    the CPU's eager forward of its blocks within SERVE_CPU_RTOL /
+    SERVE_CPU_ATOL; (e) one capture, no re-capture, no B1 or B2 launch;
+    (f) a cold (64 new ids) and a warm (cached) dispatch are timed.
+    Returns ``({name: {"launches": ...}}, a served (id, row))``."""
+    from euler_tpu_torch import run_loop, serve
+    from euler_tpu_torch import telemetry as T
+    from euler_tpu_torch.graph import native, sampling_kernels
+
+    args = run_loop.define_flags().parse_args(argv)
+    args.mode = "evaluate"  # serve.main's inference config
+    graph, _ = run_loop.build_graph(args)
+    model = model or run_loop.build_model(args, graph)
+    native.reset_counters()
+    T.telemetry_reset()
+    for k in sampling_kernels.launches:
+        sampling_kernels.launches[k] = 0
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server, frontend = serve.run_serve(model, graph, args, device,
+                                       block=False)
+    try:
+        up_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        server.embed_direct(0)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        reqs = serve_traffic(max_id, seed,
+                             ZOO_SERVE_CLIENTS * ZOO_SERVE_REQUESTS)
+        results, lat, wall = drive_clients(frontend.address, reqs,
+                                           ZOO_SERVE_CLIENTS, name)
+        stats = server.stats()
+        forwards = stats["counters"].get("serve_batches", 0) / max(
+            stats["batch"].get("dispatches", 1), 1)
+        # (c) bit parity with the direct path
+        direct = check_direct(server, reqs, results, name)
+        # (d) one bucket against the CPU's eager forward
+        blocks = server._layout.split(
+            [server._block(i) for i in sorted(direct)[:SERVE_MAX_BATCH]])[0]
+        err = cpu_bucket_err(model, graph, server, blocks,
+                             args.learning_rate, name, device)
+        # (e) one capture, no re-capture, no kernel launch
+        launches = dict(sampling_kernels.launches)
+        dev = server.stats()["devprof"]
+        if (dev["captures"], dev["recaptures"], dev["serve_recompiles"]) != (
+                1, 0, 0):
+            raise AssertionError(f"{name} bucket {dev}")
+        if any(launches.values()):
+            raise AssertionError(f"{name} launched {launches}")
+        # (f) cold (sampling 64 new ids) and warm (all cached) dispatches
+        cold_ids = np.setdiff1d(
+            np.random.default_rng(seed + 1).permutation(max_id + 1),
+            np.fromiter(server._cache, np.int64))[:SERVE_MAX_BATCH]
+        t0 = time.perf_counter()
+        server._embed_unique(cold_ids)
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        h2d0, rep0 = dev["h2d_bytes"], dev["replays"]
+        warm = []
+        for _ in range(ZOO_SERVE_WARM_RUNS):
+            t0 = time.perf_counter()
+            server._embed_unique(cold_ids)
+            warm.append((time.perf_counter() - t0) * 1e3)
+        dev = server.stats()["devprof"]
+        per_fwd = (dev["h2d_bytes"] - h2d0) / max(dev["replays"] - rep0, 1)
+        groups = server._layout.split(
+            [server._block(int(i)) for i in cold_ids])
+        # a forward's parts: staging (steps 1-2, host clock to a sync)
+        # and the replay alone (CUDA events)
+        stage_ms = replay_ms = "not measured"
+        if device == "cuda":
+            bucket = server._bucket
+            times = []
+            for _ in range(ZOO_SERVE_WARM_RUNS):
+                t0 = time.perf_counter()
+                bucket._stage(groups[0])
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            stage_ms = f"{statistics.median(times):.4f} ms"
+            replay_ms = f"{cuda_ms(bucket._graph.replay):.4f} ms"
+        bucket = sum(int(np.prod(shape)) * np.dtype(dt).itemsize
+                     for _, shape, dt in server._bucket.signature)
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+        log(f"{name}: up in {up_s:.2f} s, first dispatch (capture) "
+            f"{first_ms:.3f} ms; {len(reqs)} requests from "
+            f"{ZOO_SERVE_CLIENTS} clients ({sum(len(r) for r in reqs)} ids, "
+            f"{len(direct)} distinct) in {wall:.3f} s: latency at the "
+            f"client p50 {np.percentile(lat, 50):.4f} ms, p99 "
+            f"{np.percentile(lat, 99):.4f} ms; {forwards:.3f} forwards a "
+            f"dispatch; every served row bit-equal to embed_direct; one "
+            f"bucket of {len(blocks)} ids against the CPU: max abs err "
+            f"{err:.3e}; captures {dev['captures']}, re-captures "
+            f"{dev['recaptures']}, launches {launches}; a dispatch of "
+            f"{SERVE_MAX_BATCH} ids ({len(groups)} forwards): cold "
+            f"{cold_ms:.4f} ms, warm median {statistics.median(warm):.4f} ms"
+            f" over {ZOO_SERVE_WARM_RUNS} (min {min(warm):.4f}), a "
+            f"forward's staging {stage_ms} (median, to a sync) and replay "
+            f"{replay_ms} (device, median of 100); bucket "
+            f"{bucket} B, {per_fwd:.0f} B up a forward on average; "
+            f"max_memory_allocated {peak} B (card: {smi})")
+        probe = int(reqs[0][0])
+        probe_row = direct[probe]
+    finally:
+        frontend.drain(grace_s=1.0)
+        server.close()
+        frontend.stop()
+        graph.close()
+    return {name: {"launches": launches}}, (probe, probe_row)
+
+
+def phase_serve_zoo(work: str, seed: int, smi: str, device: str = "cuda",
+                    ppi: dict | None = None) -> dict:
+    """Serving the zoo: ``serve_zoo_path`` over phase 7's checkpoints of
+    gcn, scalable_gcn, scalable_sage, gat, line, node2vec, saved_embedding
+    and lshne, each with the flags it trained with, and over LasGNN's
+    saved state; then ``python -m euler_tpu_torch.serve --model gcn``
+    answers one embed over the wire, bit-equal to serve_gcn's row, and
+    drains to exit code 0 on SIGTERM."""
+    log("== phase 10: serving the zoo")
+    from euler_tpu_torch import datasets
+
+    ppi = ppi or datasets.PPI
+    max_id = ppi["num_nodes"] - 1
+    data_dir = os.path.join(work, "ppi")
+    het_dir = os.path.join(work, "het")
+    fan = ["--fanouts", ",".join(map(str, ZOO_GCN_FANOUTS))]
+    serve_flags = ["--serve_port", "0", "--serve_max_batch",
+                   str(SERVE_MAX_BATCH), "--serve_max_wait_us",
+                   str(SERVE_WAIT_US)]
+
+    def argv(data, model_dir, extra):
+        return ["--data_dir", data, "--model_dir",
+                os.path.join(work, model_dir), "--max_id", str(max_id),
+                "--seed", str(seed), *RUN_LOOP_ARGS, *extra, *serve_flags]
+
+    runs = {}
+    probes = {}
+    for name, data, model_dir, extra in (
+            ("serve_gcn", data_dir, "z_gcn_host", ["--model", "gcn", *fan]),
+            ("serve_scalable_gcn", data_dir, "z_scalable_gcn_host",
+             ["--model", "scalable_gcn", *fan]),
+            ("serve_scalable_sage", data_dir, "z_scalable_sage_host",
+             ["--model", "scalable_sage"]),
+            ("serve_gat", data_dir, "z_gat_host", ["--model", "gat"]),
+            ("serve_line", data_dir, "z_line_host", ["--model", "line"]),
+            ("serve_node2vec", data_dir, "z_node2vec_host",
+             ["--model", "node2vec"]),
+            ("serve_saved_embedding", data_dir, "z_saved_embedding",
+             ["--model", "saved_embedding", "--embedding_file",
+              os.path.join(work, "m2", "embedding.npy")]),
+            ("serve_lshne", het_dir, "z_lshne",
+             ["--model", "lshne", "--feature_idx", "0"])):
+        t0 = time.perf_counter()
+        run, probes[name] = serve_zoo_path(
+            name, argv(data, model_dir, extra), seed, smi, device, max_id)
+        add_runs(runs, run)
+        log(f"{name} path: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    run, _ = serve_zoo_path(
+        "serve_lasgnn", argv(het_dir, "z_lasgnn", []), seed, smi, device,
+        max_id, model=lasgnn(max_id, device_sampling=False))
+    add_runs(runs, run)
+    log(f"serve_lasgnn path: {time.perf_counter() - t0:.1f} s")
+    # the serve CLI over gcn's checkpoint, drained by SIGTERM
+    log(check_serve_cli(
+        argv(data_dir, "z_gcn_host", ["--model", "gcn", *fan]), device,
+        *probes["serve_gcn"], "--model gcn"))
     return runs
 
 
@@ -3975,8 +4229,11 @@ def main() -> int:
         t7 = time.perf_counter()
         log(f"phase 8: {t7 - t6:.1f} s")
         add_runs(runs, phase_observe(work, args.seed, smi))
-    log(f"phase 9: {time.perf_counter() - t7:.1f} s")
-    log("== phase 10: kernels")
+        t8 = time.perf_counter()
+        log(f"phase 9: {t8 - t7:.1f} s")
+        add_runs(runs, phase_serve_zoo(work, args.seed, smi))
+    log(f"phase 10: {time.perf_counter() - t8:.1f} s")
+    log("== phase 11: kernels")
     meta = {
         "sample_fanout2": dict(
             source="euler_tpu_torch/csrc/sample_fanout2.cu",

@@ -33,7 +33,7 @@ import torch.nn.functional as F
 
 from euler_tpu_torch.device import resolve_device
 from euler_tpu_torch.graph import device as device_graph
-from euler_tpu_torch.nn import metrics
+from euler_tpu_torch.nn import metrics, sparse_aggregators
 from euler_tpu_torch.ops import feature as feature_ops
 
 
@@ -184,9 +184,7 @@ def to_device(batch, device=None):
             return type(x)(up(v) for v in x)
         if not isinstance(x, np.ndarray):
             return x
-        if x.dtype == np.uint64:
-            x = x.view(np.int64)
-        t = torch.from_numpy(np.ascontiguousarray(x))
+        t = torch.from_numpy(np.ascontiguousarray(host_leaf(x)))
         if dev.type == "cuda":
             return t.pin_memory().to(dev, non_blocking=True)
         return t.to(dev)
@@ -236,6 +234,162 @@ def concat_blocks(blocks: list):
     return batch_with_leaves(blocks[0], [
         np.concatenate([p[i][1] for p in parts], axis=0)
         for i in range(len(parts[0]))])
+
+
+def host_leaf(x: np.ndarray) -> np.ndarray:
+    """A host leaf as it goes up: the engine's uint64 ids as int64, as
+    ``to_device`` uploads them."""
+    return x.view(np.int64) if x.dtype == np.uint64 else x
+
+
+def _block_leaves(blocks: list) -> list:
+    """``batch_leaves`` of each block; raises unless the blocks agree on
+    every leaf's path, trailing shape and dtype (rows may differ)."""
+    parts = [batch_leaves(b) for b in blocks]
+    first = [(q, x.shape[1:], x.dtype) for q, x in parts[0]]
+    for p in parts[1:]:
+        if [(q, x.shape[1:], x.dtype) for q, x in p] != first:
+            raise ValueError("the blocks of one dispatch differ in layout, "
+                             "row width or dtype")
+    return parts
+
+
+class ServingLayout:
+    """How ``serve.EmbedServer`` joins per-id host blocks
+    (``Model.sample_serve_block``) into one bucket whose shapes stay fixed
+    for the server's life, so that one captured forward serves every
+    dispatch and row i of its embedding is block i's, whatever else the
+    bucket holds.
+
+    This one, every model's default, joins leaf by leaf: each leaf of
+    each block concatenated along its first axis in block order, padded
+    to ``max_batch`` blocks by repeating the first (``concat_blocks``'s
+    rows). Each leaf must hold one row, or a fixed number of rows, per id
+    (hop k of a fanout holds ``prod(fanouts[:k])``)."""
+
+    def __init__(self, max_batch: int):
+        self.max_batch = int(max_batch)
+
+    def split(self, blocks: list) -> list:
+        """The forwards that serve ``blocks``: lists of blocks, in
+        request order."""
+        return [blocks[i:i + self.max_batch]
+                for i in range(0, len(blocks), self.max_batch)]
+
+    def signature(self, blocks: list) -> tuple:
+        """``(path, shape, dtype str)`` of each leaf of the bucket that
+        ``blocks`` (one forward's) fill, in ``batch_leaves`` order."""
+        parts = _block_leaves(blocks)
+        parts += [parts[0]] * (self.max_batch - len(parts))
+        return tuple(
+            (path, (sum(p[i][1].shape[0] for p in parts),) + x.shape[1:],
+             host_leaf(x).dtype.str)
+            for i, (path, x) in enumerate(parts[0]))
+
+    def write(self, blocks: list, out: list) -> list:
+        """Write the bucket of ``blocks`` into ``out`` (arrays of
+        ``signature``'s shapes, in its order) and return how many leading
+        rows of each leaf hold it: here every row."""
+        parts = [batch_leaves(b) for b in blocks]
+        parts += [parts[0]] * (self.max_batch - len(parts))
+        for i, buf in enumerate(out):
+            np.concatenate([host_leaf(p[i][1]) for p in parts], axis=0,
+                           out=buf)
+        return [len(buf) for buf in out]
+
+
+class HopLayout(ServingLayout):
+    """Blocks whose rows differ from id to id (the GCN family's exact-size
+    expansions), joined with offsets into hop arrays of fixed caps.
+
+    ``space_of(path)`` names a leaf's row space: node spaces (a hop's
+    nodes, their inputs) and ``edge_spaces`` (a hop's adjacency).
+    ``caps`` gives each space's rows in the bucket. ``indexes`` maps an
+    index leaf's path to the space it indexes: each block's index leaf is
+    shifted by that space's rows in the blocks before it (a block's
+    ``src`` gets its base row in the current hop, its ``dst`` its base in
+    the next). A node space keeps its last row free, a sink; past the
+    blocks' rows, an edge space holds padding edges, each index leaf at
+    its space's sink and every other leaf (``w``, ``mask``) 0, so no
+    padding edge reaches a real row's segment. The other rows of a node
+    space are left as they were (zeros, or an earlier dispatch's rows):
+    no real row reads them, and only the rows the blocks fill go up.
+
+    A forward takes blocks while every space has room and at most
+    ``max_batch`` blocks; a dispatch past that splits into more forwards,
+    in request order. A block that would not fit an empty bucket raises
+    (SupervisedGCN's sampling raises first, past the model's own caps,
+    which the caps here hold)."""
+
+    def __init__(self, max_batch: int, space_of, caps: dict, indexes: dict,
+                 edge_spaces):
+        super().__init__(max_batch)
+        self.space_of = space_of
+        self.caps = dict(caps)
+        self.hop_indexes = dict(indexes)
+        self.edge_spaces = set(edge_spaces)
+
+    def _room(self, space) -> int:
+        return self.caps[space] - (space not in self.edge_spaces)
+
+    def _rows(self, leaves) -> dict:
+        """One block's rows in each space (its first leaf there)."""
+        rows = {}
+        for path, x in leaves:
+            rows.setdefault(self.space_of(path), len(x))
+        return rows
+
+    def split(self, blocks: list) -> list:
+        groups, cur, used = [], [], {}
+        for blk in blocks:
+            rows = self._rows(batch_leaves(blk))
+            for s, r in rows.items():
+                if r > self._room(s):
+                    raise ValueError(
+                        f"{s}: one id's {r} rows > the bucket's "
+                        f"{self._room(s)}")
+            if cur and (len(cur) == self.max_batch or any(
+                    used.get(s, 0) + r > self._room(s)
+                    for s, r in rows.items())):
+                groups.append(cur)
+                cur, used = [], {}
+            cur.append(blk)
+            for s, r in rows.items():
+                used[s] = used.get(s, 0) + r
+        return groups + [cur]
+
+    def signature(self, blocks: list) -> tuple:
+        parts = _block_leaves(blocks)
+        return tuple(
+            (path, (self.caps[self.space_of(path)],) + x.shape[1:],
+             host_leaf(x).dtype.str)
+            for path, x in parts[0])
+
+    def write(self, blocks: list, out: list) -> list:
+        parts = [batch_leaves(b) for b in blocks]
+        rows = [self._rows(p) for p in parts]
+        staged = []
+        for i, buf in enumerate(out):
+            path = parts[0][i][0]
+            space = self.space_of(path)
+            xs = [host_leaf(p[i][1]) for p in parts]
+            used = sum(len(x) for x in xs)
+            if used > self._room(space):
+                raise ValueError(
+                    f"{used} rows of {path} past the bucket's "
+                    f"{self._room(space)}: split the dispatch first")
+            np.concatenate(xs, axis=0, out=buf[:used])
+            target = self.hop_indexes.get(path)
+            if target is not None:
+                counts = np.array([r.get(target, 0) for r in rows])
+                buf[:used] += np.repeat(np.cumsum(counts) - counts,
+                                        [len(x) for x in xs]).astype(
+                                            buf.dtype)
+            if space in self.edge_spaces:
+                buf[used:] = 0 if target is None else self.caps[target] - 1
+                used = len(buf)
+            staged.append(used)
+        return staged
 
 
 def id_feats(ids, use_id: bool) -> dict:
@@ -333,6 +487,18 @@ class Model:
         ``sample_embed(graph, inputs)``): the training batch unless the
         model needs less."""
         return self.sample(graph, inputs)
+
+    # ---- serving (``serve.EmbedServer``) ----
+    def sample_serve_block(self, graph, nid: int) -> dict:
+        """One id's serving block, which ``serving_layout`` joins into
+        buckets: ``sample_host_embed(graph, [nid])`` unless the model's
+        layout pads it itself."""
+        return self.sample_host_embed(graph, np.array([nid], np.int64))
+
+    def serving_layout(self, max_batch: int) -> ServingLayout:
+        """How a server's per-id blocks join into its fixed bucket: leaf
+        by leaf, unless the model's blocks need offsets or caps."""
+        return ServingLayout(max_batch)
 
     # ---- split sampling (``train``'s ``sampler_depth`` pipeline) ----
     # ``sample_start`` submits a step's graph queries without waiting and
@@ -589,10 +755,12 @@ class Model:
 
     def make_embed_step(self):
         """``embed(state, batch) -> embeddings`` without gradients: the
-        module's ``embed`` over one batch with the state's tables."""
+        module's ``embed`` over one batch with the state's tables, its
+        segment sums deterministic (``nn.sparse_aggregators``), so a row
+        is bit-stable wherever it sits in the batch."""
 
         def embed_step(state, batch):
-            with torch.no_grad():
+            with torch.no_grad(), sparse_aggregators.deterministic_sums():
                 return state["module"].embed(batch, state["consts"])
 
         return embed_step
@@ -744,9 +912,11 @@ class ScalableStoreModel(Model):
         return eval_step
 
     def make_embed_step(self):
-        """``embed(state, batch) -> embeddings`` over the stores."""
+        """``embed(state, batch) -> embeddings`` over the stores, its
+        segment sums deterministic (as ``Model.make_embed_step``'s)."""
 
         def embed_step(state, batch):
-            return self._apply_with_stores(state, batch).embedding
+            with sparse_aggregators.deterministic_sums():
+                return self._apply_with_stores(state, batch).embedding
 
         return embed_step

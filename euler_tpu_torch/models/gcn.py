@@ -17,7 +17,10 @@ they can be held against the flax modules. On the host
 layouts through the engine client (``ops.neighbor.get_multi_hop_neighbor``,
 padded to the same caps, which raises where a hop outgrows its cap, as
 the JAX host path does), with the features gathered on the host or, with
-``device_features=True``, read from the device tables by ``"gids"``.
+``device_features=True``, read from the device tables by ``"gids"``. A
+server's per-id block (``sample_serve_block``) is that expansion at its
+exact size, and ``serving_layout`` joins blocks with offsets into hop
+arrays of fixed caps (``models.base.HopLayout``).
 """
 
 from __future__ import annotations
@@ -213,12 +216,23 @@ class SupervisedGCN(base.Model):
         host features, the roots' labels."""
         if self.device_sampling:
             return super().sample(graph, inputs)
+        return self._host_batch(graph, inputs, exact=False)
+
+    def sample_serve_block(self, graph, nid: int) -> dict:
+        """One id's serving block: ``sample``'s layout at the expansion's
+        exact size (padding a block to the caps of a whole training batch
+        would cache hundreds of thousands of rows an id); a hop past its
+        cap still raises. ``serving_layout`` pads once a bucket."""
+        return self._host_batch(graph, [nid], exact=True)
+
+    def _host_batch(self, graph, inputs, exact: bool) -> dict:
         roots = np.asarray(inputs, dtype=np.int64).reshape(-1)
         roots, hops = neighbor_ops.get_multi_hop_neighbor(
             graph, roots, self.metapath,
             max_nodes_per_hop=self.max_nodes_per_hop,
             max_edges_per_hop=self.max_edges_per_hop,
-            default_node=self.max_id + 1 if self.max_id >= 0 else -1)
+            default_node=self.max_id + 1 if self.max_id >= 0 else -1,
+            exact=exact)
         batch = {
             "hops": [self.host_node_inputs(graph, roots)]
             + [self.host_node_inputs(graph, h.nodes) for h in hops],
@@ -228,6 +242,31 @@ class SupervisedGCN(base.Model):
             batch["labels"] = graph.get_dense_feature(
                 roots, [self.label_idx], [self.label_dim])
         return batch
+
+    def serving_layout(self, max_batch: int) -> base.HopLayout:
+        """Exact-size blocks joined with offsets (``base.HopLayout``): the
+        roots' hop ``max_batch`` rows, hop k the model's own cap, each
+        with a sink row; each hop's edges the model's edge cap. A bucket
+        thus holds any one block, as a training batch would."""
+        n = len(self.metapath)
+        caps = {"node0": max_batch + 1}
+        for h in range(n):
+            caps[f"node{h + 1}"] = self.max_nodes_per_hop[h] + 1
+            caps[f"edge{h}"] = self.max_edges_per_hop[h]
+        indexes = {}
+        for h in range(n):
+            indexes[("adjs", h, "src")] = f"node{h}"
+            indexes[("adjs", h, "dst")] = f"node{h + 1}"
+
+        def space_of(path):
+            if path[0] == "hops":
+                return f"node{path[1]}"
+            if path[0] == "adjs":
+                return f"edge{path[1]}"
+            return "node0"  # the roots' labels
+
+        return base.HopLayout(max_batch, space_of, caps, indexes,
+                              [f"edge{h}" for h in range(n)])
 
 
 class _ScalableGCNModule(nn.Module):
@@ -420,12 +459,23 @@ class ScalableGCN(base.ScalableStoreModel):
         labels."""
         if self.device_sampling:
             return super().sample(graph, inputs)
+        return self._host_batch(graph, inputs, capped=True)
+
+    def sample_serve_block(self, graph, nid: int) -> dict:
+        """One id's serving block: ``sample``'s layout over the id's whole
+        1-hop neighborhood at its exact size. ``sample`` at one root would
+        cap it at ``max_neighbors`` nodes and raise past them (for some
+        two ids in five of ppi's at ``max_neighbors`` 16); a bucket holds
+        ``max_batch`` times that (``serving_layout``)."""
+        return self._host_batch(graph, [nid], capped=False)
+
+    def _host_batch(self, graph, inputs, capped: bool) -> dict:
         roots = np.asarray(inputs, dtype=np.int64).reshape(-1)
         b = len(roots)
         roots_out, hops = neighbor_ops.get_multi_hop_neighbor(
             graph, roots, [self.edge_type],
-            max_nodes_per_hop=[b * self.max_neighbors],
-            max_edges_per_hop=[b * self.max_edges],
+            max_nodes_per_hop=[b * self.max_neighbors] if capped else None,
+            max_edges_per_hop=[b * self.max_edges] if capped else None,
             default_node=self.max_id + 1)
         hop = hops[0]
         batch = {
@@ -439,3 +489,22 @@ class ScalableGCN(base.ScalableStoreModel):
             batch["labels"] = graph.get_dense_feature(
                 roots, [self.label_idx], [self.label_dim])
         return batch
+
+    def serving_layout(self, max_batch: int) -> base.HopLayout:
+        """Exact-size blocks joined with offsets (``base.HopLayout``) at
+        ``sample``'s caps for ``max_batch`` roots: ``max_batch`` roots,
+        ``max_batch * max_neighbors`` neighbors (each with a sink row) and
+        ``max_batch * max_edges`` edges."""
+        def space_of(path):
+            if path[0] == "adj":
+                return "edge0"
+            return "node1" if path[0] in ("neigh_feats", "neigh_ids") \
+                else "node0"
+
+        return base.HopLayout(
+            max_batch, space_of,
+            caps={"node0": max_batch + 1,
+                  "node1": max_batch * self.max_neighbors + 1,
+                  "edge0": max_batch * self.max_edges},
+            indexes={("adj", "src"): "node0", ("adj", "dst"): "node1"},
+            edge_spaces=["edge0"])

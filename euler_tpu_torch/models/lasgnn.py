@@ -294,6 +294,16 @@ class LasGNN(base.Model):
         return {"groups": [self._host_metapaths(
             graph, ids, self.metapaths_of_groups[0])]}
 
+    def serving_layout(self, max_batch: int) -> base.ServingLayout:
+        """Leaf by leaf: a block is one target's fanout, hop h
+        ``prod(fanouts[:h])`` rows a metapath. A served row is one
+        target, so the target group must be one id a row."""
+        if self.group_sizes[0] != 1:
+            raise ValueError(
+                f"LasGNN serves one target id a row; its target group has "
+                f"{self.group_sizes[0]} ids a row")
+        return base.ServingLayout(max_batch)
+
     def device_embed_batch(self, ids, device=None) -> dict:
         """The batch that embeds ``ids`` as targets (``module.embed``),
         with a fresh fanout seed each call."""

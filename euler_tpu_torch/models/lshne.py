@@ -54,7 +54,9 @@ class TypedDense(nn.Module):
     row: the rows are sorted by type, each type's run padded to whole
     blocks of ``TYPE_BLOCK`` rows, and one batched product takes each
     block with its type's kernel. The block count has a static bound
-    (rows / TYPE_BLOCK + T), so the forward makes no host sync."""
+    (rows / TYPE_BLOCK + T), and the types are counted by an integer
+    ``index_add_``, so the forward makes no host sync and a CUDA graph
+    can capture it (the serving bucket)."""
 
     def __init__(self, num_types: int, in_dim: int, features: int):
         super().__init__()
@@ -75,7 +77,10 @@ class TypedDense(nn.Module):
         n, in_dim = x.shape
         blk, num_types = TYPE_BLOCK, self.num_types
         t = type_idx.reshape(-1).long().clamp(0, num_types - 1)
-        counts = torch.bincount(t, minlength=num_types)
+        # bincount would size its output by a host read of max(t)
+        counts = torch.zeros(num_types, dtype=torch.int64,
+                             device=x.device).index_add_(
+            0, t, torch.ones_like(t))
         padded = (counts + blk - 1) // blk * blk
         pad_end = torch.cumsum(padded, 0)
         start = torch.cumsum(counts, 0) - counts

@@ -4,15 +4,32 @@ GCN path (counterpart of ``euler_tpu/nn/sparse_aggregators.py``).
 The adjacency is the padded COO of ``graph.device.multi_hop_neighbor``
 (``src``/``dst`` index the current/next hop's node arrays, ``mask`` is
 1.0 on real edges) or ScalableGCN's slab rows. Aggregation is a segment
-sum over ``src`` (``index_add``); padding edges carry mask 0 and add
-nothing. Each module is called as ``agg(self_emb [n, d], neigh_emb
-[m, d], adj)``. Plain PyTorch on every device, as the JAX package runs
-these in XLA ops: on CUDA ``index_add`` adds in atomic order, so sums
-agree with the CPU's within float32 rounding, not bit for bit.
+sum over ``src``; padding edges carry mask 0 and add nothing. Each module
+is called as ``agg(self_emb [n, d], neigh_emb [m, d], adj)``. Plain
+PyTorch on every device, as the JAX package runs these in XLA ops.
+
+The segment sum is ``index_add``: in edge order on the CPU, in atomic
+order on CUDA, so there sums agree with the CPU's within float32
+rounding, not bit for bit, and a row's bits may change from run to run.
+Within ``deterministic_sums()`` (the models' embed steps, so serving and
+export) it is deterministic on every device, as the JAX package's
+``segment_sum`` is: the real edges are stably sorted by ``src`` (padding
+edges, mask 0, after them all) and each segment is summed over its real
+edges in edge order from 0 (``torch.segment_reduce`` on ``[E, d]`` rows:
+one sequential sum a segment and column on CUDA, never atomics). A
+segment's sum then depends only on its own real edges, in their order,
+not on where its rows sit, on padding, or on what else is in the batch,
+so a served row is bit-stable however its bucket is filled. Padding
+edges are skipped, not summed: a serving bucket parks them all on one
+sink row, which one thread would otherwise walk edge by edge. On the
+CPU the two sums agree bit for bit but for the sign of a zero sum.
+Training keeps ``index_add``, cheaper on the card by its sort.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Callable, Optional
 
 import torch
@@ -22,15 +39,51 @@ from torch import nn
 from euler_tpu_torch.nn.layers import Dense
 
 
-def _gather_sum(values, adj_src, num_nodes: int):
+_local = threading.local()
+
+
+@contextlib.contextmanager
+def deterministic_sums():
+    """Within this block, on this thread, every segment sum is the
+    deterministic one (see the module docstring)."""
+    prev = getattr(_local, "on", False)
+    _local.on = True
+    try:
+        yield
+    finally:
+        _local.on = prev
+
+
+def _gather_sum(values, adj_src, num_nodes: int, edge_mask=None):
     """``[num_nodes, *values.shape[1:]]`` sums of ``values`` rows by
-    ``adj_src`` (int32 or int64), empty segments 0: the segment sum."""
-    out = values.new_zeros((num_nodes, *values.shape[1:]))
-    return out.index_add(0, adj_src, values)
+    ``adj_src`` (int32 or int64), empty segments 0: the segment sum.
+    ``values`` must be 0 where ``edge_mask`` is (padding edges add
+    nothing). Within ``deterministic_sums`` each segment is summed over
+    its unmasked edges in edge order. Neither its sort nor its sum reads
+    a value back to the host, so a CUDA graph can capture it:
+    ``unsafe=True`` skips ``segment_reduce``'s checks, which would; the
+    lengths count the real edges, which the sort puts first, and the sum
+    reads no row past them."""
+    if not getattr(_local, "on", False):
+        out = values.new_zeros((num_nodes, *values.shape[1:]))
+        return out.index_add(0, adj_src, values)
+    key = adj_src.long()
+    if edge_mask is not None:
+        key = torch.where(edge_mask > 0, key, num_nodes)
+    order = torch.sort(key, stable=True).indices
+    lengths = torch.zeros(num_nodes + 1, dtype=torch.int64,
+                          device=key.device).index_add_(
+        0, key, torch.ones_like(key))[:num_nodes]
+    rows = values.index_select(0, order)
+    # [E, 1], not [E]: a 1-D segment_reduce is CUB's tree reduction,
+    # whose loads follow the segment's alignment
+    out = torch.segment_reduce(rows.reshape(rows.shape[0], -1), "sum",
+                               lengths=lengths, unsafe=True)
+    return out.reshape(num_nodes, *values.shape[1:])
 
 
 def _degree(adj_src, edge_mask, num_nodes: int):
-    return _gather_sum(edge_mask, adj_src, num_nodes)
+    return _gather_sum(edge_mask, adj_src, num_nodes, edge_mask)
 
 
 def _messages(neigh_emb, adj):
@@ -53,7 +106,8 @@ class GCNAggregator(nn.Module):
     def forward(self, self_emb, neigh_emb, adj):
         n = self_emb.shape[0]
         deg = _degree(adj["src"], adj["mask"], n)[:, None]
-        agg = _gather_sum(_messages(neigh_emb, adj), adj["src"], n)
+        agg = _gather_sum(_messages(neigh_emb, adj), adj["src"], n,
+                          adj["mask"])
         if self.renorm:
             agg = (self_emb + agg) / (1.0 + deg)
         else:
@@ -78,8 +132,8 @@ class MeanAggregator(nn.Module):
     def forward(self, self_emb, neigh_emb, adj):
         n = self_emb.shape[0]
         deg = _degree(adj["src"], adj["mask"], n)[:, None]
-        agg = (_gather_sum(_messages(neigh_emb, adj), adj["src"], n)
-               / deg.clamp(min=1e-7))
+        agg = (_gather_sum(_messages(neigh_emb, adj), adj["src"], n,
+                           adj["mask"]) / deg.clamp(min=1e-7))
         from_self = self.self_dense(self_emb)
         from_neigh = self.neigh_dense(agg)
         if self.concat:
@@ -100,7 +154,7 @@ def segment_softmax(logits, segments, num_segments: int, mask):
         0, segments.long(), masked.detach(), "amax", include_self=False)
     seg_max = torch.where(torch.isfinite(seg_max), seg_max, 0.0)
     e = torch.exp(masked - seg_max.index_select(0, segments)) * mask
-    denom = _gather_sum(e, segments, num_segments)
+    denom = _gather_sum(e, segments, num_segments, mask)
     return e / denom.index_select(0, segments).clamp(min=1e-16)
 
 
@@ -137,16 +191,16 @@ class SingleAttentionAggregator(nn.Module):
                                        + self.all_gate(from_self)[:, 0])
             ext_src = torch.cat([src, torch.arange(
                 n, dtype=src.dtype, device=src.device)])
+            ext_mask = torch.cat([edge_mask, edge_mask.new_ones(n)])
             coef = segment_softmax(
-                torch.cat([logits, self_logits]), ext_src, n,
-                torch.cat([edge_mask, edge_mask.new_ones(n)]))
+                torch.cat([logits, self_logits]), ext_src, n, ext_mask)
             msgs = torch.cat([from_all.index_select(0, dst),
                               from_self]) * coef[:, None]
-            out = _gather_sum(msgs, ext_src, n)
+            out = _gather_sum(msgs, ext_src, n, ext_mask)
         else:
             coef = segment_softmax(logits, src, n, edge_mask)
             msgs = from_all.index_select(0, dst) * coef[:, None]
-            out = from_self + _gather_sum(msgs, src, n)
+            out = from_self + _gather_sum(msgs, src, n, edge_mask)
         if self.activation is not None:
             out = self.activation(out)
         return out

@@ -70,6 +70,7 @@ def get_multi_hop_neighbor(
     max_nodes_per_hop=None,
     max_edges_per_hop=None,
     default_node=-1,
+    exact=False,
 ):
     """Full-neighbor multi-hop expansion with per-hop dedup.
 
@@ -81,6 +82,10 @@ def get_multi_hop_neighbor(
         None, arrays are exact-size (host-only use); when set, arrays are
         padded (and raise if the true size exceeds the cap) so the device
         step sees static shapes.
+      exact: check the caps (and raise past them) but keep every array at
+        its exact size, unpadded: one id's serving block
+        (``SupervisedGCN.sample_serve_block``), which the serving layout
+        pads once for a whole bucket.
 
     Returns (roots, hops): roots is the flattened input ids; hops is a list
     of MultiHop, one per entry of edge_types.
@@ -100,6 +105,7 @@ def get_multi_hop_neighbor(
                 raise ValueError(
                     f"hop {h}: {n_nodes} unique neighbors > cap {cap}"
                 )
+        if max_nodes_per_hop is not None and not exact:
             uniq = np.concatenate(
                 [uniq, np.full(cap - n_nodes, default_node, dtype=np.int64)]
             )
@@ -107,6 +113,7 @@ def get_multi_hop_neighbor(
             cap = max_edges_per_hop[h]
             if n_edges > cap:
                 raise ValueError(f"hop {h}: {n_edges} edges > cap {cap}")
+        if max_edges_per_hop is not None and not exact:
             pad = cap - n_edges
             # Padding edges point at slot 0 with weight 0: they contribute
             # nothing to weighted segment sums.

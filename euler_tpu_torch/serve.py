@@ -26,16 +26,22 @@ OMP_DRAW_BOUND``: ppi's [10, 10] draws 10 then 100. The feature gather
 fans out past ``n * row_dim > 8192`` floats (100 x 50 = 5,000 at ppi's
 last hop), but it draws nothing, so its threads change no bit.
 
-Every dispatch pads to one fixed bucket (``max_batch`` rows, padding
-repeats the first block), so one forward of one shape serves all
+Every forward fills one fixed bucket, laid out by the model's
+``serving_layout`` (``models/base.py``): leaf by leaf for the fanout,
+walk, shallow and sparse models (``max_batch`` blocks, padding repeats
+the first), with offsets into hop arrays of fixed caps for SupervisedGCN,
+whose blocks differ in size (a dispatch past a cap splits into more
+forwards, in request order). One forward of one shape serves all
 traffic, and a row's bits depend neither on its co-batched neighbours
-nor on how many there are. On the card that forward is a CUDA graph: the
-first dispatch captures the module's ``embed`` over static device
-buffers of the bucket's shapes, after a warm-up on a side stream; each
-dispatch then (1) concatenates the padded blocks into pinned staging,
-(2) copies them into the static inputs without blocking, (3) replays the
-graph and (4) copies out the first n rows. On the CPU (``device="cpu"``,
-as the tests run) the same padded forward runs eagerly. One lock guards
+nor on how many there are (the GCN family's segment sums are
+deterministic, ``nn/sparse_aggregators.py``). On the card that forward
+is a CUDA graph: the first dispatch captures the module's ``embed`` over
+static device buffers of the bucket's shapes, after a warm-up on a side
+stream; each forward then (1) writes the layout into pinned staging,
+(2) copies the rows it filled into the static inputs without blocking,
+(3) replays the graph and (4) copies out the first n rows. On the CPU
+(``device="cpu"``, as the tests run) the same bucket's forward runs
+eagerly. One lock guards
 staging, replay and read-back, which ``embed_direct`` from any thread and
 the batcher's dispatch thread share. The dispatch is watched by
 ``devprof.watch`` (name ``embed_step``): each capture is a compile
@@ -74,7 +80,7 @@ from euler_tpu_torch import devprof
 from euler_tpu_torch import telemetry as T
 from euler_tpu_torch.device import resolve_device
 from euler_tpu_torch.graph import native
-from euler_tpu_torch.models import GraphSage, SupervisedGraphSage, base
+from euler_tpu_torch.models import base
 from euler_tpu_torch.serving import EmbedFrontend, MicroBatcher, SLOTracker
 
 log = logging.getLogger("euler_tpu_torch.serve")
@@ -103,27 +109,6 @@ def _id_seed(seed: int, nid: int) -> int:
 RecompileError = devprof.RecompileError
 
 
-def _host_leaf(x: np.ndarray) -> np.ndarray:
-    # the engine's uint64 ids go up as int64, as models.base.to_device
-    return x.view(np.int64) if x.dtype == np.uint64 else x
-
-
-def _signature(blocks: list) -> tuple:
-    """The padded batch's bucket: (path, shape, dtype) of each leaf.
-    Blocks of one dispatch must agree on everything but their rows."""
-    parts = [base.batch_leaves(b) for b in blocks]
-    first = parts[0]
-    for p in parts[1:]:
-        if [(q, x.shape[1:], x.dtype) for q, x in p] != [
-                (q, x.shape[1:], x.dtype) for q, x in first]:
-            raise ValueError("the blocks of one dispatch differ in layout, "
-                             "row width or dtype")
-    return tuple(
-        (path, (sum(p[i][1].shape[0] for p in parts),) + x.shape[1:],
-         _host_leaf(x).dtype.str)
-        for i, (path, x) in enumerate(first))
-
-
 class _LeafSpec:
     """One padded leaf's shape and dtype: what the watched dispatch's
     signature reads of it."""
@@ -136,8 +121,8 @@ class _LeafSpec:
 
 
 class _Dispatch:
-    """One dispatch's signature, padded blocks and row count: a single
-    constant leaf of the watched call's signature."""
+    """One forward's signature, blocks and row count: a single constant
+    leaf of the watched call's signature."""
 
     __slots__ = ("sig", "blocks", "n")
 
@@ -149,31 +134,46 @@ def _torch_dtype(dtype_str: str) -> torch.dtype:
     return torch.from_numpy(np.empty(0, np.dtype(dtype_str))).dtype
 
 
-class _EagerBucket:
-    """The padded forward on the CPU, run eagerly each dispatch."""
+def _staged(staging: list, used: list) -> list:
+    """The rows of each staged leaf that go up: its first ``used``."""
+    return [buf[:u] for buf, u in zip(staging, used)]
 
-    def __init__(self, signature, blocks, embed_fn, state, device):
+
+class _EagerBucket:
+    """The bucket's forward on the CPU, run eagerly each dispatch over
+    the staging arrays (its input tensors share their memory)."""
+
+    def __init__(self, layout, signature, blocks, embed_fn, state, device):
         self.signature = signature
+        self._layout = layout
         self._embed_fn = embed_fn
         self._state = state
+        self._staging = [np.zeros(shape, np.dtype(dt))
+                         for _, shape, dt in signature]
+        self._inputs = base.batch_with_leaves(
+            blocks[0], [torch.from_numpy(x) for x in self._staging])
 
     def run(self, blocks: list, n: int) -> np.ndarray:
-        batch = base.to_device(base.concat_blocks(blocks), "cpu")
-        return self._embed_fn(self._state, batch)[:n].numpy().copy()
+        used = self._layout.write(blocks, self._staging)
+        devprof.count_h2d(_staged(self._staging, used))
+        return self._embed_fn(self._state, self._inputs)[:n].numpy().copy()
 
 
 class _GraphBucket:
-    """The padded forward on the card as one CUDA graph over static input
-    buffers, with pinned staging on either side of it."""
+    """The bucket's forward on the card as one CUDA graph over static
+    input buffers, with pinned staging on either side of it. Both start
+    zeroed: rows a layout leaves unfilled hold valid ids and finite
+    values."""
 
-    def __init__(self, signature, blocks, embed_fn, state, device):
+    def __init__(self, layout, signature, blocks, embed_fn, state, device):
         self.signature = signature
+        self._layout = layout
         self._device = device
         shapes = [(shape, _torch_dtype(dt)) for _, shape, dt in signature]
-        self._pinned = [torch.empty(s, dtype=d, pin_memory=True)
+        self._pinned = [torch.zeros(s, dtype=d, pin_memory=True)
                         for s, d in shapes]
         self._staging = [p.numpy() for p in self._pinned]
-        self._static = [torch.empty(s, dtype=d, device=device)
+        self._static = [torch.zeros(s, dtype=d, device=device)
                         for s, d in shapes]
         inputs = base.batch_with_leaves(blocks[0], self._static)
         with torch.cuda.device(device):
@@ -194,15 +194,14 @@ class _GraphBucket:
                                 pin_memory=True)
 
     def _stage(self, blocks: list) -> None:
-        """Steps 1 and 2: the padded batch into pinned staging (each
-        ``np.concatenate`` writes straight into its pinned buffer), then
-        into the static inputs without blocking."""
-        parts = [base.batch_leaves(b) for b in blocks]
-        for i, buf in enumerate(self._staging):
-            np.concatenate([_host_leaf(p[i][1]) for p in parts], axis=0,
-                           out=buf)
-        for src, dst in zip(self._pinned, self._static):
-            dst.copy_(src, non_blocking=True)
+        """Steps 1 and 2: the layout writes the bucket straight into
+        pinned staging, then the rows it filled go into the static inputs
+        without blocking."""
+        used = self._layout.write(blocks, self._staging)
+        devprof.count_h2d(_staged(self._staging, used))
+        for src, dst, u in zip(self._pinned, self._static, used):
+            if u:
+                dst[:u].copy_(src[:u], non_blocking=True)
 
     def run(self, blocks: list, n: int) -> np.ndarray:
         with torch.cuda.device(self._device):
@@ -232,11 +231,6 @@ class EmbedServer:
                 "unique id (the determinism anchor); build the serving "
                 "model with device_sampling=False"
             )
-        if not isinstance(model, (SupervisedGraphSage, GraphSage)):
-            raise NotImplementedError(
-                f"EmbedServer serves the GraphSAGE models, whose per-id "
-                f"blocks concatenate hop by hop; serving "
-                f"{type(model).__name__} is not ported yet (ROADMAP A0d)")
         self.model = model
         self.graph = graph
         self.max_batch = int(max_batch)
@@ -246,6 +240,7 @@ class EmbedServer:
         self._state = state
         self.device = next(state["module"].parameters()).device
         self._embed_fn = model.make_embed_step()
+        self._layout = model.serving_layout(self.max_batch)
         self._bucket_cls = (_GraphBucket if self.device.type == "cuda"
                             else _EagerBucket)
         self._bucket = None
@@ -375,9 +370,7 @@ class EmbedServer:
                 self._cache_bytes -= ent[2]
                 native.counter_add("epoch_stale_hits_evicted", 1)
         native.lib().eg_seed(_id_seed(self.seed, nid))
-        blk = self.model.sample_host_embed(
-            self.graph, np.array([nid], dtype=np.int64)
-        )
+        blk = self.model.sample_serve_block(self.graph, nid)
         nbytes = sum(x.nbytes for _, x in base.batch_leaves(blk))
         with self._cache_lock:
             old = self._cache.pop(nid, None)
@@ -390,16 +383,13 @@ class EmbedServer:
         return blk
 
     def _forward(self, blocks: list) -> np.ndarray:
-        """One fixed-bucket dispatch over per-id blocks, padded to
-        max_batch rows, so one captured forward serves every dispatch
-        (see the module docstring)."""
-        n = len(blocks)
-        padded = blocks + [blocks[0]] * (self.max_batch - n)
-        sig = _signature(padded)
+        """One fixed-bucket forward over per-id blocks (one of the
+        layout's ``split``), so one captured forward serves every
+        dispatch (see the module docstring)."""
+        sig = self._layout.signature(blocks)
         specs = tuple(_LeafSpec(shape, dt) for _, shape, dt in sig)
-        devprof.count_h2d([x for b in padded for _, x in base.batch_leaves(b)])
         with self._forward_lock:
-            rows = self._watched(specs, _Dispatch(sig, padded, n))
+            rows = self._watched(specs, _Dispatch(sig, blocks, len(blocks)))
         if rows is None:  # refused, and devprof off did not raise it
             raise RecompileError(
                 f"serve bucket changed after capture: {sig} under "
@@ -427,24 +417,31 @@ class EmbedServer:
             self._recaptures += 1
             self._bucket = None  # its graph and buffers go first
         t0 = time.monotonic()
-        self._bucket = self._bucket_cls(sig, blocks, self._embed_fn,
-                                        self._state, self.device)
+        self._bucket = self._bucket_cls(self._layout, sig, blocks,
+                                        self._embed_fn, self._state,
+                                        self.device)
         if self.device.type == "cuda":
             devprof.record_compile((time.monotonic() - t0) * 1e6)
         self._captures += 1
 
     def _embed_unique(self, uids: np.ndarray) -> np.ndarray:
         """The batcher's callback: sample each unique id (cached), then
-        dispatch in max_batch-sized chunks."""
+        run the layout's forwards (max_batch blocks at most, fewer where
+        a bucket's caps fill first) in request order. Each forward is
+        one ``serve:dispatch`` sample, and ``serve_batches`` (bumped once
+        a micro-batch by the batcher) counts each forward past the
+        first too."""
         t0 = time.monotonic()
         blocks = [self._block(int(i)) for i in uids]
         T.record_serve_phase("sample", (time.monotonic() - t0) * 1e6)
-        t1 = time.monotonic()
-        outs = [
-            self._forward(blocks[off:off + self.max_batch])
-            for off in range(0, len(blocks), self.max_batch)
-        ]
-        T.record_serve_phase("dispatch", (time.monotonic() - t1) * 1e6)
+        groups = self._layout.split(blocks)
+        if len(groups) > 1:
+            native.counter_add("serve_batches", len(groups) - 1)
+        outs = []
+        for group in groups:
+            t1 = time.monotonic()
+            outs.append(self._forward(group))
+            T.record_serve_phase("dispatch", (time.monotonic() - t1) * 1e6)
         return outs[0] if len(outs) == 1 else np.concatenate(outs, axis=0)
 
 
