@@ -261,8 +261,29 @@ Phases, each of which raises on failure (nonzero exit, no result line):
     memory. Then ``python -m euler_tpu_torch.serve --model gcn`` answers
     one embed over the wire, bit-equal to the in-process row, and drains
     to exit code 0 on SIGTERM.
-11. The ``kernels`` line; then the final ``ok`` line. Each phase prints
-    its wall time.
+11. Multi-device training (``parallel.mesh``), on the full ppi graph:
+    (a) mesh_nccl1: one rank over NCCL, ppi drawn on the card for 20
+    steps through ``train.train(mesh=)``, its losses bit-equal to the
+    unsharded run's at the same seed (an all-reduce over one rank is the
+    identity); (b) mesh_dp2: two spawned ranks sharing the card over
+    gloo, data axis 2, ppi at batch 512 (256 a rank) for 50 steps, B1
+    through ``sample_fanout2_sharded`` once a step a rank, the ranks'
+    parameter digests equal after the steps, each rank's B1 at its folded
+    seed words equal to the plain version at those words, the gradient
+    all-reduce timed; then the unsupervised GraphSage for 10 steps (B1
+    three and B2 once a step a rank, both sharded); (c) mesh_mp2: the
+    same two ranks at ``model_parallel`` 2, each holding half of the
+    padded feature and label rows, the first-step loss on the parent's
+    host batch within rtol 1e-5 of (b)'s on the same batch, then 10 steps;
+    (d) mesh_cli2: two processes of ``python -m euler_tpu_torch
+    --graph_mode shared --coordinator_addr ... --num_processes 2`` over
+    phase 5's ppi files, each serving its shard, train, evaluate and
+    export; the two exports' digests equal and the loss falls. Then both
+    sharded routes at a rank's shapes against their plain versions,
+    timed.
+12. The ``kernels`` line (the sharded routes beside the kernels, each
+    with its launches by path); then the final ``ok`` line. Each phase
+    prints its wall time.
 """
 
 from __future__ import annotations
@@ -4189,6 +4210,479 @@ def phase_observe(work: str, seed: int, smi: str, device: str = "cuda",
     return runs
 
 
+# phase 11 (multi-device): the mesh paths
+MESH_NCCL_STEPS = 20
+MESH_DP_STEPS = 50
+MESH_UNSUP_STEPS = 10
+MESH_MP_STEPS = 10
+MESH_LOSS_RTOL = 1e-5
+MESH_TIMEOUT_S = 300
+MESH_REDUCE_RUNS = 20
+
+
+def mesh_sage(max_id: int, device_sampling: bool = True,
+              dim: int = PPI_DIM):
+    """Phase 4's ppi model (``SupervisedGraphSage`` at full width), over
+    device tables, drawn on the card or host-sampled."""
+    from euler_tpu_torch.models import SupervisedGraphSage
+
+    return SupervisedGraphSage(
+        label_idx=0, label_dim=PPI_LABEL_DIM, metapath=[[0], [0]],
+        fanouts=list(PPI_FANOUTS), dim=dim, feature_idx=1,
+        feature_dim=PPI_FEATURE_DIM, max_id=max_id, device_features=True,
+        device_sampling=device_sampling)
+
+
+def mesh_unsup(max_id: int, dim: int = PPI_DIM):
+    """Phase 4's unsupervised ``GraphSage`` (run_loop --model graphsage's
+    defaults), drawn on the card."""
+    from euler_tpu_torch.models import GraphSage
+
+    return GraphSage(
+        node_type=0, edge_type=[0], max_id=max_id, metapath=[[0], [0]],
+        fanouts=list(PPI_FANOUTS), dim=dim, num_negs=SAGE_NEGS,
+        feature_idx=1, feature_dim=PPI_FEATURE_DIM, aggregator="mean",
+        concat=True, xent_loss=True, device_features=True,
+        device_sampling=True)
+
+
+def step_roots(seed: int, step: int, n: int, batch: int) -> np.ndarray:
+    """Step ``step``'s roots, a function of the step alone (prefetch
+    workers may build steps in any order)."""
+    return np.random.default_rng([seed, step]).integers(0, n, batch)
+
+
+def params_digest(module) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in sorted(module.state_dict().items()):
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def mesh_rank(rank: int, n: int, addr: str, job_path: str,
+              out_path: str, device) -> None:
+    """One of phase 11's two spawned ranks on the one card: (b) data 2,
+    then (c) model 2. Writes its numbers to ``out_path % rank``."""
+    from euler_tpu_torch import train
+    from euler_tpu_torch.datasets import PPI, build_synthetic
+    from euler_tpu_torch.graph import MemoryGraph, sampling_kernels
+    from euler_tpu_torch.graph import device as device_graph
+    from euler_tpu_torch.models import base
+    from euler_tpu_torch.parallel import mesh as mesh_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    job = torch.load(job_path, weights_only=False)
+    backend, dev = mesh_mod.init_distributed(addr, n, rank, device)
+    res = {"backend": backend, "device": str(dev), "rank": rank}
+    batch, dim = job["batch_size"], job["dim"]
+    try:
+        graph = MemoryGraph(**build_synthetic(**job["ppi"]))
+        max_id = graph.max_node_id
+        opt = train.get_optimizer("adam", PPI_LR)
+
+        def one_step(mesh):
+            """The first step on the parent's host batch (B1's picks of
+            the global batch), from the parent's parameters."""
+            m = mesh_sage(max_id, device_sampling=False, dim=dim)
+            st = m.init_state(graph, opt, device=dev, seed=job["seed"])
+            st["module"].load_state_dict(job["params"])
+            st = mesh_mod.shard_state(st, mesh)
+            local = mesh_mod.shard_batch(job["batch"], mesh, batch)
+            loss, _ = m.make_train_step(mesh)(st, base.to_device(local, dev))
+            return float(loss), st
+
+        # (b) data 2
+        mesh = mesh_mod.make_mesh(n, 1)
+        res["b_loss1"], _ = one_step(mesh)
+        model = mesh_sage(max_id, dim=dim)
+        device_graph.set_kernel_mesh(mesh)
+        per = batch // mesh.shape["data"]
+        mine = mesh.batch_slice(batch)
+        try:
+            st = model.init_state(graph, opt, device=dev, seed=job["seed"],
+                                  mesh=mesh)
+            st["module"].load_state_dict(job["params"])
+            for k in sampling_kernels.launches:
+                sampling_kernels.launches[k] = 0
+            for k in sampling_kernels.sharded_launches:
+                sampling_kernels.sharded_launches[k] = 0
+            t0 = time.perf_counter()
+            st, hist = train.train(
+                model, graph,
+                lambda s: step_roots(job["seed"], s, max_id + 1,
+                                     batch)[mine],
+                MESH_DP_STEPS, mesh=mesh, log_every=10, seed=job["seed"],
+                state=st, device=dev, prefetch_threads=1)
+            sync(dev)
+            res["b_wall_s"] = time.perf_counter() - t0
+            res["b_launches"] = {**sampling_kernels.launches,
+                                 **sampling_kernels.sharded_launches}
+            res["b_losses"] = [h["loss"] for h in hist]
+            res["b_step_ms"] = [1e3 / h["steps_per_sec"] for h in hist]
+            res["b_digest"] = params_digest(st["module"])
+            grads = [p.grad for p in st["module"].parameters()]
+            res["b_reduce_bytes"] = sum(g.numel() * g.element_size()
+                                        for g in grads)
+            times = []
+            for _ in range(MESH_REDUCE_RUNS):
+                sync(dev)
+                t1 = time.perf_counter()
+                mesh.reduce_grads([g.clone() for g in grads], 1.0)
+                sync(dev)
+                times.append((time.perf_counter() - t1) * 1e3)
+            res["b_reduce_ms"] = statistics.median(times)
+            # the rank's B1 at its folded words against the plain version
+            adj = st["consts"]["adj"][model.adj_key([0])]
+            roots = torch.as_tensor(
+                step_roots(job["seed"], 999, max_id + 1,
+                           batch)[mine].astype(np.int32), device=dev)
+            words = device_graph.seed_words(job["seed"] + 77)
+            h1, h2 = sampling_kernels.sample_fanout2_sharded(
+                adj, adj, roots, words, *PPI_FANOUTS, mesh)
+            p1, p2 = sampling_kernels.sample_fanout2_reference(
+                adj, adj, roots, sampling_kernels.folded_words(
+                    words, mesh.data_rank), *PPI_FANOUTS)
+            res["b_b1_err"] = max(int((h1 - p1).abs().max()),
+                                  int((h2 - p2).abs().max()))
+            res["b_b1_roots"] = per
+            # the unsupervised GraphSage: B2 (its positives) per rank
+            unsup = mesh_unsup(max_id, dim)
+            for k in sampling_kernels.launches:
+                sampling_kernels.launches[k] = 0
+            for k in sampling_kernels.sharded_launches:
+                sampling_kernels.sharded_launches[k] = 0
+            _, uh = train.train(
+                unsup, graph,
+                lambda s: step_roots(job["seed"] + 1, s, max_id + 1,
+                                     batch)[mine],
+                MESH_UNSUP_STEPS, mesh=mesh, log_every=MESH_UNSUP_STEPS,
+                seed=job["seed"], device=dev, prefetch_threads=1)
+            res["b_unsup_launches"] = {**sampling_kernels.launches,
+                                       **sampling_kernels.sharded_launches}
+            res["b_unsup_loss"] = uh[-1]["loss"]
+        finally:
+            device_graph.set_kernel_mesh(None)
+
+        # (c) model 2
+        mesh = mesh_mod.make_mesh(n, 2)
+        res["c_loss1"], st = one_step(mesh)
+        feats = st["consts"]["features"]
+        res["c_shard_rows"] = [feats.local.shape[0], feats.shape[0]]
+        res["c_shard_bytes"] = sum(
+            x.local.numel() * x.local.element_size()
+            for _, x in mesh_mod.table_leaves(st))
+        model = mesh_sage(max_id, dim=dim)
+        device_graph.set_kernel_mesh(mesh)
+        try:
+            for k in sampling_kernels.launches:
+                sampling_kernels.launches[k] = 0
+            for k in sampling_kernels.sharded_launches:
+                sampling_kernels.sharded_launches[k] = 0
+            st, hist = train.train(
+                model, graph,
+                lambda s: step_roots(job["seed"], s, max_id + 1, batch),
+                MESH_MP_STEPS, mesh=mesh, log_every=MESH_MP_STEPS,
+                seed=job["seed"], device=dev, prefetch_threads=1)
+            res["c_launches"] = {**sampling_kernels.launches,
+                                 **sampling_kernels.sharded_launches}
+            res["c_loss"] = hist[-1]["loss"]
+            res["c_digest"] = params_digest(st["module"])
+        finally:
+            device_graph.set_kernel_mesh(None)
+    finally:
+        mesh_mod.shutdown_distributed()
+    torch.save(res, out_path % rank)
+
+
+def mesh_cli(work: str, data_dir: str, max_id: int, device: str) -> dict:
+    """(d): two processes of ``python -m euler_tpu_torch --graph_mode
+    shared`` joined over TCP, each serving its shard of the ppi files,
+    through train, evaluate and save_embedding. Returns each mode's
+    output lines by process."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    model_dir = os.path.join(work, "m_mesh")
+    reg_port, coord_port = free_port(), free_port()
+    env = dict(os.environ, PYTHONPATH=root)
+    out = {"seconds": {}}
+    for mode in ("train", "evaluate", "save_embedding"):
+        t0 = time.perf_counter()
+        procs = []
+        for pid in range(2):
+            argv = [sys.executable, "-m", "euler_tpu_torch",
+                    "--data_dir", data_dir, "--model_dir", model_dir,
+                    "--max_id", str(max_id), "--seed", "0",
+                    *RUN_LOOP_ARGS, "--mode", mode,
+                    "--graph_mode", "shared",
+                    "--registry", f"tcp://127.0.0.1:{reg_port}",
+                    "--coordinator_addr", f"127.0.0.1:{coord_port}",
+                    "--num_processes", "2", "--process_id", str(pid)]
+            if device == "cpu":  # a rehearsal: the CLI runs on the card
+                argv = [sys.executable, "-c",
+                        "import sys; from euler_tpu_torch import run_loop; "
+                        "sys.exit(run_loop.main(sys.argv[1:], "
+                        "device='cpu'))", *argv[3:]]
+            procs.append(subprocess.Popen(
+                argv, cwd=root, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        try:
+            outs = [p.communicate(timeout=MESH_TIMEOUT_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(10)
+        for pid, (p, text) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"(d) {mode} process {pid} exited "
+                                     f"{p.returncode}:\n{text[-3000:]}")
+        out[mode] = outs
+        out["seconds"][mode] = round(time.perf_counter() - t0, 2)
+    return out
+
+
+def phase_mesh(work: str, seed: int, smi: str, device: str = "cuda",
+               ppi=None) -> tuple:
+    """Phase 11: multi-device training over ``parallel.mesh``. Returns the
+    paths' launches and the two sharded routes' numbers."""
+    log("== phase 11: multi-device")
+    from euler_tpu_torch import train
+    from euler_tpu_torch.datasets import PPI, build_synthetic
+    from euler_tpu_torch.graph import MemoryGraph, sampling_kernels
+    from euler_tpu_torch.graph import device as device_graph
+    from euler_tpu_torch.parallel import mesh as mesh_mod
+
+    ppi = dict(PPI) if ppi is None else ppi
+    t0 = time.perf_counter()
+    graph = MemoryGraph(**build_synthetic(**ppi))
+    max_id = graph.max_node_id
+    opt = train.get_optimizer("adam", PPI_LR)
+    runs = {}
+
+    def reset():
+        for d in (sampling_kernels.launches,
+                  sampling_kernels.sharded_launches):
+            for k in d:
+                d[k] = 0
+
+    def counts():
+        return {**sampling_kernels.launches,
+                **sampling_kernels.sharded_launches}
+
+    # (a) one rank over NCCL against the unsharded port
+    model = mesh_sage(max_id, dim=PPI_DIM)
+    losses = {}
+    for name in ("unsharded", "mesh"):
+        mesh = None
+        if name == "mesh":
+            backend, _ = mesh_mod.init_distributed(
+                f"127.0.0.1:{free_port()}", 1, 0, device)
+            mesh = mesh_mod.make_mesh(1, 1)
+            if device == "cuda" and backend != "nccl":
+                raise AssertionError(f"(a) one rank on the card over "
+                                     f"{backend}, not nccl")
+        reset()
+        try:
+            t1 = time.perf_counter()
+            _, hist = train.train(
+                model, graph,
+                lambda s: step_roots(seed, s, max_id + 1, PPI_BATCH),
+                MESH_NCCL_STEPS, mesh=mesh, log_every=1, seed=seed,
+                device=device, prefetch_threads=1)
+            sync(device)
+            wall = time.perf_counter() - t1
+        finally:
+            if mesh is not None:
+                mesh_mod.shutdown_distributed()
+        losses[name] = [h["loss"] for h in hist]
+        if name == "mesh":
+            runs["mesh_nccl1"] = {"launches": counts()}
+            log(f"(a) mesh_nccl1: backend {backend}, world 1, device "
+                f"{device}: {MESH_NCCL_STEPS} steps in {wall:.2f} s, "
+                f"launches {counts()} (card: {smi})")
+    if losses["mesh"] != losses["unsharded"]:
+        raise AssertionError(f"(a) one NCCL rank's losses {losses['mesh']} "
+                             f"differ from the unsharded {losses['unsharded']}")
+    log(f"(a) losses bit-equal to the unsharded port's over "
+        f"{MESH_NCCL_STEPS} steps: {losses['mesh'][0]:.6f} -> "
+        f"{losses['mesh'][-1]:.6f}")
+
+    # (b), (c): two spawned ranks on the one card
+    dev = torch.device(device)
+    params_model = mesh_sage(max_id, device_sampling=False,
+                             dim=PPI_DIM)
+    st0 = params_model.init_state(graph, opt, device=dev, seed=seed)
+    roots = step_roots(seed, 0, max_id + 1, PPI_BATCH).astype(np.int32)
+    adj = device_graph.tensors(device_graph.build_adjacency(graph, [0],
+                                                            max_id), dev)
+    reset()
+    h1, h2 = sampling_kernels.sample_fanout2(
+        adj, adj, torch.as_tensor(roots, device=dev),
+        device_graph.seed_words(seed + 5), *PPI_FANOUTS)
+    hops = [roots.astype(np.int64), h1.reshape(-1).cpu().numpy(),
+            h2.reshape(-1).cpu().numpy()]
+    job = {"ppi": ppi, "seed": seed, "batch_size": PPI_BATCH, "dim": PPI_DIM,
+           "batch": params_model._batch_from_hops(None, hops[0], hops),
+           "params": {k: v.cpu() for k, v in
+                      st0["module"].state_dict().items()}}
+    job_path = os.path.join(work, "mesh_job.pt")
+    torch.save(job, job_path)
+    out_path = os.path.join(work, "mesh_rank%d.pt")
+    t1 = time.perf_counter()
+    mesh_mod.launch(mesh_rank, 2, (2, f"127.0.0.1:{free_port()}", job_path,
+                                   out_path, device), MESH_TIMEOUT_S)
+    ranks = [torch.load(out_path % r, weights_only=False) for r in range(2)]
+    log(f"(b, c) two ranks in {time.perf_counter() - t1:.2f} s (spawn, ppi "
+        f"build, both paths)")
+    for r in ranks:
+        log(f"rank {r['rank']}: backend {r['backend']}, device {r['device']}"
+            f"; (b) {MESH_DP_STEPS} steps, launches {r['b_launches']}, step "
+            f"ms by window {[round(x, 3) for x in r['b_step_ms']]}, "
+            f"all-reduce {r['b_reduce_ms']:.3f} ms for {r['b_reduce_bytes']} "
+            f"B a step, B1 at its folded words vs plain max |diff| "
+            f"{r['b_b1_err']} at [{r['b_b1_roots']}, {PPI_FANOUTS[0]}, "
+            f"{PPI_FANOUTS[1]}]; unsupervised launches "
+            f"{r['b_unsup_launches']}; (c) feature rows {r['c_shard_rows'][0]}"
+            f" of {r['c_shard_rows'][1]}, table-shard bytes "
+            f"{r['c_shard_bytes']}, launches {r['c_launches']} "
+            f"(card: {smi})")
+    b0, b1 = ranks
+    if b0["backend"] != "gloo":
+        raise AssertionError(f"two ranks on one card over {b0['backend']}")
+    if b0["b_digest"] != b1["b_digest"] or b0["c_digest"] != b1["c_digest"]:
+        raise AssertionError("(b, c) the ranks' parameters differ")
+    if b0["b_losses"] != b1["b_losses"] or not (
+            np.mean(b0["b_losses"][-2:]) < np.mean(b0["b_losses"][:2])):
+        raise AssertionError(f"(b) losses {b0['b_losses']} {b1['b_losses']}")
+    for r in ranks:
+        if r["b_b1_err"] != 0:
+            raise AssertionError(f"(b) rank {r['rank']}: B1 at its folded "
+                                 "words differs from its plain version")
+        for path, got, steps, b2 in (
+                ("b", r["b_launches"], MESH_DP_STEPS, 0),
+                ("b, unsupervised", r["b_unsup_launches"],
+                 3 * MESH_UNSUP_STEPS, MESH_UNSUP_STEPS),
+                ("c", r["c_launches"], MESH_MP_STEPS, 0)):
+            want = {"sample_fanout2": steps, "sample_neighbor": b2,
+                    "sample_fanout2_sharded": steps,
+                    "sample_neighbor_sharded": b2}
+            if device == "cuda" and got != want:
+                raise AssertionError(f"({path}) launches {got} != {want}")
+        if r["c_shard_rows"] != [(max_id + 3) // 2, 2 * ((max_id + 3) // 2)]:
+            raise AssertionError(f"(c) shard rows {r['c_shard_rows']}")
+        if not np.isfinite([r["b_unsup_loss"], r["c_loss"]]).all():
+            raise AssertionError("(b, c) non-finite loss")
+    np.testing.assert_allclose(b0["c_loss1"], b0["b_loss1"],
+                               rtol=MESH_LOSS_RTOL)
+    log(f"(c) the model-parallel first-step loss {b0['c_loss1']:.7f} against "
+        f"the data-parallel {b0['b_loss1']:.7f} (rtol {MESH_LOSS_RTOL})")
+    for r in ranks:
+        runs[f"mesh_dp2/rank{r['rank']}"] = {"launches": r["b_launches"]}
+        runs[f"mesh_dp2_unsup/rank{r['rank']}"] = {
+            "launches": r["b_unsup_launches"]}
+        runs[f"mesh_mp2/rank{r['rank']}"] = {"launches": r["c_launches"]}
+
+    # (d) the CLI over two processes
+    t1 = time.perf_counter()
+    out = mesh_cli(work, os.path.join(work, "ppi"), max_id, device)
+    step_line = re.compile(r"step=(\d+) loss=(\S+)")
+    train_losses = [float(m.group(2)) for m in
+                    step_line.finditer(out["train"][0])]
+    digests = [re.search(r"export sha256 (\w+)", text).group(1)
+               for text in out["save_embedding"]]
+    emb = np.load(os.path.join(work, "m_mesh", "embedding.npy"))
+    with open(os.path.join(work, "m_mesh", "eval.json")) as f:
+        ev = json.load(f)
+    log(f"(d) mesh_cli2: two shared-mode processes, train/evaluate/"
+        f"save_embedding in {time.perf_counter() - t1:.2f} s "
+        f"({out['seconds']} by mode, two processes each); "
+        f"{len(train_losses)} steps, loss {train_losses[0]:.4f} -> "
+        f"{train_losses[-1]:.4f}; eval {ev}; export {emb.shape}, sha256 "
+        f"{digests} (card: {smi})")
+    if digests[0] != digests[1] or emb.shape[0] != max_id + 1 or (
+            not np.isfinite(emb).all()):
+        raise AssertionError(f"(d) exports {digests}, {emb.shape}")
+    if not np.mean(train_losses[-5:]) < np.mean(train_losses[:5]):
+        raise AssertionError(f"(d) the loss did not fall: {train_losses}")
+    # each process is fresh, so the counts it logs at exit are its run's
+    launch_line = re.compile(r"kernel launches (\{.*\})")
+    for mode in ("train", "evaluate", "save_embedding"):
+        for pid, text in enumerate(out[mode]):
+            found = launch_line.findall(text)
+            if len(found) != 1:
+                raise AssertionError(f"(d) {mode} process {pid} logged "
+                                     f"{len(found)} launch lines")
+            runs[f"mesh_cli2/{mode}/proc{pid}"] = {
+                "launches": json.loads(found[0])}
+    log("(d) launches by process: " + str(
+        {p: r["launches"] for p, r in runs.items()
+         if p.startswith("mesh_cli2/")}))
+
+    # the sharded routes at a rank's shapes, timed in this process as the
+    # second of two data rows
+    mesh = mesh_mod.Mesh(2, rank=1)
+    per = PPI_BATCH // 2
+    r_t = torch.as_tensor(roots[per:], device=dev)
+    words = device_graph.seed_words(seed + 12345)
+    fold = sampling_kernels.folded_words(words, 1)
+    probs = torch.diff(adj["cum"], dim=1,
+                       prepend=adj["cum"].new_zeros(adj["cum"].shape[0], 1))
+    f1, f2 = PPI_FANOUTS
+    r1 = r_t.long()
+
+    def hop_library(rows, count):  # torch.multinomial over gathered rows
+        idx = torch.multinomial(probs[rows], count, replacement=True)
+        return adj["nbr"][rows].gather(1, idx)
+
+    routes = {}
+    for name, kern, plain, library, hops in (
+            ("sample_fanout2_sharded",
+             lambda: sampling_kernels.sample_fanout2_sharded(
+                 adj, adj, r_t, words, f1, f2, mesh),
+             lambda: sampling_kernels.sample_fanout2_reference(
+                 adj, adj, r_t, fold, f1, f2),
+             lambda: hop_library(hop_library(r1, f1).reshape(-1).long(),
+                                 f2),
+             2),
+            ("sample_neighbor_sharded",
+             lambda: sampling_kernels.sample_neighbor_sharded(
+                 adj, r_t, words, 1, mesh),
+             lambda: sampling_kernels.sample_neighbor_reference(
+                 adj, r_t, fold, 1),
+             lambda: hop_library(r1, 1),
+             1)):
+        got, want = kern(), plain()
+        if hops == 2:
+            err = max(int((got[0] - want[0]).abs().max()),
+                      int((got[1] - want[1]).abs().max()))
+            b = draw_bound(adj, ((r_t, got[0]), (got[0], got[1])), per)
+        else:
+            err = int((got - want).abs().max())
+            b = draw_bound(adj, ((r_t, got),), per)
+        if err != 0:
+            raise AssertionError(f"{name}: kernel differs from plain by {err}")
+        if device == "cuda":
+            t = dict(ms=cuda_ms(kern), plain_ms=cuda_ms(plain, batch=1),
+                     library_ms=cuda_ms(library))
+        else:
+            t = dict(ms=None, plain_ms=None, library_ms=None)
+        routes[name] = dict(max_abs_err=err, bound_ms=b["bound_ms"],
+                            bound_by=b["bound_by"], **t)
+        log(f"{name} at a rank's [{per}, {f1 if hops == 2 else 1}"
+            f"{', ' + str(f2) if hops == 2 else ''}] (data row 1 of 2): "
+            f"{t}, {describe_bound(b)} (card: {smi})")
+    log(f"phase 11 took {time.perf_counter() - t0:.1f} s")
+    return runs, routes
+
+
 def add_runs(runs: dict, new: dict) -> None:
     """``runs.update(new)``, raising where a path's name is taken: the
     kernels line counts launches by path name."""
@@ -4232,8 +4726,12 @@ def main() -> int:
         t8 = time.perf_counter()
         log(f"phase 9: {t8 - t7:.1f} s")
         add_runs(runs, phase_serve_zoo(work, args.seed, smi))
-    log(f"phase 10: {time.perf_counter() - t8:.1f} s")
-    log("== phase 11: kernels")
+        t9 = time.perf_counter()
+        log(f"phase 10: {t9 - t8:.1f} s")
+        mesh_runs, routes = phase_mesh(work, args.seed, smi)
+        add_runs(runs, mesh_runs)
+    log(f"phase 11: {time.perf_counter() - t9:.1f} s")
+    log("== phase 12: kernels")
     meta = {
         "sample_fanout2": dict(
             source="euler_tpu_torch/csrc/sample_fanout2.cu",
@@ -4243,14 +4741,30 @@ def main() -> int:
             source="euler_tpu_torch/csrc/sample_neighbor.cu",
             replaces="euler_tpu/graph/pallas_sampling.py:302",
             tpu_kernel="_kernel"),
+        # the per-rank routes of a data-sharded batch: the same kernels on
+        # each rank's rows with its folded seed words
+        "sample_fanout2_sharded": dict(
+            source="euler_tpu_torch/graph/sampling_kernels.py",
+            replaces="euler_tpu/graph/pallas_sampling.py:715",
+            tpu_kernel="sample_fanout2_sharded (via draw_fn: "
+                       "_fanout2_kernel)"),
+        "sample_neighbor_sharded": dict(
+            source="euler_tpu_torch/graph/sampling_kernels.py",
+            replaces="euler_tpu/graph/pallas_sampling.py:757",
+            tpu_kernel="sample_neighbor_sharded (via draw_fn: _kernel)"),
     }
+    k = {**k, **routes}
     kernels = []
     for name, m in meta.items():
-        by_path = {p: r["launches"][name] for p, r in runs.items()}
+        # the sharded routes' counts are read on phase 11's paths only
+        by_path = {p: r["launches"][name] for p, r in runs.items()
+                   if name in r["launches"]}
         kernels.append(dict(
             name=name, route="cuda", **m,
             launches=sum(by_path.values()), launches_by_path=by_path,
             **k[name]))
+        if not kernels[-1]["launches"]:
+            raise AssertionError(f"{name}: no launch on any path")
     log(smi)  # the card's name and power limit, as nvidia-smi gives them
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

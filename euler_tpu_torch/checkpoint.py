@@ -9,6 +9,13 @@ leaves either the whole step or none of it. The device tables
 immutable input rebuilt from the graph at init. ``restore`` loads with
 ``torch.load(..., weights_only=True)`` onto the device of the state it
 restores into.
+
+Under a mesh (``parallel.mesh``) every rank calls ``save``: the stores'
+row shards are gathered over the model axis and rank 0 writes the whole
+padded tables, so the file is the one a single device would write for
+padded stores. Every rank restores from it, each taking its own rows; a
+restore needs the ``--model_parallel`` the checkpoint was saved under,
+since the stores' padded shapes depend on it.
 """
 
 from __future__ import annotations
@@ -45,9 +52,10 @@ class Checkpointer:
     """Periodic saver and latest-step restorer over one directory; keeps
     the newest ``max_to_keep`` steps."""
 
-    def __init__(self, ckpt_dir: str, max_to_keep: int = 3):
+    def __init__(self, ckpt_dir: str, max_to_keep: int = 3, mesh=None):
         self.dir = os.path.abspath(ckpt_dir)
         self.max_to_keep = max_to_keep
+        self.mesh = mesh
 
     def all_steps(self) -> list[int]:
         if not os.path.isdir(self.dir):
@@ -63,7 +71,22 @@ class Checkpointer:
 
     def save(self, step: int, state: Any, force: bool = False) -> None:
         """Write step ``step``; an existing step is overwritten only with
-        ``force``."""
+        ``force``. Under a mesh every rank calls it and rank 0 writes."""
+        if self.mesh is not None:
+            from euler_tpu_torch.parallel.mesh import full_tables
+
+            state = full_tables({k: v for k, v in state.items()
+                                 if k != "consts"})
+            if self.mesh.rank != 0:
+                self.mesh.barrier()
+                return
+        try:
+            self._write(step, state, force)
+        finally:
+            if self.mesh is not None:
+                self.mesh.barrier()
+
+    def _write(self, step: int, state: Any, force: bool) -> None:
         final = os.path.join(self.dir, str(int(step)))
         if os.path.exists(os.path.join(final, _FILE)) and not force:
             raise ValueError(
@@ -124,6 +147,9 @@ class Checkpointer:
                 raise ValueError(f"{key}: {len(saved)} saved, "
                                  f"{len(cur)} in the state")
             for t, s in zip(cur, saved):
+                if hasattr(t, "load_full"):  # a row shard of the table
+                    t.load_full(s)
+                    continue
                 if t.shape != s.shape:
                     raise ValueError(f"{key}: shape {tuple(s.shape)} "
                                      f"saved, {tuple(t.shape)} in the state")

@@ -189,14 +189,21 @@ def params_from_flax(params) -> dict:
 def load_stores(state: dict, stores, grad_stores) -> None:
     """Copy a JAX ScalableStoreModel state's (ScalableGCN, ScalableSage)
     ``stores`` and ``grad_stores`` (arrays of ``[max_id+2, dim]``, one a
-    store) into a port state's, in place."""
+    store, or padded to a mesh's model axis by ``pad_tables_for_mesh``)
+    into a port state's, in place; a row-sharded port state
+    (``parallel.mesh.RowShard``) takes its own rows of the padded
+    arrays."""
     for name, arrays in (("stores", stores), ("grad_stores", grad_stores)):
         if len(arrays) != len(state[name]):
             raise ValueError(f"{name}: {len(arrays)} arrays for "
                              f"{len(state[name])} stores")
         with torch.no_grad():
             for t, a in zip(state[name], arrays):
-                t.copy_(torch.from_numpy(np.array(a, np.float32)))
+                a = torch.from_numpy(np.array(a, np.float32))
+                if hasattr(t, "load_full"):
+                    t.load_full(a.to(t.device))
+                else:
+                    t.copy_(a)
 
 
 def state_from_checkpoint_arrays(restored: dict, state: dict) -> dict:

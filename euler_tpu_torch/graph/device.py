@@ -27,7 +27,8 @@ PyTorch on those tensors, with the JAX package's semantics:
   as ONE call of ``sampling_kernels.sample_fanout2``, other fanouts hop by
   hop through ``neighbor_draw``: ``sampling_kernels.sample_neighbor`` for
   a slab (the hand-written Hopper kernels on CUDA tensors), the alias
-  draw for an alias table.
+  draw for an alias table. Under a mesh (``set_kernel_mesh``) the slab
+  draws go per rank.
 - ``multi_hop_neighbor`` expands the full neighborhoods of roots hop by
   hop over slabs, deduplicated up to static node caps: deterministic,
   plain PyTorch on every device, no kernel (the GCN models' expansion).
@@ -625,6 +626,38 @@ def sample_neighbor(adj: dict, nodes, count: int, seed_words=None,
     return out.reshape(*nodes.shape, count)
 
 
+# the mesh whose data axis the slab draws are sharded over (set_kernel_mesh)
+_KERNEL_MESH = None
+
+
+def set_kernel_mesh(mesh) -> None:
+    """Draw the slab fanouts of a data-sharded batch per rank of ``mesh``
+    (a ``parallel.mesh.Mesh``); None clears it. On CUDA tensors each rank
+    launches the kernels on its own rows with its folded seed words
+    (``sampling_kernels.sample_fanout2_sharded``/
+    ``sample_neighbor_sharded``). On CPU tensors each rank draws its rows
+    from the global batch's uniforms (``_global_slice``), so its picks are
+    those of one device drawing the whole batch, as the JAX package's CPU
+    mesh draws through an op chain the seed does not partition.
+    ``run_loop`` sets it for device sampling over more than one rank and
+    clears it when the run ends."""
+    global _KERNEL_MESH
+    _KERNEL_MESH = mesh
+
+
+def kernel_mesh():
+    return _KERNEL_MESH
+
+
+def _global_slice(seed_words, hop: int, rows: int, cols: int, device):
+    """This rank's ``rows`` rows of the Philox uniforms of the global
+    batch (the data axis times ``rows`` rows), which the rank's data row
+    holds contiguously."""
+    n, d = _KERNEL_MESH.shape["data"], _KERNEL_MESH.data_rank
+    return philox_uniform(seed_words, hop, rows * n, cols,
+                          device=device)[d * rows:(d + 1) * rows]
+
+
 def neighbor_draw(adj: dict, nodes, count: int, seed_words=None,
                   hop: int = 0, u=None):
     """One hop's draw as a model makes it: a slab (``"cum"``) takes
@@ -636,6 +669,12 @@ def neighbor_draw(adj: dict, nodes, count: int, seed_words=None,
         return sample_neighbor(adj, nodes, count, seed_words, hop, u)
     from euler_tpu_torch.graph import sampling_kernels
 
+    if _KERNEL_MESH is not None and u is None and nodes.numel():
+        if nodes.is_cuda:
+            return sampling_kernels.sample_neighbor_sharded(
+                adj, nodes, seed_words, count, _KERNEL_MESH, hop=hop)
+        u = _global_slice(seed_words, hop, nodes.numel(), count,
+                          nodes.device)
     return sampling_kernels.sample_neighbor(adj, nodes, seed_words, count,
                                             hop=hop, u=u)
 
@@ -663,8 +702,19 @@ def sample_fanout(adjs, roots, counts, seed_words=None, u=None):
     u = [None] * len(counts) if u is None else list(u)
     if (len(counts) == 2 and all("cum" in a for a in adjs)
             and adjs[0]["nbr"].shape[0] == adjs[1]["nbr"].shape[0]):
+        f1, f2 = counts
+        if (_KERNEL_MESH is not None and u == [None, None]
+                and roots.numel()):
+            if roots.is_cuda:
+                h1, h2 = sampling_kernels.sample_fanout2_sharded(
+                    adjs[0], adjs[1], roots, seed_words, f1, f2,
+                    _KERNEL_MESH)
+                return [roots, h1.reshape(-1), h2.reshape(-1)]
+            m = roots.numel()
+            u = [_global_slice(seed_words, 0, m, f1, roots.device),
+                 _global_slice(seed_words, 1, m * f1, f2, roots.device)]
         h1, h2 = sampling_kernels.sample_fanout2(
-            adjs[0], adjs[1], roots, seed_words, counts[0], counts[1],
+            adjs[0], adjs[1], roots, seed_words, f1, f2,
             u1=u[0], u2=u[1],
         )
         return [roots, h1.reshape(-1), h2.reshape(-1)]

@@ -14,9 +14,10 @@ while the training thread drives the card.
 
 Staged data (``stream=``, ``cache_dir=``, a ``gs://`` or ``s3://``
 directory: the JAX package's ``remote_fs.py``) is not ported (ROADMAP
-A0e), nor are the flight recorder and the device-plane profiler
-(``blackbox=``, ``devprof=``, ``postmortem_dir=``, ROADMAP A11): asking
-for them raises ``NotImplementedError``.
+A0e): asking for it raises ``NotImplementedError``. ``blackbox=``,
+``devprof=`` and ``postmortem_dir=`` arm the process's flight recorder,
+device plane and postmortem path (``euler_tpu_torch.blackbox``,
+``devprof``), as the JAX package's graph does.
 """
 
 from __future__ import annotations
@@ -235,12 +236,10 @@ class Graph:
                   "chunk_ids", "dispatch_workers", "wire_version",
                   "slow_spans", "heat_topk"):
             p[k] = pick(k)
-        for k in ("blackbox", "devprof", "postmortem_dir"):
-            if pick(k) is not None:
-                raise NotImplementedError(
-                    f"{k}= is the flight recorder or the device-plane "
-                    "profiler, not ported to euler_tpu_torch yet (ROADMAP "
-                    "A11)")
+        # the flight recorder and the device plane: process-global, armed
+        # below in both modes (a trainer's postmortem is worth a shard's)
+        planes = {k: flag(k) for k in ("blackbox", "devprof")}
+        postmortem_dir = pick("postmortem_dir")
         if flag("stream"):
             raise staged_data("stream=")
         if pick("cache_dir") is not None:
@@ -275,6 +274,22 @@ class Graph:
                 "--load_delta`)")
         if init not in ("eager", "lazy"):
             raise ValueError("init must be 'eager' or 'lazy'")
+        # kill-switches first, then the postmortem path, before the engine
+        # loads, so a crash while loading leaves a dump
+        if planes["blackbox"] is not None:
+            from euler_tpu_torch import blackbox as blackbox_mod
+
+            blackbox_mod.set_blackbox(bool(planes["blackbox"]))
+        if planes["devprof"] is not None:
+            from euler_tpu_torch import devprof as devprof_mod
+
+            devprof_mod.set_devprof(bool(planes["devprof"]))
+            if planes["devprof"]:
+                devprof_mod.install()
+        if postmortem_dir is not None:
+            from euler_tpu_torch import blackbox as blackbox_mod
+
+            blackbox_mod.install(postmortem_dir)
         self._params = p
         self.mode = mode
         self._strict = bool(p["strict"])

@@ -17,6 +17,12 @@ plain alias draw before any wrapper here. Routing is by where the tensors lie, a
 else: CPU tensors run the plain version, CUDA tensors launch the kernel
 or raise. ``launches`` counts each kernel's launches, so a run can show
 that its path went through the kernels.
+
+Under a mesh (``parallel.mesh``), ``sample_neighbor_sharded`` and
+``sample_fanout2_sharded`` draw one rank's slice of a data-sharded batch
+with that rank's folded seed words, through the same kernels;
+``sharded_launches`` counts the kernel launches made inside them (each
+also counts in ``launches``).
 """
 
 from __future__ import annotations
@@ -29,6 +35,10 @@ from euler_tpu_torch.graph import device as device_graph
 
 # kernel launches in this process, by kernel
 launches = {"sample_fanout2": 0, "sample_neighbor": 0}
+# the kernel launches made inside the sharded routes (each also counts in
+# ``launches``)
+sharded_launches = {"sample_fanout2_sharded": 0,
+                    "sample_neighbor_sharded": 0}
 
 
 def sample_neighbor_reference(adj: dict, nodes, seed_words, count: int,
@@ -204,3 +214,53 @@ def sample_fanout2(adj1: dict, adj2: dict, roots, seed_words, f1: int,
         raise RuntimeError(f"sample_fanout2 kernel launch failed: CUDA error {rc}")
     launches["sample_fanout2"] += 1
     return out1, out2
+
+
+# the golden-ratio odd constant the JAX package folds into each shard's
+# seed words (pallas_sampling.py, sample_neighbor_sharded)
+_FOLD = 0x9E3779B1
+
+
+def folded_words(seed_words, data_rank: int) -> tuple:
+    """The seed words of data shard ``data_rank``: ``(data_rank + 1) *
+    0x9E3779B1`` added to both words with 32-bit wraparound, as the JAX
+    package's sharded draws fold ``axis_index`` into their int32 words,
+    so no two shards replay one Philox stream against different rows."""
+    add = ((data_rank + 1) * _FOLD) & 0xFFFFFFFF
+    return tuple((int(w) + add) & 0xFFFFFFFF for w in seed_words)
+
+
+def sample_neighbor_sharded(adj: dict, nodes, seed_words, count: int, mesh,
+                            hop: int = 0, draw_fn=None):
+    """``sample_neighbor`` on this rank's slice of a batch sharded over
+    ``mesh``'s data axis (counterpart of the JAX package's
+    ``sample_neighbor_sharded``): ``nodes`` are the rank's own, the
+    adjacency is replicated, and the draw runs with the rank's folded
+    seed words (``folded_words``). ``draw_fn(adj, nodes, words, count,
+    hop=)`` defaults to the kernel's wrapper; the CPU tests pass the plain
+    version."""
+    if draw_fn is None:
+        draw_fn = sample_neighbor
+    words = folded_words(seed_words, mesh.data_rank)
+    before = launches["sample_neighbor"]
+    out = draw_fn(adj, nodes, words, count, hop=hop)
+    sharded_launches["sample_neighbor_sharded"] += (
+        launches["sample_neighbor"] - before)
+    return out
+
+
+def sample_fanout2_sharded(adj1: dict, adj2: dict, roots, seed_words,
+                           f1: int, f2: int, mesh, draw_fn=None):
+    """``sample_fanout2`` on this rank's slice of a batch sharded over
+    ``mesh``'s data axis (counterpart of the JAX package's
+    ``sample_fanout2_sharded``), with the rank's folded seed words, as
+    ``sample_neighbor_sharded``. ``draw_fn(adj1, adj2, roots, words, f1,
+    f2)`` defaults to the kernel's wrapper."""
+    if draw_fn is None:
+        draw_fn = sample_fanout2
+    words = folded_words(seed_words, mesh.data_rank)
+    before = launches["sample_fanout2"]
+    out = draw_fn(adj1, adj2, roots, words, f1, f2)
+    sharded_launches["sample_fanout2_sharded"] += (
+        launches["sample_fanout2"] - before)
+    return out

@@ -46,6 +46,8 @@ class GraphService:
         workers: int | None = None,
         pending: int | None = None,
         options: str | None = None,
+        postmortem_dir: str | None = None,
+        blackbox: bool | None = None,
     ):
         self._lib = lib()
         self._h = None
@@ -56,12 +58,20 @@ class GraphService:
         # the common admission knobs get keywords; the long tail
         # (max_conns, io_timeout_ms, idle_timeout_ms, linger_ms, drain_ms,
         # wire_version, telemetry, slow_spans, heat, heat_topk) rides in
-        # options=
+        # options=; blackbox= and postmortem_dir= arm this process's
+        # flight recorder and its fatal-signal dump
         opts = []
         if workers is not None:
             opts.append(f"workers={int(workers)}")
         if pending is not None:
             opts.append(f"pending={int(pending)}")
+        if blackbox is not None:
+            opts.append(f"blackbox={1 if blackbox else 0}")
+        if postmortem_dir is not None:
+            # the native probe fails loudly on an unwritable directory;
+            # create it so a fresh path just works
+            os.makedirs(postmortem_dir, exist_ok=True)
+            opts.append(f"postmortem_dir={postmortem_dir}")
         if options:
             opts.append(options)
         self._h = self._lib.eg_service_start(
@@ -155,21 +165,23 @@ def main(argv=None) -> None:
     ap.add_argument("--fault", default="", help=(
         "deterministic failpoint spec injected in this shard process"))
     ap.add_argument("--fault_seed", type=int, default=0)
-    for flag in ("--postmortem_dir", "--blackbox"):
-        ap.add_argument(flag, default=None, help=(
-            "the flight recorder, not ported yet (ROADMAP A11)"))
+    ap.add_argument("--postmortem_dir", default=None, help=(
+        "arm the fatal-signal postmortem path: on SIGSEGV/SIGBUS/SIGABRT/"
+        "SIGFPE this shard writes <dir>/postmortem.<pid>.json"))
+    ap.add_argument("--blackbox", type=int, default=None, help=(
+        "the flight recorder's kill-switch: 0 stops its recording and "
+        "suppresses the postmortem dump (default: on)"))
     args = ap.parse_args(argv)
-    if args.postmortem_dir is not None or args.blackbox is not None:
-        raise NotImplementedError(
-            "--postmortem_dir and --blackbox are the flight recorder, not "
-            "ported to euler_tpu_torch yet (ROADMAP A11)")
     if args.fault:
         native.fault_config(args.fault, args.fault_seed)
     t0 = time.perf_counter()
     svc = GraphService(args.data_dir, args.shard_idx, args.shard_num,
                        args.host, args.port, args.registry,
                        workers=args.workers, pending=args.pending,
-                       options=args.options)
+                       options=args.options,
+                       postmortem_dir=args.postmortem_dir,
+                       blackbox=None if args.blackbox is None
+                       else bool(args.blackbox))
     load_s = time.perf_counter() - t0
     for path in args.load_delta:
         print(f"shard {svc.shard_idx} applied {path} -> epoch "

@@ -35,6 +35,7 @@ from euler_tpu_torch.device import resolve_device
 from euler_tpu_torch.graph import device as device_graph
 from euler_tpu_torch.nn import metrics, sparse_aggregators
 from euler_tpu_torch.ops import feature as feature_ops
+from euler_tpu_torch.parallel.mesh import RowShard, shard_state
 
 
 @dataclasses.dataclass
@@ -404,7 +405,11 @@ def write_rows_last_wins(table, ids, rows) -> None:
     takes the row of its last occurrence, as the JAX package's
     ``.at[ids].set(rows)`` does on the CPU. Every occurrence of an id
     writes that same row, so the write is deterministic on CUDA too, and
-    takes no host sync."""
+    takes no host sync. A row-sharded table (``parallel.mesh.RowShard``)
+    writes the rows it owns."""
+    if isinstance(table, RowShard):
+        table.write_rows_last_wins(ids, rows, write_rows_last_wins)
+        return
     pos = torch.arange(ids.shape[0], device=ids.device)
     last = torch.full((table.shape[0],), -1, dtype=torch.int64,
                       device=ids.device)
@@ -456,6 +461,10 @@ class Model:
     device_features: bool = True
     device_sampling: bool = True
     batch_size_ratio: int = 1
+    # how the loss reduces over a batch's rows: "mean", or "sum" (the
+    # negative-sampling losses); a mesh reduces the ranks' losses and
+    # gradients the same way
+    batch_loss: str = "mean"
 
     def make_module(self, generator=None) -> torch.nn.Module:
         raise NotImplementedError
@@ -723,33 +732,48 @@ class Model:
                 [m + 1 for m in self.sparse_feature_max_ids], device)
         return consts
 
-    def init_state(self, graph, optimizer, device=None, seed: int = 0):
+    def init_state(self, graph, optimizer, device=None, seed: int = 0,
+                   mesh=None):
         """{"module", "optimizer", "consts"} on ``device`` (the card
         unless ``"cpu"`` is asked for). ``optimizer`` builds a
         ``torch.optim.Optimizer`` from the parameters
-        (``train.get_optimizer``); ``seed`` seeds the parameter init."""
+        (``train.get_optimizer``); ``seed`` seeds the parameter init.
+        Under a ``mesh`` the tables are padded and row-sharded over its
+        model axis and the parameters broadcast from rank 0
+        (``parallel.mesh.shard_state``)."""
         dev = resolve_device(device)
         consts = self.build_consts(graph, dev)
         gen = torch.Generator().manual_seed(seed)
         module = self.make_module(gen).to(dev)
-        return {
+        state = {
             "module": module,
             "optimizer": optimizer(module.parameters()),
             "consts": consts,
         }
+        return state if mesh is None else shard_state(state, mesh)
 
-    def make_train_step(self):
+    def make_train_step(self, mesh=None):
         """``step(state, batch) -> (loss, metric)``: forward, backward
         and one optimizer step, updating ``state`` in place. The
-        gradients of the step stay in the parameters' ``.grad``."""
+        gradients of the step stay in the parameters' ``.grad``. Under a
+        ``mesh`` the batch is this rank's slice of the global batch: the
+        gradients are all-reduced before the step and the loss and
+        metric returned are the global batch's."""
 
         def train_step(state, batch):
             module, opt = state["module"], state["optimizer"]
             opt.zero_grad(set_to_none=True)
             out = module(batch, state["consts"])
             out.loss.backward()
+            loss, metric = out.loss, out.metric
+            if mesh is not None:
+                scale = mesh.loss_scale(self.batch_loss)
+                mesh.reduce_grads([p.grad for p in module.parameters()
+                                   if p.grad is not None], scale)
+                loss = mesh.reduce_loss(loss, scale)
+                metric = mesh.reduce_metric(self.metric_name, metric)
             opt.step()
-            return out.loss.detach(), out.metric.detach()
+            return loss.detach(), metric.detach()
 
         return train_step
 
@@ -823,10 +847,12 @@ class ScalableStoreModel(Model):
     store_learning_rate: float = 0.001
     store_init_maxval: float = 0.05
 
-    def init_state(self, graph, optimizer, device=None, seed: int = 0):
+    def init_state(self, graph, optimizer, device=None, seed: int = 0,
+                   mesh=None):
         """``Model.init_state``'s state plus ``stores``, ``grad_stores``
         and ``store_optimizer``; the stores' uniforms come from the same
-        generator as the parameters, after them."""
+        generator as the parameters, after them. Under a ``mesh`` the
+        stores are padded and row-sharded with the tables."""
         dev = resolve_device(device)
         consts = self.build_consts(graph, dev)
         gen = torch.Generator().manual_seed(seed)
@@ -837,7 +863,7 @@ class ScalableStoreModel(Model):
              * self.store_init_maxval).to(dev)
             for _ in range(1, self.num_layers)
         ]
-        return {
+        state = {
             "module": module,
             "optimizer": optimizer(module.parameters()),
             "consts": consts,
@@ -846,15 +872,33 @@ class ScalableStoreModel(Model):
             "store_optimizer": torch.optim.Adam(
                 module.parameters(), lr=self.store_learning_rate),
         }
+        return state if mesh is None else shard_state(state, mesh)
 
     def _expand_batch(self, batch, consts):
         """Hook: a device-sampling batch (roots + seed) in the
         ``node_ids``/``neigh_ids`` layout. Default: as given."""
         return batch
 
-    def make_train_step(self):
+    def make_train_step(self, mesh=None):
         """``step(state, batch) -> (loss, metric)``, updating ``state`` in
-        place; the parameters' ``.grad`` keeps d(loss)/d(params)."""
+        place; the parameters' ``.grad`` keeps d(loss)/d(params).
+
+        Under a ``mesh`` the batch is this rank's slice of the global
+        batch and the step is the global batch's, as the JAX package's
+        sharded step: the gradients of the loss and of the store loss (a
+        sum over rows) are all-reduced, and the store bookkeeping takes
+        the ids and rows of every data row, gathered in rank order, so a
+        root drawn on two ranks keeps the later rank's row and every data
+        replica of a store shard stays equal."""
+        scale = 1.0 if mesh is None else mesh.loss_scale(self.batch_loss)
+        # the store loss sums over the batch's rows
+        store_scale = 1.0 if mesh is None else mesh.loss_scale("sum")
+        # the global loss's d/d(reads) over this rank's: the data rows'
+        # share of ``scale`` (its model columns hold equal reads)
+        read_scale = 1.0 if mesh is None else scale * mesh.shape["model"]
+
+        def everyone(t):
+            return t if mesh is None else mesh.all_gather(t, "data")
 
         def train_step(state, batch):
             module, consts = state["module"], state["consts"]
@@ -865,8 +909,9 @@ class ScalableStoreModel(Model):
                      for s in state["stores"]]
             stale = [gs.index_select(0, node_ids)
                      for gs in state["grad_stores"]]
+            all_nodes = everyone(node_ids) if reads else node_ids
             for gs in state["grad_stores"]:
-                gs.index_fill_(0, node_ids, 0.0)
+                gs.index_fill_(0, all_nodes, 0.0)
             loss, metric, node_embs, _ = module.forward_train(batch, reads,
                                                               consts)
             params = list(module.parameters())
@@ -879,9 +924,15 @@ class ScalableStoreModel(Model):
                                  for emb, g in zip(node_embs, stale))
                 g_store = _grads_or_zeros(store_loss, params + reads)
                 updates.append((state["store_optimizer"], g_store))
+                all_neigh = everyone(neigh_ids)
                 for gs, gm, gss in zip(state["grad_stores"], g_main[n:],
                                        g_store[n:]):
-                    gs.index_add_(0, neigh_ids, gm + gss)
+                    gs.index_add_(0, all_neigh,
+                                  everyone(gm * read_scale + gss))
+            if mesh is not None:
+                mesh.reduce_grads(g_main[:n], scale)
+                if reads:
+                    mesh.reduce_grads(g_store[:n], store_scale)
             for opt, grads in updates:
                 for p, g in zip(params, grads):
                     p.grad = g
@@ -889,7 +940,10 @@ class ScalableStoreModel(Model):
             for p, g in zip(params, g_main):  # .grad keeps d(loss)
                 p.grad = g
             for s, emb in zip(state["stores"], node_embs):
-                write_rows_last_wins(s, node_ids, emb.detach())
+                write_rows_last_wins(s, all_nodes, everyone(emb.detach()))
+            if mesh is not None:
+                loss = mesh.reduce_loss(loss, scale)
+                metric = mesh.reduce_metric(self.metric_name, metric)
             return loss.detach(), metric.detach()
 
         return train_step

@@ -518,6 +518,7 @@ class GraphSage(base.Model):
     (``node_type``) per root."""
 
     metric_name = "mrr"
+    batch_loss = "sum"
 
     def __init__(
         self,

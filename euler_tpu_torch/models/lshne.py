@@ -292,6 +292,7 @@ class LsHNE(base.Model):
     id 0 under a zero mask."""
 
     metric_name = "mrr"
+    batch_loss = "sum"
 
     def __init__(
         self,

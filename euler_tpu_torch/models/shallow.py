@@ -168,6 +168,7 @@ class _ShallowUnsupervised(base.Model):
     negs) node sets of ``sample``."""
 
     metric_name = "mrr"
+    batch_loss = "sum"
     adj_sorted = False  # Node2Vec sets True for biased (p/q != 1) walks
 
     def __init__(

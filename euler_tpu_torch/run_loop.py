@@ -34,11 +34,25 @@ the card's memory each second; ``--blackbox 0`` stops the flight
 recorder; ``--postmortem_dir`` arms the fatal-signal postmortem, and an
 unhandled exception writes ``postmortem.<pid>.exception.json`` there.
 
+Several devices train as one mesh of ranks (``parallel.mesh``), one
+rank a process and a device: ``--num_devices N`` starts N local ranks
+(spawned, card ``rank % cards`` each; unset, every card the process
+sees), ``--coordinator_addr host:port --num_processes N --process_id i``
+joins N processes over TCP (process 0 listens there), and
+``--model_parallel k`` row-shards the tables over a k-wide model axis.
+``--batch_size`` stays the global batch, each data row sampling its
+share; with ``--device_sampling`` the draws go per rank
+(``graph.device.set_kernel_mesh``). ``--graph_mode shared`` across
+processes serves shard ``--process_id`` of ``--num_processes`` in each,
+and process 0 hosts a ``tcp://`` registry. Rank 0 logs and writes the
+checkpoints, ``eval.json`` and the export; a mesh run's checkpoint is
+served by ``python -m euler_tpu_torch.serve`` (``--serve_after`` serves
+from the training process, and refuses a mesh run).
+
 Flags of features not ported yet raise ``NotImplementedError`` naming
 their ROADMAP item when set away from their defaults: staged data
-(``--stream``, A0e), XLA's compilation cache (``--compile_cache``, A11:
-the port caches its built kernels under ``build/``), several devices or
-processes (A10; shared mode over several processes with them).
+(``--stream``, A0e) and XLA's compilation cache (``--compile_cache``,
+A11: the port caches its built kernels under ``build/``).
 
 Usage:  python -m euler_tpu_torch --data_dir ... --model graphsage_supervised
 """
@@ -70,11 +84,6 @@ _OPTIMIZER_NAMES = ("adagrad", "adam", "momentum", "sgd")
 # flags of features not ported yet: (flag, default, ROADMAP item, what)
 _NOT_PORTED = (
     ("stream", False, "A0e", "streaming ingest of staged data"),
-    ("model_parallel", 1, "A10", "model-parallel tables"),
-    ("num_devices", None, "A10", "data parallelism over devices"),
-    ("coordinator_addr", "", "A10", "multi-process training"),
-    ("num_processes", 1, "A10", "multi-process training"),
-    ("process_id", 0, "A10", "multi-process training"),
     ("compile_cache", None, "A11",
      "XLA's persistent compilation cache (the port's kernels are cached "
      "built under build/)"),
@@ -202,7 +211,7 @@ def check_flags(args) -> None:
     (it would otherwise do nothing)."""
     for name, default, item, what in _NOT_PORTED:
         value = getattr(args, name)
-        if value != default and not (name == "num_devices" and value == 1):
+        if value != default:
             raise NotImplementedError(
                 f"--{name}={value}: {what} is not ported to euler_tpu_torch "
                 f"yet (ROADMAP {item})")
@@ -295,6 +304,26 @@ def _wait_for_shards(args, tcp_registry: bool) -> None:
         time.sleep(0.1)
 
 
+def _wait_for_registry(registry: str, timeout_s: float = 120.0) -> None:
+    """Wait until the ``tcp://`` registry answers; raises after
+    ``timeout_s``."""
+    import time
+
+    from euler_tpu_torch.graph import registry as registry_mod
+
+    deadline = time.time() + timeout_s
+    while True:
+        try:
+            registry_mod.query(registry)
+            return
+        except ConnectionError:
+            if time.time() > deadline:
+                raise TimeoutError(
+                    f"registry {registry} unreachable after {timeout_s:.0f} "
+                    "s (does process 0 run there?)")
+            time.sleep(0.2)
+
+
 def build_graph(args):
     """The graph of ``--graph_mode`` and the services this process
     started for it, ``(graph, services)``: a local engine over
@@ -334,13 +363,20 @@ def build_graph(args):
     tcp_registry = args.registry.startswith("tcp://")
     try:
         if tcp_registry:
-            # the registry of a one-process run lives here (process 0
-            # hosts it; several processes are ROADMAP A10); port 0 binds
-            # a free port, which the shard and the client then use
+            # process 0 hosts the registry at the URL's port (port 0
+            # binds a free one, for a one-process run); every other
+            # process waits for it to answer before registering its shard
             host, port = registry_mod.parse_tcp_url(args.registry)
-            services.append(registry_mod.RegistryServer(port=port))
-            if port == 0:
-                args.registry = f"tcp://{host}:{services[-1].port}"
+            if args.process_id == 0:
+                services.append(registry_mod.RegistryServer(port=port))
+                if port == 0:
+                    args.registry = f"tcp://{host}:{services[-1].port}"
+            elif port == 0:
+                raise ValueError(
+                    "--graph_mode=shared over several processes needs the "
+                    "registry's port in --registry (process 0 hosts it)")
+            else:
+                _wait_for_registry(args.registry)
         services.append(GraphService(
             args.data_dir, shard_idx=args.process_id,
             shard_num=args.num_processes,
@@ -543,8 +579,13 @@ def _num_steps(args) -> int:
     return per_epoch * args.num_epochs
 
 
-def run_train(model, graph, args, device=None):
+def run_train(model, graph, args, device=None, mesh=None):
     batch = args.batch_size * getattr(model, "batch_size_ratio", 1)
+    if mesh is not None:
+        # --batch_size stays the global batch; each data row samples its
+        # contiguous share
+        mesh.batch_slice(batch)  # raises when it does not divide
+        batch //= mesh.shape["data"]
 
     def source_fn(step):
         return np.asarray(graph.sample_node(batch, args.train_node_type))
@@ -576,7 +617,7 @@ def run_train(model, graph, args, device=None):
             sampler_depth=args.sampler_depth,
             checkpoint_dir=args.model_dir or None,
             profile_dir=args.profile_dir or None, step_hook=step_hook,
-            device=device)
+            device=device, mesh=mesh)
     finally:
         if recorder is not None:
             # written on an interrupted run too: the trace of a run that
@@ -594,13 +635,13 @@ def run_train(model, graph, args, device=None):
                      len(trace["traceEvents"]), args.trace_file)
 
 
-def _restore_state(model, graph, args, device=None):
+def _restore_state(model, graph, args, device=None, mesh=None):
     from euler_tpu_torch.checkpoint import Checkpointer
 
     state = model.init_state(
         graph, train_lib.get_optimizer(args.optimizer, args.learning_rate),
-        device=device, seed=args.seed)
-    ckpt = Checkpointer(args.model_dir)
+        device=device, seed=args.seed, mesh=mesh)
+    ckpt = Checkpointer(args.model_dir, mesh=mesh)
     if ckpt.latest_step() is not None:
         state = ckpt.restore(state)
     else:
@@ -615,8 +656,8 @@ def _restore_state(model, graph, args, device=None):
     return state
 
 
-def run_evaluate(model, graph, args, device=None):
-    state = _restore_state(model, graph, args, device)
+def run_evaluate(model, graph, args, device=None, mesh=None):
+    state = _restore_state(model, graph, args, device, mesh)
     if args.id_file:
         ids = np.concatenate([
             np.loadtxt(f, dtype=np.int64).reshape(-1)
@@ -631,8 +672,8 @@ def run_evaluate(model, graph, args, device=None):
     result = train_lib.evaluate(
         model, graph, (padded[i:i + batch]
                        for i in range(0, len(padded), batch)),
-        state, device=device, seed=args.seed, log_fn=log.info)
-    if args.model_dir:
+        state, device=device, seed=args.seed, log_fn=log.info, mesh=mesh)
+    if args.model_dir and (mesh is None or mesh.rank == 0):
         os.makedirs(args.model_dir, exist_ok=True)
         with open(os.path.join(args.model_dir, "eval.json"), "w") as f:
             json.dump({**result, "id_file": args.id_file,
@@ -640,11 +681,19 @@ def run_evaluate(model, graph, args, device=None):
     return result
 
 
-def run_save_embedding(model, graph, args, device=None):
-    state = _restore_state(model, graph, args, device)
+def run_save_embedding(model, graph, args, device=None, mesh=None):
+    state = _restore_state(model, graph, args, device, mesh)
     emb = train_lib.save_embedding(model, args.max_id, state,
                                    batch_size=args.batch_size,
-                                   device=device, graph=graph)
+                                   device=device, graph=graph, mesh=mesh)
+    if mesh is not None:
+        import hashlib
+
+        # every rank holds the whole matrix; rank 0 writes it
+        log.info("rank %d export sha256 %s", mesh.rank,
+                 hashlib.sha256(np.ascontiguousarray(emb)).hexdigest())
+        if mesh.rank != 0:
+            return None
     os.makedirs(args.model_dir, exist_ok=True)
     out = os.path.join(args.model_dir, "embedding.npy")
     np.save(out, emb)
@@ -671,15 +720,91 @@ def setup_planes(args, device) -> None:
         blackbox.install(args.postmortem_dir, shard=args.process_id)
 
 
+def _spawned_rank(rank: int, argv, device, addr: str, n: int) -> None:
+    """Local rank ``rank`` of ``n`` that ``main`` spawned for
+    ``--num_devices``: one process of a coordinator run."""
+    args = define_flags().parse_args(argv)
+    args.coordinator_addr, args.num_processes, args.process_id = addr, n, rank
+    _configure_logging(rank)
+    _run_rank(args, device)
+
+
+def _configure_logging(rank=None) -> None:
+    tag = "" if rank is None else f" rank{rank}"
+    logging.basicConfig(
+        level=logging.INFO,
+        format=f"%(asctime)s %(name)s{tag} %(message)s")
+
+
+def _run_rank(args, device) -> int:
+    """One rank of a mesh: join the group, build the mesh, run the mode,
+    leave."""
+    from euler_tpu_torch.parallel import mesh as mesh_mod
+
+    backend, dev = mesh_mod.init_distributed(
+        args.coordinator_addr, args.num_processes, args.process_id, device)
+    try:
+        mesh = mesh_mod.make_mesh(args.num_devices or args.num_processes,
+                                  args.model_parallel, device=dev)
+        _run(args, dev, mesh)
+    finally:
+        mesh_mod.shutdown_distributed()
+    return 0
+
+
+def _num_local_ranks(args, device) -> int:
+    """``--num_devices``, or every card the process sees when unset (one
+    on the CPU)."""
+    if args.num_devices is not None:
+        return args.num_devices
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and dev.index is None:
+        return max(torch.cuda.device_count(), 1)
+    return 1
+
+
 def main(argv=None, device=None) -> int:
     """Run one mode on ``device``: the card unless the caller asks for
-    the CPU (``device="cpu"``, as the tests do); with no card it raises."""
-    logging.basicConfig(
-        level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
+    the CPU (``device="cpu"``, as the tests do); with no card it raises.
+    Over several devices or processes, each rank runs it on its own
+    (``--num_devices``, ``--coordinator_addr``)."""
+    _configure_logging()
     args = define_flags().parse_args(argv)
     check_flags(args)
     check_serve_flags(args)
-    dev = resolve_device(device)
+    n = _num_local_ranks(args, device)
+    if args.serve_after and (args.coordinator_addr or n > 1):
+        raise ValueError(
+            "--serve_after serves from the training process, and a mesh "
+            "run has several: serve its checkpoint with `python -m "
+            "euler_tpu_torch.serve --model_parallel k`")
+    if args.coordinator_addr:
+        return _run_rank(args, device)
+    if n > 1:
+        from euler_tpu_torch.parallel import mesh as mesh_mod
+
+        mesh_mod.Mesh(n, args.model_parallel)  # raises when it does not divide
+        argv = list(sys.argv[1:] if argv is None else argv)
+        if args.graph_mode == "shared" and args.registry.startswith(
+                "tcp://") and args.registry.endswith(":0"):
+            # the ranks' shards meet at one registry: give it a port
+            argv += ["--registry",
+                     f"{args.registry[:-2]}:{mesh_mod.free_port()}"]
+        mesh_mod.launch(_spawned_rank, n,
+                        (argv, device, f"127.0.0.1:{mesh_mod.free_port()}",
+                         n))
+        return 0
+    if args.model_parallel != 1:
+        from euler_tpu_torch.parallel import mesh as mesh_mod
+
+        mesh_mod.Mesh(n, args.model_parallel)  # raises: 1 device
+    return _run(args, resolve_device(device), None)
+
+
+def _run(args, dev, mesh) -> int:
+    """Run ``--mode`` on ``dev``, as one rank of ``mesh`` when given."""
+    from euler_tpu_torch.graph import device as device_graph
+
     setup_planes(args, dev)
 
     def exception_postmortem():
@@ -701,12 +826,17 @@ def main(argv=None, device=None) -> int:
         exception_postmortem()
         raise
     try:
+        # device sampling over several ranks draws per rank; set or
+        # cleared every run, so a stale mesh never routes a later run
+        device_graph.set_kernel_mesh(
+            mesh if mesh is not None and mesh.size > 1
+            and args.device_sampling else None)
         model = build_model(args, graph)
         if args.max_degree is not None or args.alias_sampling:
             model.set_sampling_options(max_degree=args.max_degree,
                                        alias=args.alias_sampling)
         if args.mode == "train":
-            run_train(model, graph, args, dev)
+            run_train(model, graph, args, dev, mesh)
             if args.serve_after:
                 # the freshest checkpoint goes live in this process, with
                 # the training sampling config; blocks until SIGTERM or
@@ -715,14 +845,22 @@ def main(argv=None, device=None) -> int:
 
                 serve.run_serve(model, graph, args, dev)
         elif args.mode == "evaluate":
-            run_evaluate(model, graph, args, dev)
+            run_evaluate(model, graph, args, dev, mesh)
         else:
-            run_save_embedding(model, graph, args, dev)
+            run_save_embedding(model, graph, args, dev, mesh)
     except Exception:
         exception_postmortem()
         raise
     finally:
+        device_graph.set_kernel_mesh(None)
         graph.close()
+        # this process's kernel launches, sharded routes included, so a
+        # caller can read which path the run took
+        from euler_tpu_torch.graph import sampling_kernels
+
+        log.info("kernel launches %s", json.dumps(
+            {**sampling_kernels.launches,
+             **sampling_kernels.sharded_launches}))
         # the transport's and (shared mode) the shard's survivability
         # ledger, then the services: in-flight shard requests finish
         from euler_tpu_torch.graph.native import counters

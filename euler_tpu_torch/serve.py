@@ -449,12 +449,17 @@ def restore_serving_state(model, graph, args, device=None):
     """Initialise the state and restore the checkpoint in
     ``--model_dir``, which must hold one: serving fresh random parameters
     is a bug, so this raises ``Checkpointer.restore``'s ``ValueError``
-    when the directory has none."""
+    when the directory has none. A checkpoint written under
+    ``--model_parallel k`` holds tables padded to a multiple of k: the
+    state is padded alike (``parallel.mesh.pad_tables_for_mesh``), as the
+    JAX package's serving pads it, and served from this one rank."""
     from euler_tpu_torch import train as train_lib
     from euler_tpu_torch.checkpoint import Checkpointer
+    from euler_tpu_torch.parallel.mesh import pad_tables_for_mesh
 
     opt = train_lib.get_optimizer(args.optimizer, args.learning_rate)
     state = model.init_state(graph, opt, device=device, seed=args.seed)
+    state = pad_tables_for_mesh(state, getattr(args, "model_parallel", 1))
     ckpt = Checkpointer(args.model_dir)
     try:
         state = ckpt.restore(state)
@@ -540,8 +545,12 @@ def main(argv=None, device=None) -> int:
     a shared run starts are drained and stopped on the way out) plus the
     serve flags; the model is built with the inference
     sampling config (``--all_edge_type`` metapaths, as evaluate and
-    save_embedding), so ``--mode`` is ignored."""
+    save_embedding), so ``--mode`` is ignored. ``--num_devices`` and
+    ``--model_parallel`` are the training mesh's: they must divide, and a
+    checkpoint saved under ``--model_parallel k`` is read with its padded
+    tables and served from this one process."""
     from euler_tpu_torch import run_loop
+    from euler_tpu_torch.parallel.mesh import Mesh
 
     logging.basicConfig(
         level=logging.INFO, format="%(asctime)s %(name)s %(message)s"
@@ -549,6 +558,8 @@ def main(argv=None, device=None) -> int:
     args = run_loop.define_flags().parse_args(argv)
     args.mode = "evaluate"  # inference sampling config (all_edge_type)
     run_loop.check_flags(args)
+    # raises when the mesh's counts do not divide
+    Mesh(args.num_devices or args.model_parallel, args.model_parallel)
     dev = resolve_device(device)
     # the planes before the first capture, so the device plane sees it
     run_loop.setup_planes(args, dev)

@@ -69,6 +69,35 @@ def _step_seed(seed: int, step: int) -> int:
     return (seed * 1_000_003 + step + 1) % (1 << 32)
 
 
+def worker_seed(seed: int, rank: int, widx: int) -> int:
+    """The engine seed of prefetch worker ``widx`` on data row ``rank``
+    of a run seeded ``seed``, as the JAX package folds its process index
+    in: ranks with one stream each would draw the same roots and collapse
+    the global batch to one rank's."""
+    return seed * 1_000_003 + rank * 8_191 + widx + 1
+
+
+def _leader(mesh) -> bool:
+    """True where this process speaks for the run: no mesh, or rank 0."""
+    return mesh is None or mesh.rank == 0
+
+
+def _follower(mesh) -> bool:
+    """True on a model column past the first: it draws no host batch of
+    its own (its engine draws would differ) and takes its data row's
+    from ``_row_batch``."""
+    return mesh is not None and mesh.model_rank > 0
+
+
+def _row_batch(mesh, batch):
+    """The host batch that every rank of this data row's model group
+    shares: the row's first rank's ``batch``, broadcast to the followers
+    (which pass None); ``batch`` itself without a model axis."""
+    if mesh is None or mesh.shape["model"] == 1:
+        return batch
+    return mesh.broadcast_object(batch)
+
+
 def _fence(t) -> None:
     """Wait for the work queued before ``t`` was produced: the stream's
     queue on the card (nothing to wait for on the CPU)."""
@@ -181,26 +210,33 @@ def train(
     ``trace.write_trace(..., profile_dir=)`` puts its kernels on the
     phases' timeline.
 
-    Not ported: ``mesh`` (multi-device, ROADMAP A10)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "train(mesh=...) is multi-device training, not ported yet "
-            "(ROADMAP A10); the port trains on one device")
+    ``mesh`` (a ``parallel.mesh.Mesh`` over a process group) trains this
+    process's rank of it on ``mesh.device``: ``source_fn(step)`` gives
+    the rank's data row its own share of the global batch (the ranks of
+    a row's model group train on its first rank's, broadcast), the state
+    is initialised alike on every rank and its tables row-sharded over
+    the model axis (a given ``state`` must be the rank's, from
+    ``init_state(mesh=)``), the step all-reduces the gradients
+    (``make_train_step(mesh)``) and returns the global batch's loss and
+    metric. Each prefetch worker seeds its engine with ``worker_seed(seed,
+    data row, widx)``. Only rank 0 logs; every rank takes part in a
+    checkpoint, which rank 0 writes (``Checkpointer(mesh=)``)."""
     from euler_tpu_torch import devprof, telemetry
 
     if phase_profile is None:
         phase_profile = telemetry.telemetry_enabled()
     record_phase = telemetry.record_phase
-    dev = resolve_device(device)
-    say = log_fn or log.info
+    dev = resolve_device(device if mesh is None or mesh.device is None
+                         else mesh.device)
+    say = (log_fn or log.info) if _leader(mesh) else (lambda msg: None)
     if state is None:
         state = model.init_state(
             graph, get_optimizer(optimizer, learning_rate), device=dev,
-            seed=seed)
+            seed=seed, mesh=mesh)
     ckpt = None
     start_step = 0
     if checkpoint_dir:
-        ckpt = Checkpointer(checkpoint_dir)
+        ckpt = Checkpointer(checkpoint_dir, mesh=mesh)
         latest = ckpt.latest_step()
         if latest is not None:
             state = ckpt.restore(state, latest)
@@ -208,9 +244,13 @@ def train(
             say(f"resumed from {checkpoint_dir} at step {latest}")
         if checkpoint_every <= 0:
             checkpoint_every = max(num_steps // 10, 1)
-    step_fn = model.make_train_step()
+    step_fn = model.make_train_step(mesh=mesh)
+    follower = _follower(mesh)
+    row_rank = 0 if mesh is None else mesh.data_rank
 
     def make_batch(step):
+        if follower:
+            return None
         t0 = time.perf_counter()
         inputs = source_fn(step)
         batch = (inputs if model.device_sampling
@@ -221,6 +261,8 @@ def train(
         return batch
 
     def finish_batch(step, pending):
+        if follower:
+            return None
         # "sample" is the wait on the step's async op
         t0 = time.perf_counter()
         batch = model.sample_finish(graph, pending)
@@ -237,7 +279,7 @@ def train(
         # is thread-local); a graph without the engine samples nothing
         engine = getattr(graph, "_lib", None)
         if engine is not None:
-            engine.eg_seed(seed * 1_000_003 + widx + 1)
+            engine.eg_seed(worker_seed(seed, row_rank, widx))
 
     name = model.metric_name
     history = []
@@ -278,7 +320,8 @@ def train(
 
     if use_pipeline:
         batches = pipeline(
-            lambda step: model.sample_start(graph, source_fn(step)),
+            lambda step: None if follower else model.sample_start(
+                graph, source_fn(step)),
             finish_batch, num_steps - start_step, sampler_depth,
             start=start_step, worker_init=seed_worker, timings=timings,
             profile=phase_profile, record_sample=False)
@@ -299,6 +342,7 @@ def train(
             if not warm:
                 _stamp_align()
         t_h2d = time.perf_counter()
+        batch = _row_batch(mesh, batch)
         if model.device_sampling:
             batch = model.device_sample_batch(
                 batch, _step_seed(seed, steps_done), dev)
@@ -385,7 +429,7 @@ def make_scan_train(model, inner_steps: int, batch_size: int):
 
 
 def evaluate(model, graph, source_iter, state, device=None, seed: int = 0,
-             log_fn=None) -> dict:
+             log_fn=None, mesh=None) -> dict:
     """Streaming evaluation over an iterator of batches of model inputs
     (root ids, or a structured item such as LasGNN's ``{"label",
     "groups"}``), on one device (the card unless ``"cpu"`` is asked for),
@@ -395,42 +439,78 @@ def evaluate(model, graph, source_iter, state, device=None, seed: int = 0,
     accumulates its [tp, fp, fn] counts over the batches and auc its
     score histograms, any other metric (mrr) a running mean of the batch
     values. Returns ``{metric_name: value, "loss": mean batch loss}`` and
-    passes ``"eval: {...}"`` to ``log_fn`` when given. Multi-process
-    evaluation is not ported."""
+    passes ``"eval: {...}"`` to ``log_fn`` when given.
+
+    Under a ``mesh`` every rank iterates the same global batches and
+    evaluates its data row's contiguous slice of each (a batch that does
+    not divide raises); the losses and metrics are reduced over the
+    ranks, so every rank returns the global result (``state`` is the
+    rank's sharded one)."""
+    from euler_tpu_torch.parallel.mesh import shard_batch
+
     name = model.metric_name
-    dev = resolve_device(device)
+    dev = resolve_device(device if mesh is None or mesh.device is None
+                         else mesh.device)
     eval_fn = model.make_eval_step()
+    scale = None if mesh is None else mesh.loss_scale(model.batch_loss)
     acc = _metric_zero(name)
     losses = []
     for i, ids in enumerate(source_iter):
+        if mesh is not None:
+            n = len(base.batch_leaves(ids)[0][1]) if isinstance(
+                ids, dict) else len(ids)
+            ids = shard_batch(ids, mesh, n)  # raises unless n divides
         if model.device_sampling:
             batch = model.device_sample_batch(ids, seed + i, device=dev)
         else:
-            batch = base.to_device(model.sample(graph, ids), dev)
+            batch = base.to_device(_row_batch(
+                mesh, None if _follower(mesh) else model.sample(graph, ids)),
+                dev)
         loss, metric = eval_fn(state, batch)
+        if mesh is not None:
+            loss = mesh.reduce_loss(loss, scale)
+            metric = mesh.reduce_metric(name, metric)
         acc = _metric_accumulate(name, acc, metric.cpu().numpy())
         losses.append(float(loss))
     result = {name: _metric_value(name, acc), "loss": float(np.mean(losses))}
-    if log_fn is not None:
+    if log_fn is not None and _leader(mesh):
         log_fn(f"eval: {result}")
     return result
 
 
 def save_embedding(model, max_id: int, state, batch_size: int = 1024,
-                   device=None, graph=None) -> np.ndarray:
+                   device=None, graph=None, mesh=None) -> np.ndarray:
     """The ``[max_id+1, dim]`` embeddings of ids 0..max_id, as a numpy
     array: ``model.make_embed_step()`` over chunks of ``batch_size`` ids
     (the last chunk padded with id 0 and cut), on ``device`` (the card
     unless ``"cpu"`` is asked for), where ``state`` must live. A
-    host-sampling model samples each chunk from ``graph``."""
-    dev = resolve_device(device)
+    host-sampling model samples each chunk from ``graph``.
+
+    Under a ``mesh`` each rank embeds its data row's contiguous slice of
+    every chunk and the slices are all-gathered, so every rank returns
+    the whole matrix; a ``batch_size`` the data axis does not divide
+    raises."""
+    dev = resolve_device(device if mesh is None or mesh.device is None
+                         else mesh.device)
+    if mesh is not None:
+        part = mesh.batch_slice(batch_size)
     embed = model.make_embed_step()
     ids = np.arange(max_id + 1, dtype=np.int64)
     padded = np.concatenate(
         [ids, np.zeros((-len(ids)) % batch_size, dtype=np.int64)])
-    kw = {} if model.device_sampling else {"graph": graph}
-    chunks = [
-        embed(state, model.sample_embed(padded[i:i + batch_size], dev, **kw))
-        for i in range(0, len(padded), batch_size)
-    ]
+    chunks = []
+    for i in range(0, len(padded), batch_size):
+        chunk = padded[i:i + batch_size]
+        if mesh is None:
+            kw = {} if model.device_sampling else {"graph": graph}
+            chunks.append(embed(state, model.sample_embed(chunk, dev, **kw)))
+            continue
+        chunk = chunk[part]
+        if model.device_sampling:
+            batch = model.sample_embed(chunk, dev)
+        else:
+            batch = base.to_device(_row_batch(
+                mesh, None if _follower(mesh)
+                else model.sample_host_embed(graph, chunk)), dev)
+        chunks.append(mesh.all_gather(embed(state, batch), "data"))
     return torch.cat(chunks).cpu().numpy()[:len(ids)]

@@ -411,12 +411,41 @@ def test_a_torch_profiler_capture_is_found_and_aligned(tmp_path):
 # ----------------------------------------------------------------- blackbox
 
 
-def test_postmortem_round_trip_and_kill_switch(tmp_path):
+def _postmortem_with_gauges(bb, service, fixture_dir: str, path: str):
+    """A postmortem of one package's library written while a shard
+    service of that library runs: its poller registers the admission
+    snapshot within one 250 ms cycle, and from then on every dump of the
+    library carries ``gauges``. Returns ``(path, doc)``; waits 10 s at
+    most."""
+    svc = service(fixture_dir, 0, 1)
+    try:
+        deadline = time.monotonic() + 10.0
+        while True:
+            doc = bb.postmortem_read(bb.write_postmortem(path))
+            if "gauges" in doc or time.monotonic() > deadline:
+                return path, doc
+            time.sleep(0.05)
+    finally:
+        svc.stop()
+
+
+def test_postmortem_round_trip_and_kill_switch(tmp_path, fixture_dir):
+    """A dump of each package's library carries the same keys, the
+    admission ``gauges`` included once each library has a shard service's
+    snapshot registered (whichever tests ran before in this process)."""
+    import euler_tpu
+    from euler_tpu_torch.graph import GraphService
+
     TB.record("app", value=7)
-    path = TB.write_postmortem(str(tmp_path / "pm" / "postmortem.a.json"))
-    doc = TB.postmortem_read(path)
-    jpath = JB.write_postmortem(str(tmp_path / "pm" / "postmortem.b.json"))
-    assert set(doc) == set(JB.postmortem_read(jpath))
+    path, doc = _postmortem_with_gauges(
+        TB, GraphService, fixture_dir,
+        str(tmp_path / "pm" / "postmortem.a.json"))
+    jpath, jdoc = _postmortem_with_gauges(
+        JB, euler_tpu.GraphService, fixture_dir,
+        str(tmp_path / "pm" / "postmortem.b.json"))
+    assert "gauges" in doc and "gauges" in jdoc
+    assert set(doc) == set(jdoc)
+    assert set(doc["gauges"]) == set(jdoc["gauges"])
     assert doc["signal"] == 0 and doc["pid"] == os.getpid()
     values = [e["value"] for r in doc["rings"] for e in r["events"]
               if e["point"] == "app"]
@@ -460,6 +489,74 @@ def test_fatal_signal_writes_a_postmortem_in_a_port_only_process(tmp_path):
     assert doc["resource_history"] and doc["backtrace_symbols"]
     assert any(e["point"] == "app" and e["value"] == 42
                for r in doc["rings"] for e in r["events"])
+
+
+def test_graph_arms_the_flight_recorder_and_device_plane(fixture_dir,
+                                                        tmp_path):
+    """``Graph(blackbox=, devprof=, postmortem_dir=)`` arms the process's
+    planes as the JAX package's graph does: the recorder's switch and
+    postmortem directory, and the device plane's switch."""
+    import euler_tpu
+    from euler_tpu_torch.graph import Graph
+
+    dirs = {}
+    try:
+        for name, make, bb, dp in (
+                ("port", Graph, TB, TD),
+                ("jax", euler_tpu.Graph, JB, JD)):
+            pm = str(tmp_path / name)
+            g = make(directory=fixture_dir, blackbox=True, devprof=True,
+                     postmortem_dir=pm)
+            live = bb.blackbox_json()
+            assert live["enabled"] and dp.devprof_enabled()
+            dirs[name] = live["postmortem_dir"]
+            assert dirs[name].startswith(pm)
+            g.close()
+            g = make(directory=fixture_dir, blackbox=False, devprof=False)
+            assert not bb.blackbox_json()["enabled"]
+            assert not dp.devprof_enabled()
+            g.close()
+        assert dirs["port"][len(str(tmp_path / "port")):] == (
+            dirs["jax"][len(str(tmp_path / "jax")):])
+    finally:
+        for bb, dp in ((TB, TD), (JB, JD)):
+            bb.set_blackbox(True)
+            dp.set_devprof(True)
+
+
+@pytest.mark.parametrize("blackbox", ["1", "0"])
+def test_shard_service_cli_writes_its_postmortem(fixture_dir, tmp_path,
+                                                 blackbox):
+    """``python -m euler_tpu_torch.graph.service --postmortem_dir D``
+    killed by SIGSEGV leaves ``D/postmortem.<pid>.json``, with the
+    shard's admission gauges; ``--blackbox 0`` leaves none. Either way
+    the process dies by the signal."""
+    pm = str(tmp_path / "pm")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "euler_tpu_torch.graph.service",
+         "--data_dir", fixture_dir, "--shard_idx", "0", "--shard_num", "1",
+         "--postmortem_dir", pm, "--blackbox", blackbox],
+        cwd=REPO, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.DEVNULL, text=True)
+    try:
+        line = proc.stdout.readline()  # "graph shard 0/1 serving on ..."
+        assert "serving on" in line, line
+        time.sleep(0.5)  # one admission poll cycle: the gauges register
+        proc.send_signal(signal.SIGSEGV)
+        assert proc.wait(timeout=60) == -signal.SIGSEGV
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(10)
+    dumps = TB.postmortem_read(pm) if os.path.isdir(pm) else []
+    if blackbox == "0":
+        assert dumps == []
+        return
+    assert len(dumps) == 1, os.listdir(pm)
+    doc = dumps[0]
+    assert doc["signal_name"] == "SIGSEGV" and doc["pid"] == proc.pid
+    assert set(doc["gauges"]) >= {"workers", "queue_depth", "conns"}
 
 
 # ----------------------------------------------------------------- run_loop

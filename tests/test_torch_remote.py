@@ -591,14 +591,16 @@ def test_run_loop_graph_modes(cluster, tmp_path, mode):
      NotImplementedError, "registry on a remote filesystem"),
     (["--fault", "dial:err@1"], ValueError, "--fault needs"),
     (["--feature_cache_mb", "8"], ValueError, "need --graph_mode"),
-    (["--graph_mode", "shared", "--registry", "r", "--num_processes", "2"],
-     NotImplementedError, "A10"),
+    (["--graph_mode", "shared", "--registry", "tcp://127.0.0.1:0",
+      "--num_processes", "2", "--process_id", "1"], ValueError,
+     "needs the registry's port"),
     (["--graph_mode", "remote", "--stream", "1"], NotImplementedError,
      "A0e"),
 ])
 def test_run_loop_refusals(cluster, tmp_path, extra, err, match):
-    """The JAX CLI's refusals, with its messages; staged data names A0e,
-    several processes A10."""
+    """The JAX CLI's refusals, with its messages; staged data names A0e.
+    A shared cluster over several processes needs the registry's port,
+    which process 0 hosts."""
     with pytest.raises(err, match=match):
         run_loop.main(_cli(cluster["data"], str(tmp_path), *extra),
                       device="cpu")

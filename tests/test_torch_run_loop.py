@@ -369,16 +369,10 @@ def test_save_embedding_is_the_restored_states(fixture_dir, tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--graph_mode", "shared", "--registry", "r", "--num_processes", "2"],
-     "A10"),
     (["--stream", "1"], "A0e"),
     (["--graph_mode", "remote", "--stream", "1"], "A0e"),
-    (["--process_id", "1"], "A10"),
     (["--compile_cache", "1"], "A11"),
     (["--compile_cache", "0"], "A11"),
-    (["--num_devices", "2"], "A10"),
-    (["--model_parallel", "2"], "A10"),
-    (["--coordinator_addr", "localhost:1"], "A10"),
     (["--optimizer", "sgd"], "A4"),
 ])
 def test_unported_flags_raise(fixture_dir, tmp_path, extra, item):
