@@ -281,7 +281,31 @@ Phases, each of which raises on failure (nonzero exit, no result line):
     export; the two exports' digests equal and the loss falls. Then both
     sharded routes at a rank's shapes against their plain versions,
     timed.
-12. The ``kernels`` line (the sharded routes beside the kernels, each
+12. Staged data, prepared data, the other optimizers and the model
+    options, on phase 5's ppi files, each path with the launch counts
+    set to 0 just before it and read just after: (a) the files put into
+    fsspec's in-process ``memory://`` store (its version printed; no
+    fsspec fails the phase), then loaded streamed (``Graph(stream=
+    True)``), staged into a cache directory (``cache_dir=``) and locally:
+    equal node and edge counts and equal digests of the device tables
+    built from each; then ``run_loop --data_dir memory://... --stream 1
+    --device_sampling 1`` for an epoch (staged_ppi_stream: B1 once a
+    step); (b) ``sgd``, ``momentum`` and ``adagrad``, each after a
+    CPU/CUDA agreement on a 2,000-node graph, through ``run_loop
+    --optimizer`` for an epoch (run_loop_sgd, run_loop_momentum,
+    run_loop_adagrad: losses finite, B1 once a step); (c) GraphSAGE-format
+    PPI files from the seed at PPI's size (56,944 nodes, 50 features, 121
+    labels, mean degree 15), ``python -m euler_tpu_torch.datasets
+    prepare_ppi`` in a subprocess (its seconds printed), then an epoch
+    on the result (prepared_ppi: B1 once a step); (d)
+    ``GraphSage(shared_negs=True)`` at ``run_loop --model graphsage``'s
+    defaults (graphsage_shared_negs: B2 once and B1 three times a step)
+    and ``SupervisedGraphSage(use_id=True)`` (ppi_use_id: B1 once a
+    step), each after a CPU/CUDA agreement, through
+    ``train.make_scan_train``; a bfloat16 feature table through
+    ``EULER_TPU_FEATURE_DTYPE`` equal, table and gathered rows, to the
+    ``feature_dtype`` kwarg's.
+13. The ``kernels`` line (the sharded routes beside the kernels, each
     with its launches by path); then the final ``ok`` line. Each phase
     prints its wall time.
 """
@@ -1499,18 +1523,20 @@ def check_single_hop(adj, adj_w, roots, roots_c, zero_rows, seed, flush):
 
 
 def agree_cpu_cuda(model, graph, seed: int, name: str,
-                   lr: float = PPI_LR, inputs=None, host_batch=None) -> None:
+                   lr: float = PPI_LR, inputs=None, host_batch=None,
+                   optimizer: str = "adam") -> None:
     """Three steps of ``model`` from the same init on the CPU (plain
     draws) and on the card (kernels), on the same roots (or the model's
     structured ``inputs``) and seeds, or three steps on one host batch
-    (``host_batch``, a ``model.sample`` output) uploaded to each: first
-    loss rtol 1e-5, all losses rtol 1e-3, step-1 gradients within 1e-5 of
-    their scale (max |diff| / max(1, max |grad|): the unsupervised loss is
-    a sum over the batch, so its gradients run to tens)."""
+    (``host_batch``, a ``model.sample`` output) uploaded to each, under
+    ``optimizer``: first loss rtol 1e-5, all losses rtol 1e-3, step-1
+    gradients within 1e-5 of their scale (max |diff| / max(1, max
+    |grad|): the unsupervised loss is a sum over the batch, so its
+    gradients run to tens)."""
     from euler_tpu_torch import train
     from euler_tpu_torch.models import base
 
-    opt = train.get_optimizer("adam", lr)
+    opt = train.get_optimizer(optimizer, lr)
     st = {d: model.init_state(graph, opt, device=d, seed=seed)
           for d in ("cpu", "cuda")}
     step = model.make_train_step()
@@ -1668,22 +1694,11 @@ def phase_train(graph, hetero, reddit, seed: int, smi: str) -> dict:
     log("== phase 4: train")
     from euler_tpu_torch.datasets import build_synthetic
     from euler_tpu_torch.graph import MemoryGraph
-    from euler_tpu_torch.models import GraphSage, SupervisedGraphSage
 
     def sage(max_id, dim):
-        return SupervisedGraphSage(
-            label_idx=0, label_dim=121, metapath=[[0], [0]],
-            fanouts=list(PPI_FANOUTS), dim=dim, feature_idx=1,
-            feature_dim=50, max_id=max_id, device_features=True,
-            device_sampling=True)
+        return mesh_sage(max_id, dim=dim)
 
-    def unsup(max_id, dim):  # run_loop --model graphsage's defaults
-        return GraphSage(
-            node_type=0, edge_type=[0], max_id=max_id, metapath=[[0], [0]],
-            fanouts=list(PPI_FANOUTS), dim=dim, num_negs=SAGE_NEGS,
-            feature_idx=1, feature_dim=50, aggregator="mean", concat=True,
-            xent_loss=True, device_features=True, device_sampling=True)
-
+    unsup = mesh_unsup  # run_loop --model graphsage's defaults
     small = MemoryGraph(**build_synthetic(2000, 15, 50, 121, seed=seed + 1))
     f1, f2 = PPI_FANOUTS
     runs = {}
@@ -4221,21 +4236,22 @@ MESH_REDUCE_RUNS = 20
 
 
 def mesh_sage(max_id: int, device_sampling: bool = True,
-              dim: int = PPI_DIM):
-    """Phase 4's ppi model (``SupervisedGraphSage`` at full width), over
-    device tables, drawn on the card or host-sampled."""
+              dim: int = PPI_DIM, **extra):
+    """Phase 4's ppi model (``SupervisedGraphSage`` at full width, as
+    run_loop's graphsage_supervised), over device tables, drawn on the
+    card or host-sampled; ``extra`` are more of its options."""
     from euler_tpu_torch.models import SupervisedGraphSage
 
     return SupervisedGraphSage(
         label_idx=0, label_dim=PPI_LABEL_DIM, metapath=[[0], [0]],
         fanouts=list(PPI_FANOUTS), dim=dim, feature_idx=1,
         feature_dim=PPI_FEATURE_DIM, max_id=max_id, device_features=True,
-        device_sampling=device_sampling)
+        device_sampling=device_sampling, **extra)
 
 
-def mesh_unsup(max_id: int, dim: int = PPI_DIM):
+def mesh_unsup(max_id: int, dim: int = PPI_DIM, **extra):
     """Phase 4's unsupervised ``GraphSage`` (run_loop --model graphsage's
-    defaults), drawn on the card."""
+    defaults), drawn on the card; ``extra`` are more of its options."""
     from euler_tpu_torch.models import GraphSage
 
     return GraphSage(
@@ -4243,7 +4259,7 @@ def mesh_unsup(max_id: int, dim: int = PPI_DIM):
         fanouts=list(PPI_FANOUTS), dim=dim, num_negs=SAGE_NEGS,
         feature_idx=1, feature_dim=PPI_FEATURE_DIM, aggregator="mean",
         concat=True, xent_loss=True, device_features=True,
-        device_sampling=True)
+        device_sampling=True, **extra)
 
 
 def step_roots(seed: int, step: int, n: int, batch: int) -> np.ndarray:
@@ -4682,6 +4698,265 @@ def phase_mesh(work: str, seed: int, smi: str, device: str = "cuda",
     log(f"phase 11 took {time.perf_counter() - t0:.1f} s")
     return runs, routes
 
+# phase 12: staged data, prepared data, the other optimizers, the options
+STAGED_ROOT = "chip_smoke_ppi"  # in fsspec's in-process memory:// store
+OTHER_OPTIMIZERS = ("sgd", "momentum", "adagrad")
+# the prepared graph: GraphSAGE-format files at PPI's size, train / val /
+# test shares of the nodes and undirected links at PPI's mean degree
+PREP_SPLIT = (0.8, 0.9)  # a node's uniform: train below, val, test above
+PREP_TIMEOUT_S = 600
+
+
+def tables_digest(consts) -> str:
+    """sha256 over a (nested) consts dict's tensors: keys in sorted
+    order, each tensor's dtype, shape and bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+
+    def walk(x, path):
+        if isinstance(x, dict):
+            for k in sorted(x):
+                walk(x[k], f"{path}/{k}")
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                walk(v, f"{path}/{i}")
+        else:
+            t = x.detach().contiguous().reshape(-1)
+            h.update(f"{path} {t.dtype} {tuple(x.shape)}".encode())
+            h.update(t.view(torch.uint8).cpu().numpy().tobytes())
+
+    walk(consts, "")
+    return h.hexdigest()
+
+
+def run_loop_epoch(name: str, argv, device: str, smi: str,
+                   steps: int) -> dict:
+    """``run_loop.main(argv)`` in train mode for one epoch of ``steps``
+    steps, the launch counts set to 0 just before and read just after:
+    every step's loss finite, B1 once a step and B2 never. Prints the
+    wall seconds, the losses of the first and last ten steps and the
+    median step (steps 11 on, each synced by --log_steps 1)."""
+    from euler_tpu_torch.graph import sampling_kernels
+
+    for k in sampling_kernels.launches:
+        sampling_kernels.launches[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    windows = run_loop_main(argv, device)
+    wall = time.perf_counter() - t0
+    launches = dict(sampling_kernels.launches)
+    losses = np.array([w[1] for w in windows])
+    if len(windows) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"{name}: {len(windows)} logged steps of "
+                             f"{steps}, losses {losses}")
+    expect = {"sample_fanout2": steps, "sample_neighbor": 0}
+    if launches != expect:
+        raise AssertionError(f"{name}: launches {launches}, expected "
+                             f"{expect}")
+    step_ms = statistics.median(w[2] for w in windows[10:])
+    head, tail = float(losses[:10].mean()), float(losses[-10:].mean())
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{name}: run_loop.main {wall:.2f} s, {steps} steps, launches "
+        f"{launches}, loss {head:.5f} (first 10) -> {tail:.5f} (last 10), "
+        f"step {step_ms:.4f} ms (median of steps 11-{steps}), "
+        f"max_memory_allocated {peak} B (card: {smi})")
+    return {"launches": launches, "steps": steps, "step_ms": step_ms,
+            "peak_bytes": peak, "loss_head": head, "loss_tail": tail}
+
+
+def write_graphsage_ppi(prefix: str, num_nodes: int, feature_dim: int,
+                        label_dim: int, avg_degree: int, seed: int) -> int:
+    """GraphSAGE-release-format PPI files from ``seed``: ``-G.json``
+    (node-link: val/test flags by ``PREP_SPLIT``, ``num_nodes *
+    avg_degree / 2`` undirected links between uniform endpoints),
+    ``-feats.npy`` (normal features), ``-id_map.json`` (the identity) and
+    ``-class_map.json`` (0/1 multilabel vectors). Returns their bytes."""
+    rng = np.random.default_rng(seed)
+    split = rng.random(num_nodes).tolist()
+    nodes = [{"id": i, "val": PREP_SPLIT[0] <= u < PREP_SPLIT[1],
+              "test": u >= PREP_SPLIT[1]} for i, u in enumerate(split)]
+    m = num_nodes * avg_degree // 2
+    ends = rng.integers(0, num_nodes, (2, m)).tolist()
+    links = [{"source": a, "target": b} for a, b in zip(*ends)]
+    with open(prefix + "-G.json", "w") as f:
+        json.dump({"directed": False, "graph": {}, "multigraph": False,
+                   "nodes": nodes, "links": links}, f)
+    np.save(prefix + "-feats.npy",
+            rng.standard_normal((num_nodes, feature_dim)))
+    with open(prefix + "-id_map.json", "w") as f:
+        json.dump({str(i): i for i in range(num_nodes)}, f)
+    labels = rng.integers(0, 2, (num_nodes, label_dim)).tolist()
+    with open(prefix + "-class_map.json", "w") as f:
+        json.dump({str(i): row for i, row in enumerate(labels)}, f)
+    return sum(os.path.getsize(prefix + suffix) for suffix in (
+        "-G.json", "-feats.npy", "-id_map.json", "-class_map.json"))
+
+
+def phase_staged(work: str, seed: int, smi: str, device: str = "cuda",
+                 ppi: dict | None = None) -> dict:
+    """Phase 12: staged data, prepared data, the other optimizers and the
+    model options, on phase 5's ppi files (``work/ppi``). Each path with
+    the launch counts set to 0 just before it and read just after."""
+    log("== phase 12: staged data, prepared data, optimizers, options")
+    from euler_tpu_torch import datasets
+    from euler_tpu_torch.datasets import build_synthetic
+    from euler_tpu_torch.graph import Graph, MemoryGraph
+    from euler_tpu_torch.models import base
+
+    t_phase = time.perf_counter()
+    ppi = ppi or datasets.PPI
+    max_id = ppi["num_nodes"] - 1
+    steps = (max_id + 1) // PPI_BATCH
+    local_dir = os.path.join(work, "ppi")
+    runs = {}
+
+    def argv(data_dir, model_dir, *extra):
+        return ["--data_dir", data_dir, "--model_dir",
+                os.path.join(work, model_dir), "--max_id", str(max_id),
+                "--seed", str(seed), *RUN_LOOP_ARGS, "--device_sampling",
+                "1", *extra]
+
+    # (a) staged and streamed
+    try:
+        import fsspec
+    except ImportError as e:
+        log(f"(a) fsspec is not importable ({e}): staged data cannot run")
+        raise
+    log(f"(a) fsspec {fsspec.__version__}")
+    mem = fsspec.filesystem("memory")
+    url = f"memory://{STAGED_ROOT}"
+    t0 = time.perf_counter()
+    uploaded = 0
+    for name in sorted(os.listdir(local_dir)):
+        if name.endswith(".dat") or name == "meta.json":
+            with open(os.path.join(local_dir, name), "rb") as f:
+                blob = f.read()
+            mem.pipe_file(f"/{STAGED_ROOT}/{name}", blob)
+            uploaded += len(blob)
+    log(f"(a) {url}: {uploaded} B put in {time.perf_counter() - t0:.3f} s")
+    cache = os.path.join(work, "staged_cache")
+    graphs, digests = {}, {}
+    try:
+        for how, kw in (("streamed", dict(directory=url, stream=True)),
+                        ("staged", dict(directory=url, cache_dir=cache)),
+                        ("local", dict(directory=local_dir))):
+            t0 = time.perf_counter()
+            graphs[how] = Graph(**kw)
+            load_ms = (time.perf_counter() - t0) * 1e3
+            on_disk = sum(os.path.getsize(os.path.join(d, n))
+                          for d, _, ns in os.walk(cache) for n in ns
+                          ) if os.path.isdir(cache) else 0
+            g = graphs[how]
+            consts = mesh_sage(max_id).build_consts(g, device)
+            digests[how] = (g.num_nodes, g.num_edges, tables_digest(consts))
+            log(f"(a) {how}: Graph({', '.join(f'{k}=' for k in kw)}) "
+                f"loaded {g.num_nodes} nodes, {g.num_edges} edges in "
+                f"{load_ms:.1f} ms, {on_disk} B in the stage cache; device "
+                f"tables ({table_bytes(consts)} B) sha256 "
+                f"{digests[how][2][:16]}")
+            del consts
+        if len(set(digests.values())) != 1:
+            raise AssertionError(f"staged loads differ: {digests}")
+    finally:
+        for g in graphs.values():
+            g.close()
+    runs["staged_ppi_stream"] = run_loop_epoch(
+        "staged_ppi_stream", argv(url, "s1", "--stream", "1"), device, smi,
+        steps)
+    mem.rm(f"/{STAGED_ROOT}", recursive=True)
+
+    # (b) the other optimizers
+    small = MemoryGraph(**build_synthetic(2000, 15, 50, 121, seed=seed + 1))
+    for opt in OTHER_OPTIMIZERS:
+        agree_cpu_cuda(mesh_sage(small.max_node_id, dim=32), small, seed,
+                       f"ppi_{opt}", optimizer=opt)
+        runs[f"run_loop_{opt}"] = run_loop_epoch(
+            f"run_loop_{opt}", argv(local_dir, f"o_{opt}", "--optimizer",
+                                    opt), device, smi, steps)
+
+    # (c) prepared: GraphSAGE-format files through the preparer's CLI
+    src = os.path.join(work, "graphsage_ppi")
+    os.makedirs(src)
+    t0 = time.perf_counter()
+    nbytes = write_graphsage_ppi(os.path.join(src, "ppi"), ppi["num_nodes"],
+                                 ppi["feature_dim"], ppi["label_dim"],
+                                 ppi["avg_degree"], seed)
+    t1 = time.perf_counter()
+    out = os.path.join(work, "prepared_ppi")
+    r = subprocess.run(
+        [sys.executable, "-m", "euler_tpu_torch.datasets", "prepare_ppi",
+         "--prefix", os.path.join(src, "ppi"), "--out", out],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=PREP_TIMEOUT_S)
+    prep_s = time.perf_counter() - t1
+    if r.returncode != 0 or r.stdout.strip() != out:
+        raise AssertionError(f"prepare_ppi exit {r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+    written = {n: os.path.getsize(os.path.join(out, n))
+               for n in sorted(os.listdir(out))}
+    log(f"(c) GraphSAGE-format ppi ({nbytes} B) written in {t1 - t0:.2f} s; "
+        f"python -m euler_tpu_torch.datasets prepare_ppi in {prep_s:.2f} s "
+        f"wrote {written}")
+    runs["prepared_ppi"] = run_loop_epoch(
+        "prepared_ppi", argv(out, "p1", "--train_node_type", "0"), device,
+        smi, steps)
+
+    # (d) the model options
+    graph = Graph(directory=local_dir)
+    f1, f2 = PPI_FANOUTS
+    agree_cpu_cuda(mesh_unsup(small.max_node_id, 32, shared_negs=True),
+                   small, seed, "graphsage_shared_negs")
+    towers = PPI_BATCH * (2 + SAGE_NEGS)
+    run = train_full(
+        mesh_unsup(max_id, shared_negs=True), graph, seed, smi,
+        "graphsage_shared_negs",
+        PPI_BATCH + towers * (f1 + f1 * f2),
+        f"{PPI_BATCH} + {towers} * {f1 + f1 * f2} sampled edges/step; each "
+        f"root against all {PPI_BATCH * SAGE_NEGS} negatives")
+    expect = {"sample_fanout2": 3 * run["steps"],
+              "sample_neighbor": run["steps"]}
+    if run["launches"] != expect:
+        raise AssertionError(f"graphsage_shared_negs launches "
+                             f"{run['launches']}, expected {expect}")
+    runs["graphsage_shared_negs"] = run
+    use_id = dict(use_id=True, embedding_dim=16)
+    agree_cpu_cuda(mesh_sage(small.max_node_id, dim=32, **use_id), small,
+                   seed, "ppi_use_id")
+    run = train_full(mesh_sage(max_id, **use_id), graph, seed, smi,
+                     "ppi_use_id", PPI_BATCH * (f1 + f1 * f2),
+                     "512 * (10 + 10*10) sampled edges/step; an id "
+                     "embedding of 16 beside the features")
+    if run["launches"] != {"sample_fanout2": run["steps"],
+                           "sample_neighbor": 0}:
+        raise AssertionError(f"ppi_use_id launches {run['launches']}")
+    runs["ppi_use_id"] = run
+    model = mesh_sage(max_id)
+    t0 = time.perf_counter()
+    os.environ["EULER_TPU_FEATURE_DTYPE"] = "bfloat16"
+    try:
+        by_env = model.build_consts(graph, device)
+    finally:
+        del os.environ["EULER_TPU_FEATURE_DTYPE"]
+    by_kwarg = mesh_sage(max_id, feature_dtype="bfloat16").build_consts(
+        graph, device)
+    ids = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, max_id + 2, 4096), dtype=torch.int32, device=device)
+    rows = [base.gather_consts({"gids": ids}, c)["dense"]
+            for c in (by_env, by_kwarg)]
+    if not (by_env["features"].dtype == torch.bfloat16
+            and torch.equal(by_env["features"], by_kwarg["features"])
+            and torch.equal(rows[0], rows[1])):
+        raise AssertionError("EULER_TPU_FEATURE_DTYPE's table differs from "
+                             "feature_dtype's")
+    log(f"(d) EULER_TPU_FEATURE_DTYPE=bfloat16: feature table "
+        f"{by_env['features'].dtype} {tuple(by_env['features'].shape)}, "
+        f"{table_bytes(by_env['features'])} B, equal to feature_dtype's; "
+        f"4,096 gathered rows equal ({time.perf_counter() - t0:.2f} s)")
+    graph.close()
+    log(f"phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
 
 def add_runs(runs: dict, new: dict) -> None:
     """``runs.update(new)``, raising where a path's name is taken: the
@@ -4730,8 +5005,11 @@ def main() -> int:
         log(f"phase 10: {t9 - t8:.1f} s")
         mesh_runs, routes = phase_mesh(work, args.seed, smi)
         add_runs(runs, mesh_runs)
-    log(f"phase 11: {time.perf_counter() - t9:.1f} s")
-    log("== phase 12: kernels")
+        t10 = time.perf_counter()
+        log(f"phase 11: {t10 - t9:.1f} s")
+        add_runs(runs, phase_staged(work, args.seed, smi))
+    log(f"phase 12: {time.perf_counter() - t10:.1f} s")
+    log("== phase 13: kernels")
     meta = {
         "sample_fanout2": dict(
             source="euler_tpu_torch/csrc/sample_fanout2.cu",

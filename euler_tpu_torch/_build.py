@@ -16,10 +16,17 @@ the stream pass as ``c_void_p``; each C entry returns
 ``cudaGetLastError()`` after its launch, which the wrapper raises on.
 A build (not a load of an earlier one) is a compile for the device
 plane: ``devprof.record_compile`` counts it with its wall time.
+
+``set_compile_cache(False)`` (the CLIs' ``--compile_cache 0``) builds
+this process's kernels anew into a directory of their own under
+``build/euler_tpu_torch/``, removed at exit, as the JAX package
+recompiles its programs without its compilation cache; unset or True
+reuses the cache across launches.
 """
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import glob
 import hashlib
@@ -39,6 +46,7 @@ NVCC_FLAGS = [
 LINK_FLAGS = ["-shared"]
 
 _lib = None
+_build_dir = BUILD_DIR  # where libraries are built and looked up
 build_log = ""  # nvcc's output (ptxas register/spill report) of this process
 build_seconds = 0.0  # 0.0 when the library came from the cache
 
@@ -68,8 +76,26 @@ def library_path() -> str:
         with open(src, "rb") as f:
             h.update(f.read())
     return os.path.join(
-        BUILD_DIR, f"libeuler_tpu_torch_{h.hexdigest()[:16]}.so"
+        _build_dir, f"libeuler_tpu_torch_{h.hexdigest()[:16]}.so"
     )
+
+
+def set_compile_cache(enabled) -> None:
+    """Reuse the build cache under ``BUILD_DIR`` (``None`` or True), or
+    build this process's kernels anew in a directory removed at exit
+    (False). A library already loaded from the other place is dropped,
+    so the next launch loads or builds from the chosen one."""
+    global _build_dir, _lib
+    want_cache = enabled is None or bool(enabled)
+    if want_cache == (_build_dir == BUILD_DIR):
+        return
+    if want_cache:
+        _build_dir = BUILD_DIR
+    else:
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        _build_dir = tempfile.mkdtemp(prefix="launch-", dir=BUILD_DIR)
+        atexit.register(shutil.rmtree, _build_dir, True)
+    _lib = None
 
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -129,7 +155,7 @@ def _compile_and_link(out: str) -> None:
     place: a concurrent process sees either no library or a whole one."""
     nvcc = _nvcc()
     srcs = [s for s in _sources() if s.endswith(".cu")]
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=_build_dir) as tmp:
         objs = [
             os.path.join(tmp, os.path.basename(s) + ".o") for s in srcs
         ]
@@ -149,7 +175,7 @@ def load_library() -> ctypes.CDLL:
         return _lib
     out = library_path()
     if not os.path.exists(out):
-        os.makedirs(BUILD_DIR, exist_ok=True)
+        os.makedirs(_build_dir, exist_ok=True)
         t0 = time.perf_counter()
         _compile_and_link(out)
         build_seconds = time.perf_counter() - t0

@@ -166,14 +166,16 @@ def params_from_flax(params) -> dict:
     ScalableSageEncoder or AttEncoder towers ``encoder`` (and
     ``context_encoder`` of the unsupervised GraphSAGE), the classifier
     ``predict/{kernel,bias}``, the ShallowEncoders ``node_encoder`` (GCN,
-    GraphSAGE, ScalableSage), ``target`` and ``context`` (LINE, Node2Vec),
+    GraphSAGE, ScalableSage; ``context_node_encoder`` of the
+    unsupervised GraphSAGE), ``target`` and ``context`` (LINE, Node2Vec),
     ScalableGCN's layers ``aggs_{l}``, and the trees of LsHNE, LasGNN and
     SparseSageEncoder (``_sparse_models``)."""
     sd = _sparse_models(params)
     for tower in ("encoder", "context_encoder"):
         if tower in params:
             sd.update(_encoder(params[tower], tower))
-    for tower in ("node_encoder", "target", "context"):
+    for tower in ("node_encoder", "context_node_encoder", "target",
+                  "context"):
         if tower in params:
             sd.update(_shallow(params[tower], tower))
     for key, tree in params.items():

@@ -1,11 +1,20 @@
-"""Synthetic benchmark graphs at the reference's scales.
+"""Synthetic benchmark graphs at the reference's scales, and the
+preparation of real datasets already on disk (counterpart of
+``euler_tpu/datasets.py``).
 
-The port's copies of ``euler_tpu.datasets.build_synthetic`` and
-``build_powerlaw``: the same numpy RNG calls in the same order, so one
-seed gives the same graph in both packages. They return the arrays that
-``graph.MemoryGraph`` takes; ``build_ppi`` and ``build_reddit`` write the
-same graphs as ``.dat`` partitions and ``meta.json`` for the engine
-client (``graph.Graph``), byte for byte the JAX package's files.
+The port's copies of ``euler_tpu.datasets.build_synthetic``,
+``build_powerlaw`` and ``build_planted``: the same numpy RNG calls in the
+same order, so one seed gives the same graph in both packages. The first
+two return the arrays that ``graph.MemoryGraph`` takes; ``build_ppi``,
+``build_reddit`` and ``build_planted`` write the graphs as ``.dat``
+partitions and ``meta.json`` for the engine client (``graph.Graph``),
+byte for byte the JAX package's files. ``prepare_ppi`` (the GraphSAGE
+release's files) and ``prepare_reddit`` (DGL's npz files) convert real
+datasets the same way, and so does the CLI:
+
+    python -m euler_tpu_torch.datasets ppi|reddit --out DIR
+    python -m euler_tpu_torch.datasets prepare_ppi --prefix P --out DIR
+    python -m euler_tpu_torch.datasets prepare_reddit --src DIR --out DIR
 
 Layout convention (matches the examples' training flags): dense feature
 slot 0 = labels (multi-/one-hot), slot 1 = input features.
@@ -301,3 +310,286 @@ def _graph_arrays(nbr_rows, labels, features) -> dict:
         "node_types": np.zeros(num_nodes, np.int32),
         "dense_features": [labels, features],
     }
+
+
+def planted_arrays(info: dict) -> dict:
+    """``graph.MemoryGraph`` arrays of a ``build_planted`` graph from its
+    ``info``: neighbors deduplicated in first-seen order (the JAX
+    builder's dict), one-hot community labels in dense slot 0 and the
+    features in slot 1."""
+    communities = info["communities"]
+    labels = np.zeros((len(communities), len(info["centroids"])),
+                      np.float32)
+    labels[np.arange(len(communities)), communities] = 1.0
+    rows = [np.fromiter(dict.fromkeys(n.tolist()), np.int64)
+            for n in info["neighbors"]]
+    return _graph_arrays(rows, labels, info["features"])
+
+
+def build_planted(
+    out_dir: str,
+    num_nodes: int = 2000,
+    num_communities: int = 4,
+    feature_dim: int = 16,
+    avg_degree: int = 10,
+    intra_p: float = 0.9,
+    noise: float = 1.0,
+    num_partitions: int = 2,
+    max_degree: int = 30,
+    seed: int = 11,
+    alpha: float | None = None,
+):
+    """A planted-community graph, the convergence gate of supervised
+    GNNs. Each node belongs to one of ``num_communities`` hidden
+    communities: its label (dense slot 0, one-hot) is the community, its
+    features (slot 1) the community's unit centroid plus ``noise`` *
+    N(0, 1), and a share ``intra_p`` of its edges stays inside the
+    community. Averaging a node's mostly-intra neighbours denoises its
+    features, which is what a neighbourhood-aggregating GNN should learn;
+    ``nearest_centroid_accuracy`` gives both separability bounds.
+    Degrees are Poisson(avg_degree) in [1, max_degree], or with ``alpha``
+    the power law of ``powerlaw_degrees`` capped at max_degree.
+
+    Returns ``(out_dir, info)``: the graph written as ``.dat`` partitions
+    and ``meta.json`` (cached by a ``done`` marker, as ``build_ppi``), and
+    the generation arrays ``communities`` [N], ``features`` [N, F],
+    ``centroids`` [K, F] and ``neighbors`` (an id array a node), drawn
+    from the seed either way (``planted_arrays`` turns them into a
+    ``MemoryGraph``'s)."""
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    centroids = rng.standard_normal((num_communities, feature_dim))
+    centroids /= np.linalg.norm(centroids, axis=1, keepdims=True)
+    communities = rng.integers(0, num_communities, num_nodes)
+    features = (centroids[communities]
+                + noise * rng.standard_normal((num_nodes, feature_dim))
+                ).astype(np.float32)
+    by_comm = [np.flatnonzero(communities == c)
+               for c in range(num_communities)]
+    if alpha is None:
+        degrees = rng.poisson(avg_degree, num_nodes).clip(1, max_degree)
+    else:
+        degrees = powerlaw_degrees(num_nodes, num_nodes * avg_degree, alpha,
+                                   rng, d_cap=max_degree)
+    neighbors = []
+    for nid in range(num_nodes):
+        d = degrees[nid]
+        intra = rng.random(d) < intra_p
+        own = by_comm[communities[nid]]
+        neighbors.append(np.where(intra, own[rng.integers(0, len(own), d)],
+                                  rng.integers(0, num_nodes, d)))
+    info = dict(communities=communities, features=features,
+                centroids=centroids, neighbors=neighbors)
+    params = json.dumps(
+        dict(kind="planted", num_nodes=num_nodes,
+             num_communities=num_communities, feature_dim=feature_dim,
+             avg_degree=avg_degree, intra_p=intra_p, noise=noise,
+             num_partitions=num_partitions, max_degree=max_degree,
+             seed=seed, alpha=alpha),
+        sort_keys=True,
+    )
+    if _cache_begin(out_dir, params):
+        return out_dir, info
+    write_dat(planted_arrays(info), out_dir, num_partitions)
+    _cache_finish(out_dir, params)
+    return out_dir, info
+
+
+def nearest_centroid_accuracy(info: dict, use_neighbors: bool) -> float:
+    """The share of nodes whose feature vector (with ``use_neighbors``,
+    averaged with its neighbours') is nearest its own community's
+    centroid: the separability bound a convergence gate holds to."""
+    feats = info["features"]
+    if use_neighbors:
+        agg = np.stack([(feats[nid] + feats[nbrs].sum(0)) / (1 + len(nbrs))
+                        for nid, nbrs in enumerate(info["neighbors"])])
+    else:
+        agg = feats
+    pred = np.argmax(agg @ info["centroids"].T, axis=1)
+    return float(np.mean(pred == info["communities"]))
+
+
+# ---------------------------------------------------------------------------
+# Real datasets already on disk (the transform halves of the reference's
+# examples/ppi_data.py and reddit_data.py, without the download): each
+# writes meta.json, part_<p>.dat partitions and {train,val,test}.id files
+# of graph node ids.
+# ---------------------------------------------------------------------------
+
+_REAL_META = {
+    "node_type_num": 3,
+    "edge_type_num": 1,
+    "node_uint64_feature_num": 0,
+    "node_float_feature_num": 2,  # 0 labels, 1 features
+    "node_binary_feature_num": 0,
+    "edge_uint64_feature_num": 0,
+    "edge_float_feature_num": 0,
+    "edge_binary_feature_num": 0,
+}
+
+
+def _write_graph(out_dir, meta, nodes_iter, id_lists, num_partitions):
+    from euler_tpu_torch.graph.convert import convert_dicts
+
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "meta.json"), "w") as f:
+        json.dump(meta, f)
+    convert_dicts(nodes_iter, meta, os.path.join(out_dir, "part"),
+                  num_partitions)
+    # graph node ids, which evaluate and save_embedding query (the
+    # reference writes the source's id_map values instead)
+    for name, ids in zip(["train.id", "val.id", "test.id"], id_lists):
+        with open(os.path.join(out_dir, name), "w") as f:
+            f.writelines("%d\n" % i for i in ids)
+    return out_dir
+
+
+def _real_node(i, ntype, nbrs, etype_of, num_etypes, labels, feats) -> dict:
+    """One node record of a prepared dataset: weight 1, its neighbours
+    grouped by each of ``num_etypes`` edge types, labels in float slot 0,
+    features in slot 1 and an edge record a neighbour."""
+    return {
+        "node_id": i,
+        "node_type": ntype,
+        "node_weight": 1,
+        "neighbor": {
+            str(t): {str(n): 1 for n in nbrs if etype_of(n) == t}
+            for t in range(num_etypes)
+        },
+        "uint64_feature": {},
+        "float_feature": {"0": labels, "1": feats},
+        "binary_feature": {},
+        "edge": [
+            {"src_id": i, "dst_id": n, "edge_type": etype_of(n),
+             "weight": 1, "uint64_feature": {}, "float_feature": {},
+             "binary_feature": {}}
+            for n in nbrs
+        ],
+    }
+
+
+def prepare_ppi(prefix: str, out_dir: str, num_partitions: int = 1,
+                normalize: bool = True) -> str:
+    """GraphSAGE-format PPI on disk -> ``.dat`` partitions.
+
+    Reads ``{prefix}-G.json`` (node-link, links index the nodes array),
+    ``{prefix}-feats.npy``, ``{prefix}-id_map.json`` and
+    ``{prefix}-class_map.json``. As the reference's
+    examples/ppi_data.py: nodes without val/test annotations are
+    dropped; node types are train 0, val 1, test 2; an edge touching a
+    val or test node has type 1 ("train_removed"), others 0; features
+    are standardized by the train split's statistics; float slot 0 is
+    the multilabel class vector, slot 1 the features."""
+    with open(prefix + "-G.json") as f:
+        g = json.load(f)
+    feats = np.load(prefix + "-feats.npy").astype(np.float64)
+    with open(prefix + "-id_map.json") as f:
+        id_map = {int(k): int(v) for k, v in json.load(f).items()}
+    with open(prefix + "-class_map.json") as f:
+        class_map = {int(k): v for k, v in json.load(f).items()}
+
+    node_ids = [n["id"] for n in g["nodes"]]
+    attrs = {n["id"]: n for n in g["nodes"]}
+    adj: dict[int, set] = {i: set() for i in node_ids}
+    for link in g["links"]:
+        s, t = node_ids[link["source"]], node_ids[link["target"]]
+        adj[s].add(t)
+        adj[t].add(s)
+    kept = [i for i in node_ids if "val" in attrs[i] and "test" in attrs[i]]
+    kept_set = set(kept)
+
+    def ntype(i):
+        return 1 if attrs[i]["val"] else (2 if attrs[i]["test"] else 0)
+
+    if normalize:
+        train_rows = np.array([id_map[i] for i in kept if ntype(i) == 0],
+                              dtype=np.int64)
+        mean = feats[train_rows].mean(axis=0)
+        std = feats[train_rows].std(axis=0)
+        std[std == 0] = 1.0
+        feats = (feats - mean) / std
+
+    def nodes_iter():
+        for i in kept:
+            labels = class_map[i]
+            labels = ([float(x) for x in labels] if isinstance(labels, list)
+                      else [float(labels)])
+            yield _real_node(
+                i, ntype(i), [n for n in adj[i] if n in kept_set],
+                lambda n, i=i: 1 if (ntype(i) or ntype(n)) else 0, 2,
+                labels, feats[id_map[i]].tolist())
+
+    ids = [[i for i in kept if ntype(i) == t] for t in range(3)]
+    return _write_graph(out_dir, dict(_REAL_META, edge_type_num=2),
+                        nodes_iter(), ids, num_partitions)
+
+
+def prepare_reddit(data_dir: str, out_dir: str,
+                   num_partitions: int = 1) -> str:
+    """DGL's reddit npz files on disk -> ``.dat`` partitions.
+
+    Reads ``{data_dir}/reddit_self_loop_graph.npz`` (a scipy CSR
+    adjacency) and ``{data_dir}/reddit_data.npz`` (feature, node_ids,
+    label, node_types). As the reference's examples/reddit_data.py: node
+    type = node_types - 1 (train 0, val 1, test 2), every edge type 0,
+    float slot 0 the one-hot label, slot 1 the features."""
+    import scipy.sparse as sp
+
+    graph = sp.load_npz(
+        os.path.join(data_dir, "reddit_self_loop_graph.npz")).tocsr()
+    data = np.load(os.path.join(data_dir, "reddit_data.npz"))
+    feats = data["feature"]
+    labels = data["label"].astype(np.int64)
+    node_types = data["node_types"].astype(np.int64)
+    num_nodes = graph.shape[0]
+    num_classes = int(labels.max()) + 1
+
+    def nodes_iter():
+        indptr, indices = graph.indptr, graph.indices
+        for i in range(num_nodes):
+            onehot = [0.0] * num_classes
+            onehot[int(labels[i])] = 1.0
+            yield _real_node(
+                i, int(node_types[i]) - 1,
+                [int(n) for n in indices[indptr[i]:indptr[i + 1]]],
+                lambda n: 0, 1, onehot, feats[i].tolist())
+
+    ids = [[i for i in range(num_nodes) if node_types[i] - 1 == t]
+           for t in range(3)]
+    return _write_graph(out_dir, dict(_REAL_META), nodes_iter(), ids,
+                        num_partitions)
+
+
+def main(argv=None) -> None:
+    """CLI: the synthetic builders and the real-data preparers.
+
+    python -m euler_tpu_torch.datasets ppi|reddit --out DIR
+    python -m euler_tpu_torch.datasets prepare_ppi --prefix P --out DIR
+    python -m euler_tpu_torch.datasets prepare_reddit --src DIR --out DIR
+    """
+    import argparse
+
+    ap = argparse.ArgumentParser(description=main.__doc__)
+    ap.add_argument("cmd", choices=[
+        "ppi", "reddit", "prepare_ppi", "prepare_reddit"])
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--prefix", help="GraphSAGE file prefix (prepare_ppi)")
+    ap.add_argument("--src", help="DGL npz directory (prepare_reddit)")
+    ap.add_argument("--partitions", type=int, default=1)
+    args = ap.parse_args(argv)
+    if args.cmd == "ppi":
+        print(build_ppi(args.out, num_partitions=args.partitions))
+    elif args.cmd == "reddit":
+        print(build_reddit(args.out, num_partitions=args.partitions))
+    elif args.cmd == "prepare_ppi":
+        if not args.prefix:
+            ap.error("prepare_ppi needs --prefix")
+        print(prepare_ppi(args.prefix, args.out, args.partitions))
+    else:
+        if not args.src:
+            ap.error("prepare_reddit needs --src")
+        print(prepare_reddit(args.src, args.out, args.partitions))
+
+
+if __name__ == "__main__":
+    main()

@@ -12,9 +12,11 @@ bit patterns pass through unchanged (default ids such as -1 wrap). The
 engine releases the GIL inside each call, so prefetch threads sample
 while the training thread drives the card.
 
-Staged data (``stream=``, ``cache_dir=``, a ``gs://`` or ``s3://``
-directory: the JAX package's ``remote_fs.py``) is not ported (ROADMAP
-A0e): asking for it raises ``NotImplementedError``. ``blackbox=``,
+Staged data (``graph/remote_fs.py``): a ``directory=`` or ``files=``
+behind an fsspec URL (``gs://``, ``s3://``, ``memory://``) is staged
+into ``cache_dir=`` before a local load, or with ``stream=True`` fetched
+into memory and parsed from there (``eg_load_buffers``), with no local
+copy; ``file://`` URLs are plain paths. ``blackbox=``,
 ``devprof=`` and ``postmortem_dir=`` arm the process's flight recorder,
 device plane and postmortem path (``euler_tpu_torch.blackbox``,
 ``devprof``), as the JAX package's graph does.
@@ -28,7 +30,9 @@ import threading
 
 import numpy as np
 
+from euler_tpu_torch.graph import remote_fs
 from euler_tpu_torch.graph.native import lib
+from euler_tpu_torch.graph.remote_fs import is_remote_path, strip_local_scheme
 
 # Feature-kind selectors of the C ABI (eg_capi.cc eg_feature_num).
 NODE_U64, NODE_F32, NODE_BIN, EDGE_U64, EDGE_F32, EDGE_BIN = range(6)
@@ -36,9 +40,6 @@ NODE_U64, NODE_F32, NODE_BIN, EDGE_U64, EDGE_F32, EDGE_BIN = range(6)
 _U64P = ctypes.POINTER(ctypes.c_uint64)
 _F32P = ctypes.POINTER(ctypes.c_float)
 _I32P = ctypes.POINTER(ctypes.c_int32)
-
-#: schemes that are plain local paths even though they carry a "://"
-_LOCAL_SCHEMES = ("file", "local")
 
 _KNOWN = (
     "directory", "files", "shard_idx", "shard_num", "mode", "registry",
@@ -82,29 +83,6 @@ def str2bool(v) -> bool:
     """The one truthy-string rule for bools that arrive as text (config
     strings here, CLI flags in run_loop)."""
     return str(v).lower() in ("1", "true", "yes", "y")
-
-
-def is_remote_path(path: str) -> bool:
-    """True for URLs that need staging (``gs://``, ``s3://``, ...)."""
-    if "://" not in path:
-        return False
-    return path.split("://", 1)[0] not in _LOCAL_SCHEMES
-
-
-def strip_local_scheme(path: str) -> str:
-    """``file:///data/x`` -> ``/data/x``; plain paths pass through."""
-    for scheme in _LOCAL_SCHEMES:
-        prefix = scheme + "://"
-        if path.startswith(prefix):
-            return path[len(prefix):] or "/"
-    return path
-
-
-def staged_data(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is staged data, not ported to euler_tpu_torch yet "
-        "(ROADMAP A0e: remote_fs.py, stream=, buffers=, cache_dir=); "
-        "pass a local directory or a file:// URL")
 
 
 def parse_config(source: str) -> dict:
@@ -230,6 +208,7 @@ class Graph:
             delta=delta, placement=flag("placement"),
             strict=flag("strict"), coalesce=flag("coalesce"),
             telemetry=flag("telemetry"), heat=flag("heat"),
+            cache_dir=pick("cache_dir"), stream=bool(flag("stream")),
         )
         for k in ("rediscover_ms", "backoff_ms", "deadline_ms",
                   "feature_cache_mb", "neighbor_cache_mb", "cache_policy",
@@ -240,10 +219,6 @@ class Graph:
         # below in both modes (a trainer's postmortem is worth a shard's)
         planes = {k: flag(k) for k in ("blackbox", "devprof")}
         postmortem_dir = pick("postmortem_dir")
-        if flag("stream"):
-            raise staged_data("stream=")
-        if pick("cache_dir") is not None:
-            raise staged_data("cache_dir=")
         if mode not in ("local", "remote"):
             raise ValueError("mode must be 'local' or 'remote'")
         if directory is not None and files:
@@ -272,6 +247,13 @@ class Graph:
                 "merge their own delta files: use load_delta(path, "
                 "shard=...) or `python -m euler_tpu_torch.graph.service "
                 "--load_delta`)")
+        if p["stream"] and mode != "local":
+            # never dropped without a word: a remote client reads no graph
+            # data itself; its shards stage their own
+            raise ValueError(
+                "stream=True applies to mode='local' graphs (remote-mode "
+                "clients read from shard services, which stage their own "
+                "data)")
         if init not in ("eager", "lazy"):
             raise ValueError("init must be 'eager' or 'lazy'")
         # kill-switches first, then the postmortem path, before the engine
@@ -368,22 +350,47 @@ class Graph:
                                    + self._lib.eg_last_error().decode())
             self._handle = h
             return
-        directory, files = p["directory"], p["files"]
+        directory, buffers = p["directory"], None
+        files = [str(f) for f in p["files"]] if p["files"] else None
         if directory is not None:
             directory = str(directory)
             if is_remote_path(directory):
-                raise staged_data(f"directory={directory!r}")
-            directory = strip_local_scheme(directory)
-        if files and directory is None and any(
-                is_remote_path(str(f)) for f in files):
-            raise staged_data("files= on a remote filesystem")
+                # this shard's partitions only; the engine's own filter
+                # on the staged names is then a no-op
+                if p["stream"]:
+                    buffers = remote_fs.read_directory(
+                        directory, p["shard_idx"], p["shard_num"])
+                else:
+                    directory = remote_fs.stage_directory(
+                        directory, cache_dir=p["cache_dir"],
+                        shard_idx=p["shard_idx"], shard_num=p["shard_num"])
+            else:
+                directory = strip_local_scheme(directory)
+        elif files:
+            # stream= is never dropped: a disk-poor host asked for no copy
+            if p["stream"]:
+                buffers = remote_fs.read_files(files)
+            else:
+                files = remote_fs.stage_files(files,
+                                              cache_dir=p["cache_dir"])
         h = self._lib.eg_create()
-        if directory is not None:
+        if buffers is not None:
+            n = len(buffers)
+            names = (ctypes.c_char_p * n)(*[nm.encode() for nm, _ in buffers])
+            bufs = (ctypes.c_void_p * n)()
+            lens = (ctypes.c_uint64 * n)()
+            for i, (_, blob) in enumerate(buffers):
+                bufs[i] = ctypes.cast(ctypes.c_char_p(blob), ctypes.c_void_p)
+                lens[i] = len(blob)
+            # ``buffers`` holds the bytes through the call; the engine
+            # copies them while parsing
+            rc = self._lib.eg_load_buffers(h, bufs, lens, names, n)
+        elif directory is not None:
             rc = self._lib.eg_load(h, directory.encode(),
                                    p["shard_idx"], p["shard_num"])
         elif files:
             arr = (ctypes.c_char_p * len(files))(
-                *[strip_local_scheme(str(f)).encode() for f in files])
+                *[f.encode() for f in files])
             rc = self._lib.eg_load_files(h, arr, len(files))
         else:
             self._lib.eg_destroy(h)

@@ -122,6 +122,8 @@ def lib() -> ctypes.CDLL:
     _sig(L.eg_destroy, None, [p])
     _sig(L.eg_load, c.c_int, [p, c.c_char_p, c.c_int, c.c_int])
     _sig(L.eg_load_files, c.c_int, [p, c.POINTER(c.c_char_p), c.c_int])
+    _sig(L.eg_load_buffers, c.c_int,
+         [p, c.POINTER(c.c_void_p), u64p, c.POINTER(c.c_char_p), c.c_int])
     _sig(L.eg_load_deltas, c.c_int, [p, c.c_char_p])
     _sig(L.eg_graph_epoch, c.c_uint64, [p])
     _sig(L.eg_seed, None, [c.c_uint64])

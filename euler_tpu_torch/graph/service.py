@@ -18,6 +18,9 @@ The standalone process wires SIGTERM to that drain:
     python -m euler_tpu_torch.graph.service --data_dir d --shard_idx 0 \\
         --shard_num 2 --registry /shared/reg
 
+A ``data_dir`` behind an fsspec URL (``gs://``, ``memory://``) is
+staged for this shard first (``graph/remote_fs.py``).
+
 The shard speaks the JAX package's wire protocol (the engine is one
 copy), so either package's client reads either package's shards.
 """
@@ -26,8 +29,7 @@ from __future__ import annotations
 
 import os
 
-from euler_tpu_torch.graph.graph import (is_remote_path, staged_data,
-                                         strip_local_scheme)
+from euler_tpu_torch.graph import remote_fs
 from euler_tpu_torch.graph.native import lib
 
 
@@ -52,9 +54,13 @@ class GraphService:
         self._lib = lib()
         self._h = None
         data_dir = str(data_dir)
-        if is_remote_path(data_dir):
-            raise staged_data(f"data_dir={data_dir!r}")
-        data_dir = strip_local_scheme(data_dir)
+        if remote_fs.is_remote_path(data_dir):
+            # a shard on a remote directory stages its own partitions
+            # (into $EULER_TPU_CACHE) before the native loader reads them
+            data_dir = remote_fs.stage_directory(
+                data_dir, shard_idx=shard_idx, shard_num=shard_num)
+        else:
+            data_dir = remote_fs.strip_local_scheme(data_dir)
         # the common admission knobs get keywords; the long tail
         # (max_conns, io_timeout_ms, idle_timeout_ms, linger_ms, drain_ms,
         # wire_version, telemetry, slow_spans, heat, heat_topk) rides in

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import os
 import warnings
 from typing import Any, Optional
 
@@ -68,6 +69,19 @@ def unsupervised_decoder(emb, emb_pos, emb_negs, xent_loss: bool):
     against 0; else ``-sum(logit - logsumexp(neg_logits))``."""
     logits = torch.einsum("bid,bjd->bij", emb, emb_pos)  # [B, 1, 1]
     neg_logits = torch.einsum("bid,bjd->bij", emb, emb_negs)  # [B, 1, n]
+    return _negative_sampling_loss(logits, neg_logits, xent_loss)
+
+
+def shared_negs_decoder(emb, emb_pos, emb_negs, xent_loss: bool):
+    """``unsupervised_decoder`` with negatives shared by the whole batch
+    (the reference's UnsupervisedModelV2): ``emb_negs`` [n, d], each
+    root scored against all n."""
+    logits = torch.einsum("bid,bjd->bij", emb, emb_pos)  # [B, 1, 1]
+    neg_logits = torch.einsum("bid,nd->bin", emb, emb_negs)  # [B, 1, n]
+    return _negative_sampling_loss(logits, neg_logits, xent_loss)
+
+
+def _negative_sampling_loss(logits, neg_logits, xent_loss: bool):
     mrr = metrics.mrr(logits, neg_logits)
     if xent_loss:
         loss = F.binary_cross_entropy_with_logits(
@@ -125,12 +139,14 @@ def gather_consts(feats: dict, consts: dict) -> dict:
 
 def _feature_table_dtype(name: str) -> torch.dtype:
     """The ``torch`` dtype of a feature-table dtype name (``"bfloat16"``,
-    ``"float16"``, ``"float32"``); anything else raises."""
+    ``"float16"``, ``"float32"``); anything else raises, naming both
+    places the name comes from."""
     dtype = getattr(torch, str(name), None)
     if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
         raise ValueError(
             f"bad feature table dtype {name!r} (from the feature_dtype "
-            "kwarg; use a floating dtype name like 'bfloat16')"
+            "kwarg or EULER_TPU_FEATURE_DTYPE; use a floating dtype name "
+            "like 'bfloat16')"
         )
     return dtype
 
@@ -703,7 +719,8 @@ class Model:
     def build_consts(self, graph, device) -> dict:
         """Device-resident lookup tables, uploaded once at init. Row
         max_id+1 is the default/padding node (zeros). The feature table
-        takes ``feature_dtype`` (converted on the host, so the upload
+        takes ``feature_dtype``, else the process-wide
+        ``EULER_TPU_FEATURE_DTYPE`` (converted on the host, so the upload
         moves the narrow bytes); labels stay float32, as loss targets.
         Sparse slots (``sparse_feature_idx``) get padded tables whose
         padding id is each slot's max id + 1. A host-features model has
@@ -716,8 +733,10 @@ class Model:
         if self.feature_idx >= 0:
             table = torch.as_tensor(graph.get_dense_feature(
                 ids, [self.feature_idx], [self.feature_dim]))
-            if self.feature_dtype:
-                table = table.to(_feature_table_dtype(self.feature_dtype))
+            dtype = self.feature_dtype or os.environ.get(
+                "EULER_TPU_FEATURE_DTYPE")
+            if dtype:
+                table = table.to(_feature_table_dtype(dtype))
             consts["features"] = table.to(device)
         if self.label_idx >= 0:
             consts["labels"] = torch.as_tensor(

@@ -34,15 +34,16 @@ from euler_tpu_torch.nn.encoders import (ScalableSageEncoder, SageEncoder,
 from euler_tpu_torch.nn.layers import Dense, Embedding
 
 
-def _sampled_hops(consts, adj_keys, roots, fanouts, words, u):
+def _sampled_hops(consts, adj_keys, roots, fanouts, words, u,
+                  use_id: bool = False):
     """The fanout of ``roots`` drawn on the device from the adjacencies
     (slabs or alias tables) ``consts["adj"][k]`` of ``adj_keys`` with the
     Philox stream ``words``
     (or the injected per-hop uniforms ``u``), as ``{"gids": ids}`` node
-    sets, one a hop."""
+    sets, one a hop (and ``"ids"`` under ``use_id``)."""
     adjs = [consts["adj"][k] for k in adj_keys]
     ids = device_graph.sample_fanout(adjs, roots, fanouts, words, u=u)
-    return [{"gids": i} for i in ids]
+    return [base.id_feats(i, use_id) for i in ids]
 
 
 class _SupervisedSageModule(nn.Module):
@@ -57,14 +58,19 @@ class _SupervisedSageModule(nn.Module):
         sigmoid_loss: bool = True,
         hop_adj_keys: Sequence[str] = (),
         sparse_feature_max_ids: Sequence[int] = (),
+        max_id: int = -1,
+        embedding_dim: int = 16,
         generator=None,
     ):
         super().__init__()
         self.fanouts = list(fanouts)
         self.sigmoid_loss = sigmoid_loss
         self.hop_adj_keys = list(hop_adj_keys)
+        # use_id: an id embedding (max_id >= 0) beside the features
+        self.use_id = max_id >= 0
         self.node_encoder = ShallowEncoder(
-            feature_dim=feature_dim,
+            feature_dim=feature_dim, max_id=max_id,
+            embedding_dim=embedding_dim,
             sparse_feature_max_ids=sparse_feature_max_ids)
         self.encoder = SageEncoder(
             self.node_encoder.output_dim, fanouts, dim, aggregator, concat
@@ -83,7 +89,7 @@ class _SupervisedSageModule(nn.Module):
         return _sampled_hops(consts, self.hop_adj_keys, batch["roots"],
                              self.fanouts,
                              device_graph.seed_words(batch["seed"]),
-                             batch.get("u"))
+                             batch.get("u"), self.use_id)
 
     def _embed_hops(self, hops, consts):
         hidden = [
@@ -121,7 +127,7 @@ class SupervisedGraphSage(base.Model):
     chooses capped slabs or alias tables. Sparse slots
     (``sparse_feature_idx``, with their max ids) add one
     ``SparseEmbedding`` each to the node encoder, over padded device
-    tables."""
+    tables; ``use_id`` adds an id embedding of ``embedding_dim``."""
 
     metric_name = "f1"
 
@@ -146,6 +152,8 @@ class SupervisedGraphSage(base.Model):
         sparse_feature_idx: Sequence[int] = (),
         sparse_feature_max_ids: Sequence[int] = (),
         sparse_max_len: int = 16,
+        use_id: bool = False,
+        embedding_dim: int = 16,
     ):
         self.device_features, self.device_sampling = base.check_device_mode(
             "SupervisedGraphSage", device_features, device_sampling,
@@ -164,6 +172,7 @@ class SupervisedGraphSage(base.Model):
         self.feature_dim = feature_dim
         self.max_id = max_id
         self.train_node_type = train_node_type
+        self.use_id = use_id
         self._module_kwargs = dict(
             fanouts=tuple(fanouts),
             dim=dim,
@@ -174,6 +183,8 @@ class SupervisedGraphSage(base.Model):
             sigmoid_loss=sigmoid_loss,
             hop_adj_keys=tuple(self.adj_key(m) for m in self.metapath),
             sparse_feature_max_ids=tuple(sparse_feature_max_ids),
+            max_id=max_id if use_id else -1,
+            embedding_dim=embedding_dim,
         )
 
     def make_module(self, generator=None) -> _SupervisedSageModule:
@@ -426,6 +437,9 @@ class _UnsupervisedSageModule(nn.Module):
         hop_adj_keys: Sequence[str] = (),
         pos_adj_key: str = "",
         num_negs: int = 5,
+        max_id: int = -1,
+        embedding_dim: int = 16,
+        shared_negs: bool = False,
         generator=None,
     ):
         super().__init__()
@@ -434,17 +448,21 @@ class _UnsupervisedSageModule(nn.Module):
         self.hop_adj_keys = list(hop_adj_keys)
         self.pos_adj_key = pos_adj_key
         self.num_negs = num_negs
-        self.node_encoder = ShallowEncoder(feature_dim=feature_dim)
+        self.shared_negs = shared_negs
+        self.use_id = max_id >= 0
+        enc = dict(feature_dim=feature_dim, max_id=max_id,
+                   embedding_dim=embedding_dim)
+        self.node_encoder = ShallowEncoder(**enc)
         self.encoder = SageEncoder(
             self.node_encoder.output_dim, fanouts, dim, aggregator, concat
         )
-        self.context_node_encoder = ShallowEncoder(feature_dim=feature_dim)
+        self.context_node_encoder = ShallowEncoder(**enc)
         self.context_encoder = SageEncoder(
             self.context_node_encoder.output_dim, fanouts, dim, aggregator,
             concat,
         )
         for m in self.modules():
-            if isinstance(m, Dense):
+            if isinstance(m, (Dense, Embedding)):
                 m.reset_parameters(generator)
 
     def _encode(self, hops, context: bool, consts):
@@ -484,7 +502,7 @@ class _UnsupervisedSageModule(nn.Module):
         )
         return tuple(
             _sampled_hops(consts, self.hop_adj_keys, ids, self.fanouts,
-                          words[name], u.get(name))
+                          words[name], u.get(name), self.use_id)
             for name, ids in (("src_hops", roots), ("pos_hops", pos),
                               ("neg_hops", negs))
         )
@@ -500,10 +518,16 @@ class _UnsupervisedSageModule(nn.Module):
         emb_pos = self._encode(pos_hops, True, consts)
         emb_negs = self._encode(neg_hops, True, consts)
         b, d = emb.shape
-        loss, mrr = base.unsupervised_decoder(
-            emb.reshape(b, 1, d), emb_pos.reshape(b, 1, d),
-            emb_negs.reshape(b, -1, d), self.xent_loss,
-        )
+        if self.shared_negs:
+            # every root against all of the batch's negatives
+            loss, mrr = base.shared_negs_decoder(
+                emb.reshape(b, 1, d), emb_pos.reshape(b, 1, d), emb_negs,
+                self.xent_loss)
+        else:
+            loss, mrr = base.unsupervised_decoder(
+                emb.reshape(b, 1, d), emb_pos.reshape(b, 1, d),
+                emb_negs.reshape(b, -1, d), self.xent_loss,
+            )
         return base.ModelOutput(
             embedding=emb, loss=loss, metric_name="mrr", metric=mrr
         )
@@ -515,7 +539,10 @@ class GraphSage(base.Model):
     batches (``device_sampling=False``, features from the host or the
     device tables): positives are one neighbor of each root (edge
     types ``edge_type``), negatives are ``num_negs`` typed draws
-    (``node_type``) per root."""
+    (``node_type``) per root; with ``shared_negs`` every root is scored
+    against all of the batch's negatives (``base.shared_negs_decoder``),
+    which the JAX package sets on its module. ``use_id`` adds an id
+    embedding of ``embedding_dim`` to both towers."""
 
     metric_name = "mrr"
     batch_loss = "sum"
@@ -537,6 +564,9 @@ class GraphSage(base.Model):
         device_features: bool = False,
         device_sampling: bool = False,
         feature_dtype: Optional[str] = None,
+        use_id: bool = False,
+        embedding_dim: int = 16,
+        shared_negs: bool = False,
     ):
         self.device_features, self.device_sampling = base.check_device_mode(
             "GraphSage", device_features, device_sampling, feature_idx,
@@ -551,16 +581,20 @@ class GraphSage(base.Model):
         self.feature_idx = feature_idx
         self.feature_dim = feature_dim
         self.max_id = max_id
+        self.use_id = use_id
         self._module_kwargs = dict(
             fanouts=tuple(fanouts),
             dim=dim,
-            feature_dim=feature_dim,
+            feature_dim=feature_dim if feature_idx >= 0 else 0,
             aggregator=aggregator,
             concat=concat,
             xent_loss=xent_loss,
             hop_adj_keys=tuple(self.adj_key(m) for m in self.metapath),
             pos_adj_key=self.adj_key(self.edge_type),
             num_negs=num_negs,
+            max_id=max_id if use_id else -1,
+            embedding_dim=embedding_dim,
+            shared_negs=shared_negs,
         )
 
     def make_module(self, generator=None) -> _UnsupervisedSageModule:

@@ -60,11 +60,14 @@ class _ShallowUnsupModule(nn.Module):
         walk_p: float = 1.0,
         walk_q: float = 1.0,
         walk_trials: int = 0,
+        sparse_feature_max_ids: Sequence[int] = (),
+        has_sparse: bool = False,
         generator=None,
     ):
         super().__init__()
         kw = dict(dim=dim, feature_dim=feature_dim, max_id=max_id,
-                  embedding_dim=embedding_dim, combiner=combiner)
+                  embedding_dim=embedding_dim, combiner=combiner,
+                  sparse_feature_max_ids=tuple(sparse_feature_max_ids))
         self.target = ShallowEncoder(**kw)
         self.context = None if share_context else ShallowEncoder(**kw)
         self.max_id = max_id
@@ -73,6 +76,7 @@ class _ShallowUnsupModule(nn.Module):
         self.adj_key = adj_key
         self.walk_len = walk_len
         self.has_features = has_features
+        self.has_sparse = has_sparse
         self.walk_p = walk_p
         self.walk_q = walk_q
         self.walk_trials = walk_trials
@@ -94,7 +98,7 @@ class _ShallowUnsupModule(nn.Module):
         f = {}
         if self.max_id >= 0:
             f["ids"] = ids
-        if self.has_features:
+        if self.has_features or self.has_sparse:
             f["gids"] = ids
         return f
 
@@ -163,9 +167,11 @@ class _ShallowUnsupModule(nn.Module):
 class _ShallowUnsupervised(base.Model):
     """Shared host plumbing of LINE and Node2Vec: in device-sampling mode
     the adjacency of ``edge_type`` (id-sorted when ``adj_sorted``), typed
-    negatives and roots of ``node_type``, the id embedding (``use_id``)
-    and an optional device feature table; on the host, the (src, pos,
-    negs) node sets of ``sample``."""
+    negatives and roots of ``node_type``, the id embedding (``use_id``),
+    an optional device feature table and sparse slots
+    (``sparse_feature_idx``, one ``SparseEmbedding`` each, over padded
+    device tables or host gathers); on the host, the (src, pos, negs)
+    node sets of ``sample``."""
 
     metric_name = "mrr"
     batch_loss = "sum"
@@ -187,20 +193,18 @@ class _ShallowUnsupervised(base.Model):
         device_sampling: bool = False,
     ):
         name = type(self).__name__
-        if sparse_feature_idx or sparse_feature_max_ids:
-            raise NotImplementedError(
-                f"{name}: sparse-feature slots (SparseEmbedding) are not "
-                "ported")
         if max_id < 0:
             raise ValueError(f"{name} needs max_id >= 0 (its tables are "
                              "sized max_id+2)")
         self.device_features = base.resolve_device_features(
-            device_features, feature_idx, max_id)
+            device_features, feature_idx, max_id,
+            has_sparse=bool(sparse_feature_idx))
         # the id embedding needs no feature table: device sampling runs
         # with use_id alone, and needs device features only for features
-        if device_sampling and not self.device_features and feature_idx >= 0:
+        if device_sampling and not self.device_features and (
+                feature_idx >= 0 or sparse_feature_idx):
             raise ValueError(
-                "device_sampling with dense features requires "
+                "device_sampling with dense/sparse features requires "
                 "device_features=True (the tables must be on the card)")
         self.device_sampling = bool(device_sampling)
         self.feature_dtype = feature_dtype
@@ -210,6 +214,9 @@ class _ShallowUnsupervised(base.Model):
         self.feature_dim = feature_dim
         self.use_id = use_id
         self.num_negs = num_negs
+        self.sparse_feature_idx = list(sparse_feature_idx)
+        self.sparse_feature_max_ids = list(sparse_feature_max_ids)
+        self.sparse_max_len = sparse_max_len
 
     def _module_common(self) -> dict:
         return dict(
@@ -217,6 +224,9 @@ class _ShallowUnsupervised(base.Model):
             max_id=self.max_id if self.use_id else -1,
             num_negs=self.num_negs,
             has_features=self.device_features and self.feature_idx >= 0,
+            sparse_feature_max_ids=tuple(self.sparse_feature_max_ids),
+            has_sparse=self.device_features and bool(
+                self.sparse_feature_idx),
         )
 
     def make_module(self, generator=None) -> _ShallowUnsupModule:

@@ -66,3 +66,10 @@ def auc_from_counts(counts) -> float:
     neg_below = np.concatenate([[0.0], np.cumsum(neg)[:-1]])
     wins = np.sum(pos * (neg_below + 0.5 * neg))
     return float(wins / (p_tot * n_tot))
+
+
+def accuracy(labels, predictions) -> torch.Tensor:
+    """The share of rows whose argmax label is the argmax prediction (the
+    first maximum on ties, as ``jnp.argmax``)."""
+    return (labels.argmax(-1) == predictions.argmax(-1)).to(
+        torch.float32).mean()

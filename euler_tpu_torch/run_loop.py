@@ -49,10 +49,15 @@ checkpoints, ``eval.json`` and the export; a mesh run's checkpoint is
 served by ``python -m euler_tpu_torch.serve`` (``--serve_after`` serves
 from the training process, and refuses a mesh run).
 
-Flags of features not ported yet raise ``NotImplementedError`` naming
-their ROADMAP item when set away from their defaults: staged data
-(``--stream``, A0e) and XLA's compilation cache (``--compile_cache``,
-A11: the port caches its built kernels under ``build/``).
+A ``--data_dir`` behind an fsspec URL (``gs://``, ``memory://``) is
+staged into the local cache before the engine loads it, or with
+``--stream 1`` (local graphs only) fetched into memory and parsed from
+there (``graph/remote_fs.py``). ``--optimizer`` is the JAX package's:
+``sgd``, ``momentum``, ``adagrad`` (optax's) or ``adam``.
+``--compile_cache`` names the JAX package's XLA program cache; the
+port's counterpart is the cache of built kernels under
+``build/euler_tpu_torch/`` (unset or 1: reused across launches; 0: this
+launch's kernels built anew, ``_build.set_compile_cache``).
 
 Usage:  python -m euler_tpu_torch --data_dir ... --model graphsage_supervised
 """
@@ -78,16 +83,6 @@ from euler_tpu_torch.serving import add_serve_flags, serve_flag_overrides
 
 log = logging.getLogger("euler_tpu_torch")
 
-# the JAX package's optimizer names; the port has adam (ROADMAP A4)
-_OPTIMIZER_NAMES = ("adagrad", "adam", "momentum", "sgd")
-
-# flags of features not ported yet: (flag, default, ROADMAP item, what)
-_NOT_PORTED = (
-    ("stream", False, "A0e", "streaming ingest of staged data"),
-    ("compile_cache", None, "A11",
-     "XLA's persistent compilation cache (the port's kernels are cached "
-     "built under build/)"),
-)
 
 
 def _str2bool(v) -> bool:
@@ -171,7 +166,8 @@ def define_flags(parser: Optional[argparse.ArgumentParser] = None):
     # training
     p.add_argument("--model_dir", default="ckpt")
     p.add_argument("--batch_size", type=int, default=512)
-    p.add_argument("--optimizer", default="adam", choices=_OPTIMIZER_NAMES)
+    p.add_argument("--optimizer", default="adam",
+                   choices=sorted(train_lib.OPTIMIZERS))
     p.add_argument("--learning_rate", type=float, default=0.01)
     p.add_argument("--num_epochs", type=int, default=20)
     p.add_argument("--log_steps", type=int, default=20)
@@ -207,18 +203,14 @@ def define_flags(parser: Optional[argparse.ArgumentParser] = None):
 
 
 def check_flags(args) -> None:
-    """Raise for a flag of an unported feature set away from its default
-    (it would otherwise do nothing)."""
-    for name, default, item, what in _NOT_PORTED:
-        value = getattr(args, name)
-        if value != default:
-            raise NotImplementedError(
-                f"--{name}={value}: {what} is not ported to euler_tpu_torch "
-                f"yet (ROADMAP {item})")
-    if args.optimizer != "adam":
-        raise NotImplementedError(
-            f"--optimizer={args.optimizer} is not ported yet (ROADMAP A4); "
-            "the port has adam")
+    """Refuse graph flags that would silently do nothing: ``--stream``
+    off a local graph (remote clients read no graph data; the shards
+    stage their own), with the JAX CLI's message."""
+    if args.stream and args.graph_mode != "local":
+        raise ValueError(
+            "--stream is only supported with --graph_mode=local "
+            "(shared/remote services stage their shard to the local "
+            "cache; see DEPLOY.md 'Remote data')")
 
 
 def check_serve_flags(args) -> None:
@@ -335,6 +327,7 @@ def build_graph(args):
     client's flags raise on a local graph."""
     from euler_tpu_torch.graph import Graph, GraphService
 
+    check_flags(args)
     services = []
     if args.fault and args.graph_mode == "local":
         raise ValueError(
@@ -350,7 +343,7 @@ def build_graph(args):
             "configure the remote client's request path; a local graph "
             "reads its own memory)")
     if args.graph_mode == "local":
-        return Graph(directory=args.data_dir), services
+        return Graph(directory=args.data_dir, stream=args.stream), services
     if args.graph_mode == "remote":
         return _remote_graph(
             args, args.registry or None,
@@ -706,13 +699,15 @@ def run_save_embedding(model, graph, args, device=None, mesh=None):
 def setup_planes(args, device) -> None:
     """Arm the observability planes from the flags, before any graph or
     service exists (so discovery records too, and a crash while loading
-    leaves a postmortem): the telemetry and flight-recorder switches,
+    leaves a postmortem), and choose where the kernels build
+    (``--compile_cache``): the telemetry and flight-recorder switches,
     the device plane for ``device`` with its memory sampled each second,
     and with ``--postmortem_dir`` the fatal-signal dump (labelled with
     ``--process_id``)."""
-    from euler_tpu_torch import devprof
+    from euler_tpu_torch import _build, devprof
     from euler_tpu_torch.telemetry import set_telemetry
 
+    _build.set_compile_cache(args.compile_cache)
     set_telemetry(bool(args.telemetry))
     blackbox.set_blackbox(bool(args.blackbox))
     devprof.setup(enabled=args.devprof, device=device, sample_ms=1000)

@@ -22,7 +22,47 @@ from euler_tpu_torch.parallel import pipeline, prefetch
 
 log = logging.getLogger("euler_tpu_torch")
 
+class Adagrad(torch.optim.Optimizer):
+    """``optax.adagrad``, which ``torch.optim.Adagrad`` is not: each
+    parameter's accumulator starts at ``initial_accumulator_value`` (0.1,
+    not 0), and the update is ``-lr * g * rsqrt(acc + eps)`` with ``eps``
+    inside the root (1e-7), where an accumulator of 0 gives an update of
+    0 (torch divides by ``sqrt(acc) + 1e-10``)."""
+
+    def __init__(self, params, lr: float,
+                 initial_accumulator_value: float = 0.1, eps: float = 1e-7):
+        super().__init__(params, dict(
+            lr=lr, initial_accumulator_value=initial_accumulator_value,
+            eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["sum"] = torch.full_like(
+                        p, group["initial_accumulator_value"])
+                acc = state["sum"]
+                acc.addcmul_(p.grad, p.grad)
+                scale = torch.where(acc > 0, torch.rsqrt(acc + group["eps"]),
+                                    torch.zeros_like(acc))
+                p.add_(scale.mul_(p.grad).mul_(-group["lr"]))
+        return loss
+
+
 OPTIMIZERS = {
+    # optax.sgd is plain SGD, and with momentum optax.trace: t = g + m t,
+    # the step -lr t, which is torch's SGD with dampening 0
+    "sgd": torch.optim.SGD,
+    "momentum": functools.partial(torch.optim.SGD, momentum=0.9),
+    "adagrad": Adagrad,
     # optax.adam's defaults are torch's: b1 0.9, b2 0.999, eps 1e-8 added
     # outside the square root
     "adam": torch.optim.Adam,
@@ -31,10 +71,11 @@ OPTIMIZERS = {
 
 def get_optimizer(name: str, lr: float):
     """A factory ``params -> torch.optim.Optimizer`` (the part optax's
-    ``init`` plays), for ``Model.init_state``."""
+    ``init`` plays), for ``Model.init_state``: the JAX package's
+    ``sgd``, ``momentum`` (0.9), ``adagrad`` and ``adam``."""
     if name not in OPTIMIZERS:
         raise ValueError(
-            f"optimizer {name!r} is not ported; have {sorted(OPTIMIZERS)}"
+            f"unknown optimizer {name!r}; have {sorted(OPTIMIZERS)}"
         )
     return functools.partial(OPTIMIZERS[name], lr=lr)
 

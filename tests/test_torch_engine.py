@@ -262,18 +262,15 @@ def test_tables_from_the_engine_equal_the_memory_graph(tmp_path):
 def test_local_mode_only_options_raise(graphs, tmp_path, kw):
     """On a local graph (here over an empty directory) each option raises
     what the JAX client raises: a remote graph without a registry, mode
-    'shared', the remote client's keys, and a load of no partitions;
-    ``stream=`` is staged data and names ROADMAP A0e. A missing delta
-    file raises in both, and an unknown keyword is a TypeError."""
+    'shared', the remote client's keys, and a load of no partitions
+    (``stream=`` of a local directory included: it loads the files as
+    they are). A missing delta file raises in both, and an unknown
+    keyword is a TypeError."""
     with pytest.raises(Exception) as jerr:
         euler_tpu.Graph(directory=str(tmp_path), **kw)
-    if "stream" in kw:
-        with pytest.raises(NotImplementedError, match="A0e"):
-            Graph(directory=str(tmp_path), **kw)
-    else:
-        with pytest.raises(type(jerr.value)) as terr:
-            Graph(directory=str(tmp_path), **kw)
-        assert str(terr.value).split(":")[0] == str(jerr.value).split(":")[0]
+    with pytest.raises(type(jerr.value)) as terr:
+        Graph(directory=str(tmp_path), **kw)
+    assert str(terr.value).split(":")[0] == str(jerr.value).split(":")[0]
     for g in graphs[:2]:
         with pytest.raises(RuntimeError):
             g.load_delta(str(tmp_path / "x.delta.1"))

@@ -317,8 +317,8 @@ backend, dev = M.init_distributed(addr, 2, pid, "cpu")
 g = Graph(directory=job["dir"])
 res = {"backend": backend}
 
-def port_state(cls, kw, params, mesh):
-    st = cls(**kw).init_state(g, train.get_optimizer("adam", job["lr"]),
+def port_state(cls, kw, params, mesh, opt="adam"):
+    st = cls(**kw).init_state(g, train.get_optimizer(opt, job["lr"]),
                               device="cpu")
     st["module"].load_state_dict(params_from_flax(params))
     return st
@@ -338,6 +338,16 @@ for mp in (1, 2):
                           st["module"].state_dict().items()},
                "features": st["consts"]["features"].local.numpy()
                if mp > 1 else None}
+
+# the same steps at model 2 under optax's adagrad
+mesh = M.make_mesh(2, 2)
+st = M.shard_state(port_state(SupervisedGraphSage, job["sage_kw"],
+                              job["sage_params"], mesh, "adagrad"), mesh)
+step = SupervisedGraphSage(**job["sage_kw"]).make_train_step(mesh)
+res["adagrad"] = [
+    float(step(st, base.to_device(M.shard_batch(b, mesh, job["batch"]),
+                                  "cpu"))[0])
+    for b in job["sage_batches"]]
 
 res["scalable"] = {}
 for mp in (1, 2):
@@ -371,9 +381,12 @@ def _host_batches(model, graph, roots_list, seed0):
     return out
 
 
-def _jax_mesh_steps(model, state, batches, mp):
+def _jax_mesh_steps(model, state, batches, mp, opt=None):
     mesh = jmesh.make_mesh(2, model_parallel=mp)
-    opt = optax.adam(LR)
+    if opt is None:
+        opt = optax.adam(LR)
+    else:  # the state's moments are adam's: start the given optimizer's
+        state = dict(state, opt_state=opt.init(state["params"]))
     state = jmesh.pad_tables_for_mesh(state, mesh)
     shardings = jmesh.state_sharding(mesh, state)
     state = jax.device_put(state, shardings)
@@ -402,6 +415,8 @@ def gloo_run(graph, jax_states, fixture_dir, tmp_path_factory):
     scal_batches = _host_batches(scal, graph, roots[:2], 200)
     jax_losses = {mp: _jax_mesh_steps(sage, s0, sage_batches, mp)[1]
                   for mp in (1, 2)}
+    jax_losses["adagrad"] = _jax_mesh_steps(sage, s0, sage_batches, 2,
+                                            optax.adagrad(LR))[1]
     scal_jax = {mp: _jax_mesh_steps(scal, c0, scal_batches, mp)
                 for mp in (1, 2)}
     job = dict(dir=fixture_dir, lr=LR, batch=BATCH, sage_kw=_sage_kw(),
@@ -444,6 +459,17 @@ def test_gloo_sage_matches_jax_mesh(gloo_run, mp):
         want = np.pad(gloo_run["features"], [(0, 0), (0, 0)])
         assert r0["features"].shape[0] == 9
         np.testing.assert_array_equal(full, want)
+
+
+def test_gloo_sage_adagrad_matches_jax_mesh(gloo_run):
+    """``--optimizer adagrad`` over the mesh: the same three steps at
+    model 2 under the port's optax-exact Adagrad track JAX's mesh run
+    under ``optax.adagrad`` within rtol 1e-5, equal on both ranks."""
+    r0, r1 = (r["adagrad"] for r in gloo_run["ranks"])
+    np.testing.assert_allclose(r0, gloo_run["jax"]["adagrad"],
+                               rtol=LOSS_RTOL)
+    assert r0 == r1
+    assert r0 != gloo_run["ranks"][0][2]["losses"]  # not adam's
 
 
 @pytest.mark.parametrize("mp", [1, 2])

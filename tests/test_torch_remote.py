@@ -594,27 +594,50 @@ def test_run_loop_graph_modes(cluster, tmp_path, mode):
     (["--graph_mode", "shared", "--registry", "tcp://127.0.0.1:0",
       "--num_processes", "2", "--process_id", "1"], ValueError,
      "needs the registry's port"),
-    (["--graph_mode", "remote", "--stream", "1"], NotImplementedError,
-     "A0e"),
+    (["--graph_mode", "remote", "--stream", "1"], ValueError,
+     "--stream is only supported with --graph_mode=local"),
 ])
 def test_run_loop_refusals(cluster, tmp_path, extra, err, match):
-    """The JAX CLI's refusals, with its messages; staged data names A0e.
-    A shared cluster over several processes needs the registry's port,
-    which process 0 hosts."""
+    """The JAX CLI's refusals, with its messages: ``--stream`` only on a
+    local graph (remote clients read no graph data). A shared cluster
+    over several processes needs the registry's port, which process 0
+    hosts."""
     with pytest.raises(err, match=match):
         run_loop.main(_cli(cluster["data"], str(tmp_path), *extra),
                       device="cpu")
 
 
+# a scheme no fsspec driver serves: gcsfs may be installed, and a gs://
+# URL would then reach for the network
+NO_DRIVER = "definitelynotascheme9://bucket/ppi"
+
+
 @pytest.mark.parametrize("make", [
-    lambda d: Graph(directory="gs://bucket/ppi"),
-    lambda d: Graph(directory=d, stream=True),
-    lambda d: Graph(directory=d, cache_dir="/tmp/c"),
-    lambda d: GraphService("s3://bucket/ppi"),
+    lambda G, S, d, c: G(directory=NO_DRIVER),
+    lambda G, S, d, c: G(directory=d, stream=True),
+    lambda G, S, d, c: G(directory=d, cache_dir=c),
+    lambda G, S, d, c: S(NO_DRIVER),
 ])
-def test_staged_data_raises_naming_a0e(cluster, make):
-    with pytest.raises(NotImplementedError, match="A0e"):
-        make(cluster["data"])
+def test_staged_data_raises_naming_a0e(cluster, tmp_path, make):
+    """Staged-data options as the JAX client takes them: a URL whose
+    scheme has no fsspec driver raises its RuntimeError, naming the
+    driver, for a graph and for a shard; a local directory loads the
+    same graph with ``stream=`` (its files read into memory) or
+    ``cache_dir=`` (unused: nothing to stage) as without them."""
+    cache = str(tmp_path / "cache")
+    try:
+        jg = make(euler_tpu.Graph, JService, cluster["data"], cache)
+    except RuntimeError as e:
+        with pytest.raises(RuntimeError, match="no fsspec driver") as terr:
+            make(Graph, GraphService, cluster["data"], cache)
+        assert str(terr.value) == str(e)
+        return
+    tg = make(Graph, GraphService, cluster["data"], cache)
+    assert (tg.num_nodes, tg.num_edges) == (jg.num_nodes, jg.num_edges)
+    assert tg.num_nodes == 7
+    assert not os.path.exists(cache)
+    tg.close()
+    jg.close()
 
 
 def test_file_urls_config_strings_and_lazy_init(cluster):

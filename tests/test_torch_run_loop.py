@@ -11,6 +11,7 @@ is noise), atol 1e-5.
 """
 
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -375,10 +376,32 @@ def test_save_embedding_is_the_restored_states(fixture_dir, tmp_path):
     (["--compile_cache", "0"], "A11"),
     (["--optimizer", "sgd"], "A4"),
 ])
-def test_unported_flags_raise(fixture_dir, tmp_path, extra, item):
-    with pytest.raises(NotImplementedError, match=item):
-        run_loop.main(_args(fixture_dir, str(tmp_path / "ck"), *extra),
-                      device="cpu")
+def test_unported_flags_raise(fixture_dir, tmp_path, extra, item,
+                              monkeypatch):
+    """The flags of ROADMAP items A0e, A11 and A4, which raised until
+    they were ported: ``--stream`` (a local directory read into memory),
+    ``--compile_cache`` (1: the kernels' build cache; 0: this launch's
+    own build directory) and ``--optimizer sgd`` train; ``--stream`` off
+    a local graph raises the JAX CLI's ValueError."""
+    from euler_tpu_torch import _build
+
+    ck = str(tmp_path / "ck")
+    if "--graph_mode" in extra:
+        with pytest.raises(ValueError, match="--stream is only supported "
+                           "with --graph_mode=local"):
+            run_loop.main(_args(fixture_dir, ck, *extra), device="cpu")
+        return
+    monkeypatch.setattr(_build, "_build_dir", _build.BUILD_DIR)
+    assert run_loop.main(_args(fixture_dir, ck, *extra), device="cpu") == 0
+    assert Checkpointer(ck).latest_step() is not None
+    launch_dir = os.path.dirname(_build.library_path())
+    if extra == ["--compile_cache", "0"]:
+        assert os.path.dirname(launch_dir) == _build.BUILD_DIR
+        assert os.path.basename(launch_dir).startswith("launch-")
+        _build.set_compile_cache(None)
+        shutil.rmtree(launch_dir)
+    else:
+        assert launch_dir == _build.BUILD_DIR
 
 
 @pytest.mark.parametrize("extra", [

@@ -401,10 +401,14 @@ def test_unsupported_configurations_raise(walk_graph):
     host = TNode2Vec(node_type=0, edge_type=[0], max_id=10, dim=8)
     assert not host.device_sampling and host.build_consts(walk_graph,
                                                           "cpu") == {}
-    with pytest.raises(NotImplementedError, match="sparse"):
-        TLINE(node_type=0, edge_type=[0], max_id=10, dim=8,
+    # sparse slots drawn on the card need their tables there, as in JAX
+    kw = dict(node_type=0, edge_type=[0], max_id=10, dim=8,
               sparse_feature_idx=[0], sparse_feature_max_ids=[9],
               device_sampling=True)
+    with pytest.raises(ValueError, match="device_features=True"):
+        JLINE(**kw)
+    with pytest.raises(ValueError, match="device_features=True"):
+        TLINE(**kw)
     m = TNode2Vec(node_type=0, edge_type=[0], max_id=10, dim=8,
                   device_sampling=True)
     assert sorted(m.sample(walk_graph, [1, 2])) == ["roots", "seed"]
