@@ -305,7 +305,35 @@ Phases, each of which raises on failure (nonzero exit, no result line):
     ``train.make_scan_train``; a bfloat16 feature table through
     ``EULER_TPU_FEATURE_DTYPE`` equal, table and gathered rows, to the
     ``feature_dtype`` kwarg's.
-13. The ``kernels`` line (the sharded routes beside the kernels, each
+13. Operations, each path a subprocess that must exit 0, its seconds
+    and the card's name and power limit printed: the seven tools of
+    ``euler_tpu_torch/scripts/`` as ``python -m
+    euler_tpu_torch.scripts.<tool>``, in lanes run at once (beside
+    mesh_serve_after below: the six self-checks, ``--smoke`` and
+    ``--ab-smoke``, together while the phase's two shard processes load,
+    then the tools over those shards and phase 9's artifacts together
+    with both drills): ops_metrics_dump (``--smoke``,
+    then ``--watch 1 --iterations 3`` over the phase's own two shard
+    processes of phase 5's ppi files: both shards in every scrape),
+    ops_trace_dump (``--smoke`` on the card, then phase 9's run trace
+    merged with the live shards' spans), ops_postmortem (``--smoke``,
+    then phase 9 (e)'s SIGSEGV dump merged with its run trace),
+    ops_heat_dump (``--smoke``, ``--ab-smoke``), ops_devprof_dump
+    (``--smoke``: supervised GraphSAGE steps at ppi's widths, one
+    journaled recompile, B1 in the kernel table as many times as its
+    counter rose over the capture; then phase 9's capture, B1 once in
+    each of its 10 profiled steps), ops_epoch_drill and ops_serve_drill
+    at the JAX scripts' defaults on the card; then mesh_serve_after:
+    ``python -m euler_tpu_torch --num_devices 2 --model_parallel 2
+    --device_sampling 1 --serve_after 1`` over phase 5's ppi files (two
+    gloo ranks sharing the card for an epoch, B1 once a step a rank),
+    served by the launching process to 4 clients x 40 requests of 1-16
+    ids, every row bit-equal to ``python -m euler_tpu_torch.serve
+    --model_parallel 2``'s on the same checkpoint, both drained to exit
+    code 0 by SIGTERM. B1's launches on ops_devprof_dump and on each
+    rank of mesh_serve_after are read from their ``kernel launches``
+    lines.
+14. The ``kernels`` line (the sharded routes beside the kernels, each
     with its launches by path); then the final ``ok`` line. Each phase
     prints its wall time.
 """
@@ -313,7 +341,9 @@ Phases, each of which raises on failure (nonzero exit, no result line):
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
+import io
 import json
 import logging
 import os
@@ -481,14 +511,16 @@ def smi_line() -> str:
     ).stdout.strip()
 
 
-def cuda_ms(fn, runs: int = 100, warmup: int = 10, batch: int = 10,
+def cuda_ms(fn, runs: int = 40, warmup: int = 10, batch: int = 10,
             before=None) -> float:
     """Median device milliseconds of ``fn()`` over ``runs`` event-timed
-    runs. A spin kernel (~20 ms per run) holds the card while the host
-    enqueues each batch of runs, so every event pair times the device's
-    work and not the host's launch overhead. A batch must stay within
-    the card's queue of about a thousand pending launches. ``before()``,
-    if given, runs ahead of each event pair, outside it."""
+    runs (40: each run costs a 20 ms spin, and a median of 100 costs
+    phase 3 over a minute more). A spin kernel (~20 ms per run) holds the
+    card while the host enqueues each batch of runs, so every event pair
+    times the device's work and not the host's launch overhead. A batch
+    must stay within the card's queue of about a thousand pending
+    launches. ``before()``, if given, runs ahead of each event pair,
+    outside it."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -1687,10 +1719,12 @@ def train_full(model, graph, seed: int, smi: str, name: str,
     return runs
 
 
-def phase_train(graph, hetero, reddit, seed: int, smi: str) -> dict:
+def phase_train(graph, hetero, reddit, seed: int, smi: str,
+                heavy: "HeavyTailBuild") -> dict:
     """The eighteen main paths; returns {path: {"steps", "launches",
     "step_ms", "peak_bytes"}} (and the held-out evaluation of the
-    single-hop and sparse-feature models under "after")."""
+    single-hop and sparse-feature models under "after"). ``heavy`` gives
+    reddit_heavytail's graph arrays."""
     log("== phase 4: train")
     from euler_tpu_torch.datasets import build_synthetic
     from euler_tpu_torch.graph import MemoryGraph
@@ -1729,9 +1763,9 @@ def phase_train(graph, hetero, reddit, seed: int, smi: str) -> dict:
     runs.update(train_single_hop(graph, small, seed, smi))
     runs.update(train_sparse(hetero, seed, smi))
     runs.update(train_walks(graph, small, seed, smi))
-    reddit_runs, heavy = train_reddit(reddit, seed, smi)
+    reddit_runs, heavy_graph = train_reddit(reddit, seed, smi, heavy)
     runs.update(reddit_runs)
-    runs.update(train_walk_heavytail(heavy, seed, smi))
+    runs.update(train_walk_heavytail(heavy_graph, seed, smi))
     return runs
 
 
@@ -2227,14 +2261,63 @@ def reddit_sage(max_id: int, feature_dtype=None, alias: bool = False):
     return model
 
 
-def train_reddit(reddit, seed: int, smi: str):
+class HeavyTailBuild:
+    """reddit_heavytail's graph arrays, ``build_powerlaw(
+    **REDDIT_HEAVYTAIL)`` (113.7M edges: a minute or more of host work),
+    built by a child process from the start of phase 3 on, so that the
+    build overlaps phase 3's spins on the card; ``arrays()`` waits for
+    them and loads them here."""
+
+    def __init__(self):
+        from euler_tpu_torch.datasets import REDDIT_HEAVYTAIL
+
+        root = os.path.dirname(os.path.abspath(__file__))
+        self._dir = scratch_dir()
+        self.path = os.path.join(self._dir.name, "heavytail.npz")
+        code = ("import json, sys, time\n"
+                "import numpy as np\n"
+                "from euler_tpu_torch.datasets import build_powerlaw\n"
+                "t0 = time.perf_counter()\n"
+                "d = build_powerlaw(**json.loads(sys.argv[1]))\n"
+                "t1 = time.perf_counter()\n"
+                "feats = d.pop('dense_features')\n"
+                "np.savez(sys.argv[2], dense_0=feats[0], dense_1=feats[1],"
+                " **d)\n"
+                "print(t1 - t0, time.perf_counter() - t1)\n")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", code, json.dumps(REDDIT_HEAVYTAIL),
+             self.path], cwd=root, env=dict(os.environ, PYTHONPATH=root),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def arrays(self) -> tuple:
+        """``(MemoryGraph arrays, build s, save s, load s)``."""
+        out, _ = self.proc.communicate(timeout=1200)
+        if self.proc.returncode != 0:
+            raise AssertionError(f"the heavy-tail build exited "
+                                 f"{self.proc.returncode}:\n{out[-3000:]}")
+        build_s, save_s = (float(x) for x in out.split()[-2:])
+        t0 = time.perf_counter()
+        with np.load(self.path) as z:
+            data = {k: z[k] for k in z.files}
+        data["dense_features"] = [data.pop("dense_0"), data.pop("dense_1")]
+        os.unlink(self.path)
+        return data, build_s, save_s, time.perf_counter() - t0
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(30)
+        self._dir.cleanup()
+
+
+def train_reddit(reddit, seed: int, smi: str, heavy: HeavyTailBuild):
     """bench.py's reddit, reddit_bf16 and reddit_heavytail configs, each
     after a CPU/CUDA agreement on a small graph: B1 once per step on the
     synthetic graph's slab (float32 and bfloat16 feature tables), no
-    kernel on the heavy-tail graph's alias tables. Returns the runs and
-    the heavy-tail graph."""
-    from euler_tpu_torch.datasets import (REDDIT, REDDIT_HEAVYTAIL,
-                                          build_powerlaw, build_synthetic)
+    kernel on the heavy-tail graph's alias tables (its arrays from
+    ``heavy``). Returns the runs and the heavy-tail graph."""
+    from euler_tpu_torch.datasets import (REDDIT, build_powerlaw,
+                                          build_synthetic)
     from euler_tpu_torch.graph import MemoryGraph
 
     graph, build_s = reddit
@@ -2253,16 +2336,18 @@ def train_reddit(reddit, seed: int, smi: str):
         t_path = time.perf_counter()
         if alias:
             t0 = time.perf_counter()
-            data = build_powerlaw(**REDDIT_HEAVYTAIL)
+            data, build_s, save_s, load_s = heavy.arrays()
             t1 = time.perf_counter()
             graph = MemoryGraph(**data)
             t2 = time.perf_counter()
             log(f"{name} graph {graph.num_nodes} nodes, "
                 f"{len(data['indices'])} edges (REDDIT_HEAVYTAIL, no cut), "
                 f"max degree {np.diff(data['indptr']).max()}, built in "
-                f"{t2 - t0:.2f} s ({t1 - t0:.2f} s build_powerlaw, "
-                f"{t2 - t1:.2f} s MemoryGraph with its sort); its alias tables "
-                f"are built in init_state")
+                f"{build_s + t2 - t1:.2f} s ({build_s:.2f} s build_powerlaw "
+                f"in a child process from phase 3 on, saved in {save_s:.2f}"
+                f" s, waited for {t1 - t0 - load_s:.2f} s and loaded in "
+                f"{load_s:.2f} s here; {t2 - t1:.2f} s MemoryGraph with its "
+                f"sort); its alias tables are built in init_state")
             del data
         else:
             log(f"{name} graph: the synthetic reddit graph of phase 3 (j), "
@@ -2635,17 +2720,20 @@ def serve_traffic(max_id: int, seed: int, n: int = SERVE_REQUESTS) -> list:
     return reqs
 
 
-def serve_cli(argv, device: str):
-    """``python -m euler_tpu_torch.serve argv`` in a subprocess (on the
-    CPU for a rehearsal, through ``serve.main(device="cpu")``), with its
-    output read on a thread; returns the process, its output lines and
-    the address its frontend logged (waits up to 300 s for it)."""
+def serve_cli(argv, device: str, module: str = "euler_tpu_torch.serve"):
+    """``python -m <module> argv`` (the serve CLI, or ``euler_tpu_torch``
+    with ``--serve_after``) in a subprocess (on the CPU for a rehearsal,
+    through its ``main(device="cpu")``), with its output read on a
+    thread; returns the process, its output lines and the address its
+    frontend logged (waits up to 300 s for it)."""
     if device == "cuda":
-        cmd = [sys.executable, "-m", "euler_tpu_torch.serve", *argv]
+        cmd = [sys.executable, "-m", module, *argv]
     else:
+        main_of = ("euler_tpu_torch.run_loop" if module == "euler_tpu_torch"
+                   else module)
         cmd = [sys.executable, "-c",
-               "import sys; from euler_tpu_torch import serve; "
-               "sys.exit(serve.main(sys.argv[1:], device='cpu'))", *argv]
+               f"import sys; from {main_of} import main; "
+               "sys.exit(main(sys.argv[1:], device='cpu'))", *argv]
     root = os.path.dirname(os.path.abspath(__file__))
     proc = subprocess.Popen(
         cmd, cwd=root, env=dict(os.environ, PYTHONPATH=root),
@@ -2898,7 +2986,7 @@ def phase_serve(data_dir: str, model_dir: str, seed: int, smi: str,
             f"{statistics.median(warm):.4f} ms over {SERVE_WARM_RUNS} "
             f"(min {min(warm):.4f}, max {max(warm):.4f}), of which staging "
             f"{stage_ms} (median, to a sync) and the graph's replay "
-            f"{replay_ms} (device, median of 100); "
+            f"{replay_ms} (device, median of 40); "
             f"{up} B up and "
             f"{SERVE_MAX_BATCH * PPI_DIM * 4} B down a full dispatch; a "
             f"block {stats['cache']['bytes'] // stats['cache']['entries']}"
@@ -3359,7 +3447,7 @@ def serve_zoo_path(name: str, argv: list, seed: int, smi: str, device: str,
             f"{cold_ms:.4f} ms, warm median {statistics.median(warm):.4f} ms"
             f" over {ZOO_SERVE_WARM_RUNS} (min {min(warm):.4f}), a "
             f"forward's staging {stage_ms} (median, to a sync) and replay "
-            f"{replay_ms} (device, median of 100); bucket "
+            f"{replay_ms} (device, median of 40); bucket "
             f"{bucket} B, {per_fwd:.0f} B up a forward on average; "
             f"max_memory_allocated {peak} B (card: {smi})")
         probe = int(reqs[0][0])
@@ -4422,15 +4510,16 @@ def mesh_rank(rank: int, n: int, addr: str, job_path: str,
 def mesh_cli(work: str, data_dir: str, max_id: int, device: str) -> dict:
     """(d): two processes of ``python -m euler_tpu_torch --graph_mode
     shared`` joined over TCP, each serving its shard of the ppi files,
-    through train, evaluate and save_embedding. Returns each mode's
+    through train, then evaluate and save_embedding (those two at once,
+    each pair on its own registry and coordinator). Returns each mode's
     output lines by process."""
     root = os.path.dirname(os.path.abspath(__file__))
     model_dir = os.path.join(work, "m_mesh")
-    reg_port, coord_port = free_port(), free_port()
     env = dict(os.environ, PYTHONPATH=root)
     out = {"seconds": {}}
-    for mode in ("train", "evaluate", "save_embedding"):
-        t0 = time.perf_counter()
+
+    def start(mode):
+        reg_port, coord_port = free_port(), free_port()
         procs = []
         for pid in range(2):
             argv = [sys.executable, "-m", "euler_tpu_torch",
@@ -4449,19 +4538,28 @@ def mesh_cli(work: str, data_dir: str, max_id: int, device: str) -> dict:
             procs.append(subprocess.Popen(
                 argv, cwd=root, env=env, stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True))
+        return procs
+
+    for modes in (("train",), ("evaluate", "save_embedding")):
+        t0 = time.perf_counter()
+        running = {mode: start(mode) for mode in modes}
         try:
-            outs = [p.communicate(timeout=MESH_TIMEOUT_S)[0] for p in procs]
+            for mode, procs in running.items():
+                outs = [p.communicate(timeout=MESH_TIMEOUT_S)[0]
+                        for p in procs]
+                out["seconds"][mode] = round(time.perf_counter() - t0, 2)
+                for pid, (p, text) in enumerate(zip(procs, outs)):
+                    if p.returncode != 0:
+                        raise AssertionError(
+                            f"(d) {mode} process {pid} exited "
+                            f"{p.returncode}:\n{text[-3000:]}")
+                out[mode] = outs
         finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait(10)
-        for pid, (p, text) in enumerate(zip(procs, outs)):
-            if p.returncode != 0:
-                raise AssertionError(f"(d) {mode} process {pid} exited "
-                                     f"{p.returncode}:\n{text[-3000:]}")
-        out[mode] = outs
-        out["seconds"][mode] = round(time.perf_counter() - t0, 2)
+            for procs in running.values():
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait(10)
     return out
 
 
@@ -4619,7 +4717,8 @@ def phase_mesh(work: str, seed: int, smi: str, device: str = "cuda",
         ev = json.load(f)
     log(f"(d) mesh_cli2: two shared-mode processes, train/evaluate/"
         f"save_embedding in {time.perf_counter() - t1:.2f} s "
-        f"({out['seconds']} by mode, two processes each); "
+        f"({out['seconds']} by mode, two processes each, evaluate and "
+        f"save_embedding at once); "
         f"{len(train_losses)} steps, loss {train_losses[0]:.4f} -> "
         f"{train_losses[-1]:.4f}; eval {ev}; export {emb.shape}, sha256 "
         f"{digests} (card: {smi})")
@@ -4958,6 +5057,279 @@ def phase_staged(work: str, seed: int, smi: str, device: str = "cuda",
     return runs
 
 
+# phase 13: the operator's tools (euler_tpu_torch/scripts/) and
+# --serve_after over a mesh. Each tool runs as a user runs it, in a
+# process of its own, and must exit 0 within OPS_TIMEOUT_S
+OPS_TIMEOUT_S = 600
+OPS_WATCH = ["--watch", "1", "--iterations", "3"]
+# mesh_serve_after: two ranks on the one card at model_parallel 2, then
+# ZOO_SERVE_CLIENTS threads of ZOO_SERVE_REQUESTS requests each
+MESH_SERVE_FLAGS = ["--device_sampling", "1", "--num_devices", "2",
+                    "--model_parallel", "2"]
+
+
+def run_tool(tool: str, args, timeout: float = OPS_TIMEOUT_S) -> tuple:
+    """``python -m euler_tpu_torch.scripts.<tool> args`` from the
+    checkout; ``(seconds, output)``, raising unless it exits 0."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", f"euler_tpu_torch.scripts.{tool}", *args],
+        cwd=root, env=dict(os.environ, PYTHONPATH=root),
+        capture_output=True, text=True, timeout=timeout)
+    out = p.stdout + p.stderr
+    if p.returncode != 0:
+        raise AssertionError(f"{tool} {' '.join(args)} exited "
+                             f"{p.returncode}:\n{out[-4000:]}")
+    return time.perf_counter() - t0, out
+
+
+def tool_lines(out: str, *marks) -> str:
+    """The output lines holding any of ``marks``, joined for the log."""
+    return " | ".join(x.strip() for x in out.splitlines()
+                      if any(m in x for m in marks))
+
+
+def launch_line(out: str, where: str) -> dict:
+    """The one ``kernel launches {...}`` line of a process's output."""
+    found = re.findall(r"kernel launches (\{.*\})", out)
+    if len(found) != 1:
+        raise AssertionError(f"{where}: {len(found)} launch lines")
+    return json.loads(found[0])
+
+
+def mesh_serve_after(work: str, seed: int, smi: str, device: str,
+                     max_id: int) -> tuple:
+    """mesh_serve_after: ``python -m euler_tpu_torch --num_devices 2
+    --model_parallel 2 --device_sampling 1 --serve_after 1`` over phase
+    5's ppi files, then clients, then the serve CLI on the same
+    checkpoint; every row bit-equal to the CLI's, both drained to 0.
+    Returns ``({path: {"launches"}}, seconds)``."""
+    from euler_tpu_torch.serving import EmbedClient
+
+    t0 = time.perf_counter()
+    runs = {}
+    model_dir = os.path.join(work, "m_serve_after")
+    base = ["--data_dir", os.path.join(work, "ppi"), "--model_dir",
+            model_dir, "--max_id", str(max_id), "--seed", str(seed),
+            *RUN_LOOP_ARGS]
+    proc, lines, addr, reader = serve_cli(
+        [*base, *MESH_SERVE_FLAGS, "--serve_after", "1", "--serve_port",
+         "0", "--serve_max_batch", str(SERVE_MAX_BATCH)], device,
+        module="euler_tpu_torch")
+    ref = None
+    try:
+        up = time.perf_counter() - t0
+        reqs = serve_traffic(max_id, seed + 13,
+                             ZOO_SERVE_CLIENTS * ZOO_SERVE_REQUESTS)
+        rows, lat, wall = drive_clients(addr, reqs, ZOO_SERVE_CLIENTS,
+                                        "mesh_serve_after")
+        served = {}
+        for req, got in zip(reqs, rows):
+            for nid, row in zip(req, got):
+                if nid in served and not np.array_equal(served[nid], row):
+                    raise AssertionError(f"mesh_serve_after: id {nid} "
+                                         "served two different rows")
+                served[nid] = row
+        # the serve CLI on the same checkpoint, as a device-sampled mesh
+        # run's checkpoint is served: host-sampled over device tables
+        ref, _, ref_addr, ref_reader = serve_cli(
+            [*base, "--device_sampling", "0", "--device_features", "1",
+             "--num_devices", "2", "--model_parallel", "2",
+             "--serve_port", "0", "--serve_max_batch",
+             str(SERVE_MAX_BATCH)], device)
+        ids = sorted(served)
+        c = EmbedClient(ref_addr, timeout_s=60.0)
+        try:
+            want_rows = np.concatenate(
+                [c.embed(ids[i:i + SERVE_MAX_IDS])
+                 for i in range(0, len(ids), SERVE_MAX_IDS)])
+        finally:
+            c.close()
+        got_rows = np.stack([served[i] for i in ids])
+        if not np.array_equal(got_rows, want_rows):
+            raise AssertionError(
+                "mesh_serve_after: rows differ from the serve CLI's (max "
+                f"abs {np.abs(got_rows - want_rows).max()})")
+        for p, r in ((ref, ref_reader), (proc, reader)):
+            p.send_signal(signal.SIGTERM)
+            if p.wait(120) != 0:
+                raise AssertionError(f"mesh_serve_after: a server exited "
+                                     f"{p.returncode}")
+            r.join(10)
+    finally:
+        for p in (proc, ref):
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait(10)
+    text = "\n".join(lines)
+    if "serve SLO at exit" not in text:
+        raise AssertionError("mesh_serve_after did not drain:\n"
+                             + "\n".join(lines[-40:]))
+    steps = (max_id + 1) // PPI_BATCH
+    for rank in range(2):
+        found = re.findall(rf"rank{rank} kernel launches (\{{.*\}})", text)
+        if len(found) != 1:
+            raise AssertionError(f"mesh_serve_after: rank {rank} logged "
+                                 f"{len(found)} launch lines")
+        got = json.loads(found[0])
+        want = {"sample_fanout2": steps, "sample_neighbor": 0,
+                "sample_fanout2_sharded": steps,
+                "sample_neighbor_sharded": 0}
+        if device == "cuda" and got != want:
+            raise AssertionError(f"mesh_serve_after rank {rank}: launches "
+                                 f"{got} != {want}")
+        runs[f"mesh_serve_after/rank{rank}"] = {"launches": got}
+    step_line = re.compile(r"rank0 step=(\d+) loss=(\S+)")
+    losses = [float(m.group(2)) for m in step_line.finditer(text)]
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"mesh_serve_after: {len(losses)} logged "
+                             f"steps of {steps}")
+    secs = time.perf_counter() - t0
+    flags = " ".join(MESH_SERVE_FLAGS)
+    by_rank = [runs[f"mesh_serve_after/rank{r}"]["launches"] for r in (0, 1)]
+    log(f"mesh_serve_after: python -m euler_tpu_torch {flags} "
+        f"--serve_after 1: {steps} steps, loss "
+        f"{np.mean(losses[:5]):.4f} (first 5) -> {np.mean(losses[-5:]):.4f}"
+        f" (last 5), serving after {up:.2f} s; {len(reqs)} requests from "
+        f"{ZOO_SERVE_CLIENTS} clients in {wall:.2f} s, client p50 "
+        f"{np.percentile(lat, 50):.3f} ms p99 {np.percentile(lat, 99):.3f}"
+        f" ms; {len(ids)} ids' rows bit-equal to python -m "
+        f"euler_tpu_torch.serve --model_parallel 2's on the same "
+        f"checkpoint; launches by rank {by_rank}; SIGTERM drained both to "
+        f"exit 0 ({secs:.2f} s, beside the tools; card: {smi})")
+    return runs, secs
+
+
+def phase_ops(work: str, seed: int, smi: str, device: str = "cuda",
+              max_id: int = 56943) -> dict:
+    """Phase 13: the operator's tools and ``--serve_after`` over a mesh,
+    each path a subprocess that must exit 0 (its count of launches is its
+    own process's, from 0). Three lanes at once: mesh_serve_after; the
+    six self-checks while the phase's two shards load; then the tools
+    over those shards and phase 9's artifacts beside both drills.
+    Returns the paths that launch a kernel."""
+    log("== phase 13: operations")
+    from euler_tpu_torch.scripts import devprof_dump
+
+    t_phase = time.perf_counter()
+    data_dir = os.path.join(work, "ppi")
+    obs = os.path.join(work, "obs")
+    dev = ["--device", device]
+    runs = {}
+    secs = {}
+
+    def together(jobs) -> dict:
+        """``[(path, tool, args, marks)]`` at once, each logged; returns
+        each output by ``(tool, first argument)``."""
+        with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
+            done = list(ex.map(lambda j: run_tool(j[1], j[2]), jobs))
+        outs = {}
+        for (path, tool, args, marks), (dt, out) in zip(jobs, done):
+            secs[path] = secs.get(path, 0.0) + dt
+            log(f"{path}: {tool} {' '.join(args)}: exit 0 in {dt:.2f} s "
+                f"({len(jobs)} tools at once)"
+                + (f"; {tool_lines(out, *marks)}" if marks else "")
+                + f" (card: {smi})")
+            outs[tool, args[0]] = out
+        return outs
+
+    reg = os.path.join(work, "ops_reg")
+    os.makedirs(reg)
+    with concurrent.futures.ThreadPoolExecutor(1) as lane:
+        mesh = lane.submit(mesh_serve_after, work, seed, smi, device,
+                           max_id)
+        shards = [Shard(i, data_dir, reg) for i in range(REMOTE_SHARDS)]
+        try:
+            outs = together([
+                ("ops_metrics_dump", "metrics_dump", ["--smoke"],
+                 ("smoke: OK",)),
+                ("ops_trace_dump", "trace_dump", ["--smoke", *dev],
+                 ("smoke: OK",)),
+                ("ops_postmortem", "postmortem", ["--smoke"],
+                 ("smoke: OK",)),
+                ("ops_heat_dump", "heat_dump", ["--smoke"],
+                 ("edge-cut", "smoke: OK")),
+                ("ops_heat_dump", "heat_dump", ["--ab-smoke"],
+                 ("edge-cut", "smoke: OK")),
+                ("ops_devprof_dump", "devprof_dump", ["--smoke", *dev],
+                 ("recompile", "B1 (", "kernel launches", "smoke: OK"))])
+            # the device plane: B1 in the kernel table as often as it
+            # launched
+            launches = launch_line(outs["devprof_dump", "--smoke"],
+                                   "devprof_dump --smoke")
+            want = devprof_dump.SMOKE_STEPS + 2  # warm-up, window, drift
+            if device == "cuda" and launches["sample_fanout2"] != want:
+                raise AssertionError(f"devprof_dump --smoke: launches "
+                                     f"{launches}, want sample_fanout2 "
+                                     f"{want}")
+            runs["ops_devprof_dump"] = {"launches": launches}
+
+            for sh in shards:
+                sh.wait_up()
+            merged = os.path.join(work, "ops_merged.json")
+            prof = os.path.join(obs, "profile")
+            outs = together([
+                ("ops_metrics_dump", "metrics_dump",
+                 ["--registry", reg, *OPS_WATCH], ("served +",)),
+                ("ops_trace_dump", "trace_dump",
+                 ["--input", os.path.join(obs, "trace.json"), "--registry",
+                  reg, "--out", merged], ("events ->",)),
+                ("ops_postmortem", "postmortem",
+                 ["--dir", os.path.join(obs, "segv"), "--trace",
+                  os.path.join(obs, "trace.json"), "--out",
+                  os.path.join(work, "ops_incident.json")],
+                 ("SIGSEGV", "incident trace")),
+                ("ops_devprof_dump", "devprof_dump",
+                 ["--profile_dir", prof, "--topk",
+                  str(devprof_dump.SMOKE_TOPK)], ("device kernels",)),
+                # the drills at the JAX scripts' defaults
+                ("ops_epoch_drill", "epoch_drill", dev,
+                 ("epoch drill:", "flipped", "zero failed", "loss parity",
+                  "bit-identical to fresh", "drill OK")),
+                ("ops_serve_drill", "serve_drill", dev,
+                 ("served ", "p99 ", "shedding", "bit-identical",
+                  "drill OK"))])
+            out = outs["metrics_dump", "--registry"]
+            for i in range(REMOTE_SHARDS):
+                n = out.count(f"] shard {i}: served +")
+                if n != 3:
+                    raise AssertionError(
+                        f"metrics_dump --watch: shard {i} in {n} of 3 "
+                        f"scrapes:\n{out[-2000:]}")
+            with open(merged) as f:
+                pids = {e["pid"] for e in json.load(f)["traceEvents"]}
+            if not {100, 101} <= pids:
+                raise AssertionError(f"trace_dump --input: lanes "
+                                     f"{sorted(pids)}")
+            if "SIGSEGV (signal 11)" not in outs["postmortem", "--dir"]:
+                raise AssertionError(
+                    f"postmortem --dir: {outs['postmortem', '--dir']}")
+            for sh in shards:
+                if sh.drain() != 0:
+                    raise AssertionError(f"shard {sh.idx} did not drain "
+                                         "to 0")
+        finally:
+            for sh in shards:
+                sh.kill()
+        # phase 9's capture: B1 once in each of its profiled steps
+        with contextlib.redirect_stdout(io.StringIO()):  # rows unclipped
+            rows = devprof_dump.kernel_table(prof,
+                                             topk=devprof_dump.SMOKE_TOPK)
+        b1 = [r for r in rows if devprof_dump.B1_SYMBOL in r[0]]
+        steps_profiled = OBS_PROFILE_STEPS[1] - OBS_PROFILE_STEPS[0]
+        if device == "cuda" and [r[2] for r in b1] != [steps_profiled]:
+            raise AssertionError(f"devprof_dump --profile_dir: B1 rows "
+                                 f"{b1}, want one of {steps_profiled}")
+        log(f"ops_devprof_dump: phase 9's capture: B1 row {b1}")
+        mesh_runs, secs["mesh_serve_after"] = mesh.result()
+    runs.update(mesh_runs)
+    log("phase 13 seconds by path (lanes at once): "
+        + json.dumps({k: round(v, 2) for k, v in secs.items()}))
+    log(f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
 def add_runs(runs: dict, new: dict) -> None:
     """``runs.update(new)``, raising where a path's name is taken: the
     kernels line counts launches by path name."""
@@ -4976,10 +5348,14 @@ def main() -> int:
     phase_build()
     t1 = time.perf_counter()
     log(f"phases 1-2: {t1 - t0:.1f} s")
-    graph, hetero, reddit, k = phase_kernel(args.seed)
-    t2 = time.perf_counter()
-    log(f"phase 3: {t2 - t1:.1f} s")
-    runs = phase_train(graph, hetero, reddit, args.seed, smi)
+    heavy = HeavyTailBuild()
+    try:
+        graph, hetero, reddit, k = phase_kernel(args.seed)
+        t2 = time.perf_counter()
+        log(f"phase 3: {t2 - t1:.1f} s")
+        runs = phase_train(graph, hetero, reddit, args.seed, smi, heavy)
+    finally:
+        heavy.close()
     t3 = time.perf_counter()
     log(f"phase 4: {t3 - t2:.1f} s")
     del graph, hetero, reddit
@@ -5008,8 +5384,11 @@ def main() -> int:
         t10 = time.perf_counter()
         log(f"phase 11: {t10 - t9:.1f} s")
         add_runs(runs, phase_staged(work, args.seed, smi))
-    log(f"phase 12: {time.perf_counter() - t10:.1f} s")
-    log("== phase 13: kernels")
+        t11 = time.perf_counter()
+        log(f"phase 12: {t11 - t10:.1f} s")
+        add_runs(runs, phase_ops(work, args.seed, smi))
+    log(f"phase 13: {time.perf_counter() - t11:.1f} s")
+    log("== phase 14: kernels")
     meta = {
         "sample_fanout2": dict(
             source="euler_tpu_torch/csrc/sample_fanout2.cu",

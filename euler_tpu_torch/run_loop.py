@@ -45,9 +45,14 @@ share; with ``--device_sampling`` the draws go per rank
 (``graph.device.set_kernel_mesh``). ``--graph_mode shared`` across
 processes serves shard ``--process_id`` of ``--num_processes`` in each,
 and process 0 hosts a ``tcp://`` registry. Rank 0 logs and writes the
-checkpoints, ``eval.json`` and the export; a mesh run's checkpoint is
-served by ``python -m euler_tpu_torch.serve`` (``--serve_after`` serves
-from the training process, and refuses a mesh run).
+checkpoints, ``eval.json`` and the export. ``--serve_after`` over a
+mesh serves once every rank is done (``serve_after_mesh``): under
+``--num_devices`` the launching process, which holds no rank, waits for
+its ranks to exit 0, then restores the mesh's padded checkpoint and
+serves it on its device; under ``--coordinator_addr`` process 0 serves
+after leaving the group and the others exit. Either serves the rows
+``python -m euler_tpu_torch.serve --model_parallel k`` serves from the
+same checkpoint.
 
 A ``--data_dir`` behind an fsspec URL (``gs://``, ``memory://``) is
 staged into the local cache before the engine loads it, or with
@@ -717,11 +722,13 @@ def setup_planes(args, device) -> None:
 
 def _spawned_rank(rank: int, argv, device, addr: str, n: int) -> None:
     """Local rank ``rank`` of ``n`` that ``main`` spawned for
-    ``--num_devices``: one process of a coordinator run."""
+    ``--num_devices``: one process of a coordinator run. It never serves:
+    with ``--serve_after`` the launching process does, once every rank
+    has exited."""
     args = define_flags().parse_args(argv)
     args.coordinator_addr, args.num_processes, args.process_id = addr, n, rank
     _configure_logging(rank)
-    _run_rank(args, device)
+    _run_rank(args, device, serve=False)
 
 
 def _configure_logging(rank=None) -> None:
@@ -731,9 +738,10 @@ def _configure_logging(rank=None) -> None:
         format=f"%(asctime)s %(name)s{tag} %(message)s")
 
 
-def _run_rank(args, device) -> int:
+def _run_rank(args, device, serve: bool = True) -> int:
     """One rank of a mesh: join the group, build the mesh, run the mode,
-    leave."""
+    leave. With ``--serve_after`` (and ``serve``) process 0 then serves
+    the mesh's checkpoint (``serve_after_mesh``) and the others exit."""
     from euler_tpu_torch.parallel import mesh as mesh_mod
 
     backend, dev = mesh_mod.init_distributed(
@@ -744,6 +752,8 @@ def _run_rank(args, device) -> int:
         _run(args, dev, mesh)
     finally:
         mesh_mod.shutdown_distributed()
+    if serve and args.serve_after and args.process_id == 0:
+        return serve_after_mesh(args, dev)
     return 0
 
 
@@ -758,21 +768,64 @@ def _num_local_ranks(args, device) -> int:
     return 1
 
 
+def serve_after_mesh(args, device=None, block: bool = True):
+    """``--serve_after`` over a mesh, once every rank is done: restore the
+    mesh's checkpoint (tables padded for ``--model_parallel``, as
+    ``serve.restore_serving_state`` reads them) into this one process on
+    ``device`` and serve it through ``serve.run_serve``, with the training
+    sampling config, until SIGTERM or SIGINT, then drain (the JAX
+    package's ``run_loop`` trains over its mesh, then serves from the
+    same launch). The
+    graph is built anew here (``build_graph``): the ranks' graphs and
+    services went with them. The model samples on the host per id
+    (``serve.EmbedServer``'s determinism anchor), over device tables when
+    training kept them there: a device-sampled run is served as
+    ``python -m euler_tpu_torch.serve ... --device_sampling 0
+    --device_features 1`` serves its checkpoint.
+
+    ``block=False`` returns ``(server, frontend, graph, services)`` at
+    once; the caller then stops the frontend, closes the server and the
+    graph, and stops the services (``stop_services``)."""
+    from euler_tpu_torch import serve
+
+    dev = resolve_device(device)
+    graph, services = build_graph(args)
+    served = argparse.Namespace(**vars(args))
+    served.device_features = bool(args.device_features
+                                  or args.device_sampling)
+    served.device_sampling = False
+    try:
+        model = build_model(served, graph)
+        server, frontend = serve.run_serve(model, graph, args, dev,
+                                           block=block)
+    except BaseException:
+        graph.close()
+        stop_services(services)
+        raise
+    if not block:
+        return server, frontend, graph, services
+    graph.close()
+    stop_services(services)
+    return 0
+
+
 def main(argv=None, device=None) -> int:
     """Run one mode on ``device``: the card unless the caller asks for
     the CPU (``device="cpu"``, as the tests do); with no card it raises.
     Over several devices or processes, each rank runs it on its own
-    (``--num_devices``, ``--coordinator_addr``)."""
+    (``--num_devices``, ``--coordinator_addr``), and ``--serve_after``
+    serves once they are done (``serve_after_mesh``)."""
     _configure_logging()
     args = define_flags().parse_args(argv)
     check_flags(args)
     check_serve_flags(args)
     n = _num_local_ranks(args, device)
-    if args.serve_after and (args.coordinator_addr or n > 1):
+    if (args.serve_after and args.coordinator_addr
+            and args.graph_mode == "shared" and args.num_processes > 1):
         raise ValueError(
-            "--serve_after serves from the training process, and a mesh "
-            "run has several: serve its checkpoint with `python -m "
-            "euler_tpu_torch.serve --model_parallel k`")
+            "--serve_after with --coordinator_addr serves from process 0 "
+            "after the others exit, and over --graph_mode=shared their "
+            "shards stop with them: serve a local or remote graph")
     if args.coordinator_addr:
         return _run_rank(args, device)
     if n > 1:
@@ -788,6 +841,12 @@ def main(argv=None, device=None) -> int:
         mesh_mod.launch(_spawned_rank, n,
                         (argv, device, f"127.0.0.1:{mesh_mod.free_port()}",
                          n))
+        if args.serve_after:
+            # every rank exited 0 (launch raises otherwise): this
+            # process, which held none, serves the mesh's checkpoint
+            dev = resolve_device(device)
+            setup_planes(args, dev)
+            return serve_after_mesh(args, dev)
         return 0
     if args.model_parallel != 1:
         from euler_tpu_torch.parallel import mesh as mesh_mod
@@ -832,7 +891,7 @@ def _run(args, dev, mesh) -> int:
                                        alias=args.alias_sampling)
         if args.mode == "train":
             run_train(model, graph, args, dev, mesh)
-            if args.serve_after:
+            if args.serve_after and mesh is None:
                 # the freshest checkpoint goes live in this process, with
                 # the training sampling config; blocks until SIGTERM or
                 # SIGINT, then drains

@@ -525,22 +525,181 @@ _CLI = ["--max_id", "16", "--feature_idx", "0", "--feature_dim", "2",
     (["--model_parallel", "2"], "run_loop"),
     (["--num_devices", "3", "--model_parallel", "2"], "run_loop"),
     (["--num_devices", "4", "--model_parallel", "3"], "serve"),
-    (["--num_devices", "2", "--serve_after", "1"], "run_loop"),
 ])
 def test_mesh_flags_that_do_not_divide_raise(fixture_dir, tmp_path, extra,
                                              entry):
     """A mesh whose counts do not divide raises ``ValueError`` before any
     rank starts, as the JAX package's ``make_mesh`` does: one CPU device
-    at ``--model_parallel 2``, three devices at 2, four at 3. So does
-    ``--serve_after`` over several ranks (the serve CLI serves a mesh
-    run's checkpoint)."""
+    at ``--model_parallel 2``, three devices at 2, four at 3."""
     from euler_tpu_torch import run_loop, serve
 
     main = run_loop.main if entry == "run_loop" else serve.main
-    match = "serve_after" if "--serve_after" in extra else "not divisible"
+    match = "not divisible"
     with pytest.raises(ValueError, match=match):
         main(["--data_dir", fixture_dir, "--model_dir", str(tmp_path),
               *_CLI, *extra], device="cpu")
+
+
+# the serve flags of a --serve_after run (a free port each; max_batch 4)
+_SERVE = ["--serve_after", "1", "--serve_port", "0", "--serve_max_batch", "4"]
+
+
+def _reference_server(fixture_dir, model_dir, *extra):
+    """``serve.main``'s restore of ``model_dir`` (the inference config, a
+    host-sampling model, tables padded for ``--model_parallel``), as an
+    in-process server on the CPU, with the graph it reads."""
+    from euler_tpu_torch import run_loop, serve
+
+    args = run_loop.define_flags().parse_args(
+        ["--data_dir", fixture_dir, "--model_dir", model_dir, *_CLI,
+         *extra])
+    args.mode = "evaluate"
+    graph, _ = run_loop.build_graph(args)
+    return serve.build_server(run_loop.build_model(args, graph), graph, args,
+                              "cpu"), graph
+
+
+def test_serve_after_mesh_restores_the_padded_checkpoint(fixture_dir,
+                                                         tmp_path):
+    """``--serve_after`` over a mesh (``run_loop.serve_after_mesh``, here
+    in-process with ``block=False``) restores the checkpoint rank 0 of a
+    ``--model_parallel 2`` run writes, ScalableSage's 19-row store
+    (``--max_id 17``) padded to 20, and serves rows bit-equal to those of
+    ``serve.main``'s restore of it, over the wire."""
+    from euler_tpu_torch import run_loop
+    from euler_tpu_torch.checkpoint import Checkpointer
+    from euler_tpu_torch.serving import EmbedClient
+
+    ck = str(tmp_path / "ck")
+    model_flags = ["--max_id", "17", "--model", "scalable_sage",
+                   "--device_features", "1", "--num_devices", "2",
+                   "--model_parallel", "2"]
+    args = run_loop.define_flags().parse_args(
+        ["--data_dir", fixture_dir, "--model_dir", ck, *_CLI, *model_flags,
+         *_SERVE])
+    graph, _ = run_loop.build_graph(args)
+    try:
+        state = run_loop.build_model(args, graph).init_state(
+            graph, ttrain.get_optimizer("adam", 0.01), device="cpu", seed=3)
+    finally:
+        graph.close()
+    state = tmesh.pad_tables_for_mesh(state, 2)
+    assert [tuple(s.shape) for s in state["stores"]] == [(20, 8)]
+    Checkpointer(ck).save(7, state)
+
+    server, frontend, g, services = run_loop.serve_after_mesh(
+        args, "cpu", block=False)
+    ref, ref_graph = _reference_server(fixture_dir, ck, *model_flags)
+    try:
+        np.testing.assert_array_equal(server._state["stores"][0].numpy(),
+                                      state["stores"][0].numpy())
+        ids = [0, 3, 16, 3, 9, 12, 1]
+        client = EmbedClient(frontend.address, timeout_s=10)
+        try:
+            rows = client.embed(ids)
+        finally:
+            client.close()
+        want = np.stack([ref.embed_direct(i) for i in ids])
+        assert rows.shape == (len(ids), 8) and np.isfinite(rows).all()
+        np.testing.assert_array_equal(rows, want)
+    finally:
+        frontend.stop()
+        server.close()
+        g.close()
+        run_loop.stop_services(services)
+        ref.close()
+        ref_graph.close()
+
+
+def test_serve_after_refuses_a_shared_graph_over_processes(fixture_dir,
+                                                           tmp_path):
+    """Under ``--coordinator_addr`` process 0 serves after the others
+    exit, and over ``--graph_mode shared`` their shards leave with them:
+    that raises ``ValueError`` before any process joins."""
+    from euler_tpu_torch import run_loop
+
+    with pytest.raises(ValueError, match="shards stop with them"):
+        run_loop.main(["--data_dir", fixture_dir, "--model_dir",
+                       str(tmp_path), *_CLI, "--graph_mode", "shared",
+                       "--registry", "tcp://127.0.0.1:1",
+                       "--coordinator_addr", "127.0.0.1:1",
+                       "--num_processes", "2", *_SERVE], device="cpu")
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("launch", ["num_devices", "coordinator_addr"])
+def test_serve_after_two_ranks_serves_until_sigterm(fixture_dir, tmp_path,
+                                                    launch):
+    """``python -m euler_tpu_torch --model_parallel 2 --device_sampling 1
+    --serve_after 1`` over two gloo ranks on the CPU, spawned by
+    ``--num_devices 2`` or as two ``--coordinator_addr`` processes: the
+    ranks train, then the launching process (or process 0, the other
+    exiting 0) serves their padded checkpoint, host-sampled as
+    ``serve.main --device_sampling 0 --device_features 1`` serves it,
+    rows bit-equal to that restore's, and drains to exit 0 on SIGTERM."""
+    import signal
+    import subprocess
+    import sys
+    import time
+
+    from euler_tpu_torch.serving import EmbedClient
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    port = free_port()
+    ck = str(tmp_path / "ck")
+    code = ("import sys\n"
+            "from euler_tpu_torch import run_loop\n"
+            "sys.exit(run_loop.main(sys.argv[1:], device='cpu'))\n")
+    argv = [sys.executable, "-c", code, "--data_dir", fixture_dir,
+            "--model_dir", ck, *_CLI, "--model_parallel", "2",
+            "--device_sampling", "1", "--serve_after", "1", "--serve_port",
+            str(port), "--serve_max_batch", "4"]
+    if launch == "num_devices":
+        ranks = [argv + ["--num_devices", "2"]]
+    else:
+        coord = f"127.0.0.1:{free_port()}"
+        ranks = [argv + ["--coordinator_addr", coord, "--num_processes",
+                         "2", "--process_id", str(i)] for i in range(2)]
+    procs = [subprocess.Popen(
+        a, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, PYTHONPATH=repo), cwd=repo) for a in ranks]
+    server = procs[0]
+    try:
+        deadline = time.monotonic() + WORKER_TIMEOUT_S
+        client = None
+        while time.monotonic() < deadline:
+            assert server.poll() is None, server.communicate()[0][-3000:]
+            try:
+                client = EmbedClient(f"127.0.0.1:{port}", timeout_s=10)
+                break
+            except OSError:
+                time.sleep(0.2)
+        assert client is not None, "the server never came up"
+        ids = [1, 5, 16, 5, 0, 11]
+        rows = client.embed(ids)
+        client.close()
+        ref, ref_graph = _reference_server(
+            fixture_dir, ck, "--num_devices", "2", "--model_parallel", "2",
+            "--device_sampling", "0", "--device_features", "1")
+        try:
+            want = np.stack([ref.embed_direct(i) for i in ids])
+        finally:
+            ref.close()
+            ref_graph.close()
+        np.testing.assert_array_equal(rows, want)
+        for p in procs[1:]:
+            assert p.wait(60) == 0, p.communicate()[0][-3000:]
+        server.send_signal(signal.SIGTERM)
+        out, _ = server.communicate(timeout=60)
+        assert server.returncode == 0, out[-3000:]
+        assert "serve SLO at exit" in out
+        if launch == "num_devices":
+            assert out.count("kernel launches") == 2  # one line a rank
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate(timeout=10)
 
 
 def _cycle(fixture_dir, model_dir, *extra):
