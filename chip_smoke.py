@@ -333,7 +333,46 @@ Phases, each of which raises on failure (nonzero exit, no result line):
     code 0 by SIGTERM. B1's launches on ops_devprof_dump and on each
     rank of mesh_serve_after are read from their ``kernel launches``
     lines.
-14. The ``kernels`` line (the sharded routes beside the kernels, each
+14. From install to a model that learns, in lanes of processes beside
+    the gate, each path's seconds and the card's name and power limit
+    printed: (a) the convergence gate (``euler_tpu_torch.convergence``,
+    the ten cases of the JAX ``tests/test_convergence.py`` at its sizes,
+    steps, seeds and thresholds, on the planted-community graph of 2,000
+    nodes) on the card, each case with the launch counts set to 0 just
+    before it and read just after: B1 once a training step on
+    gate_graphsage_device_sampling and gate_scan_train, no draw kernel
+    on the other eight; each F1, accuracy and MRR printed beside its
+    floor, a miss raising (unsup_sage, whose loss is unbounded below
+    and whose outcome is chaotic in both packages, runs from sixteen
+    seeds, each run held to the JAX floors and the share of runs that
+    clear them to the JAX package's share less two standard errors);
+    (b) ``python -m euler_tpu_torch.scripts.
+    ppi_dress_rehearsal`` at its defaults (56,944 nodes, 818,716 links,
+    dim 256, batch 512, one epoch): exit 0, val micro-F1 above the
+    all-positive predictor's plus 0.1; (c) the Reddit rehearsal at its
+    defaults (232,965 nodes x 602, 41 classes, average degree 25, one
+    epoch at batch 1,000), its replica written and prepared by a child
+    process from the start of phase 3 on (``reddit_replica``), trained
+    and evaluated in a process of its own: val accuracy above the
+    majority class's plus 0.1; (d) the three Python examples through
+    their ``main`` at their widths for 300 steps, the loss of the last
+    window below the first's: ``sage`` on (b)'s prepared files,
+    ``sage_reddit`` on (c)'s, and ``custom_sage_reddit``, which
+    aggregates neighbours alone, on a planted-community graph of
+    Reddit's shape (232,965 nodes, 602 features, 41 communities as
+    labels), built by a second child from phase 3 on (``planted_reddit``;
+    the replica's labels are a function of a node's own features, which
+    that model never reads); and
+    ``euler_tpu_torch/examples/dist_train.sh`` over two shards of phase
+    5's ppi files for an epoch; (e) ``pip wheel --no-deps
+    --no-build-isolation`` of the checkout, ``pip install --no-deps
+    --target``, then the installed ``euler-tpu-torch`` from a directory
+    outside the checkout with only the install on ``PYTHONPATH`` trains
+    an epoch of phase 12's prepared ppi files drawn on the card (B1 once
+    a step), its engine and kernels built under the install from its own
+    sources. The processes' launch counts are read from their ``kernel
+    launches`` lines.
+15. The ``kernels`` line (the sharded routes beside the kernels, each
     with its launches by path); then the final ``ok`` line. Each phase
     prints its wall time.
 """
@@ -2261,7 +2300,44 @@ def reddit_sage(max_id: int, feature_dtype=None, alias: bool = False):
     return model
 
 
-class HeavyTailBuild:
+class ChildData:
+    """Data that a child process makes while the card works on earlier
+    phases, in a scratch directory of its own (``workdir``): ``code`` runs
+    from the checkout with ``workdir`` and ``args`` as its arguments and
+    prints one JSON line last, which ``result()`` waits for (up to
+    ``timeout`` seconds)."""
+
+    def __init__(self, name: str, code: str, *args,
+                 timeout: float = 900.0):
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.name = name
+        self.timeout = timeout
+        self._dir = scratch_dir()
+        self.workdir = self._dir.name
+        self._log = open(os.path.join(self.workdir, "child.log"), "w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", code, self.workdir, *map(str, args)],
+            cwd=root, env=dict(os.environ, PYTHONPATH=root),
+            stdout=self._log, stderr=subprocess.STDOUT)
+
+    def result(self) -> dict:
+        """The child's JSON line, once it has exited 0."""
+        rc = self.proc.wait(timeout=self.timeout)
+        self._log.seek(0)
+        out = self._log.read()
+        if rc != 0:
+            raise AssertionError(f"{self.name} exited {rc}:\n{out[-3000:]}")
+        return json_line(out)
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(30)
+        self._log.close()
+        self._dir.cleanup()
+
+
+class HeavyTailBuild(ChildData):
     """reddit_heavytail's graph arrays, ``build_powerlaw(
     **REDDIT_HEAVYTAIL)`` (113.7M edges: a minute or more of host work),
     built by a child process from the start of phase 3 on, so that the
@@ -2271,43 +2347,31 @@ class HeavyTailBuild:
     def __init__(self):
         from euler_tpu_torch.datasets import REDDIT_HEAVYTAIL
 
-        root = os.path.dirname(os.path.abspath(__file__))
-        self._dir = scratch_dir()
-        self.path = os.path.join(self._dir.name, "heavytail.npz")
-        code = ("import json, sys, time\n"
+        code = ("import json, os, sys, time\n"
                 "import numpy as np\n"
                 "from euler_tpu_torch.datasets import build_powerlaw\n"
                 "t0 = time.perf_counter()\n"
-                "d = build_powerlaw(**json.loads(sys.argv[1]))\n"
+                "d = build_powerlaw(**json.loads(sys.argv[2]))\n"
                 "t1 = time.perf_counter()\n"
                 "feats = d.pop('dense_features')\n"
-                "np.savez(sys.argv[2], dense_0=feats[0], dense_1=feats[1],"
-                " **d)\n"
-                "print(t1 - t0, time.perf_counter() - t1)\n")
-        self.proc = subprocess.Popen(
-            [sys.executable, "-c", code, json.dumps(REDDIT_HEAVYTAIL),
-             self.path], cwd=root, env=dict(os.environ, PYTHONPATH=root),
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                "np.savez(os.path.join(sys.argv[1], 'heavytail.npz'), "
+                "dense_0=feats[0], dense_1=feats[1], **d)\n"
+                "print(json.dumps({'build_s': t1 - t0, "
+                "'save_s': time.perf_counter() - t1}))\n")
+        super().__init__("the heavy-tail build", code,
+                         json.dumps(REDDIT_HEAVYTAIL), timeout=1200.0)
+        self.path = os.path.join(self.workdir, "heavytail.npz")
 
     def arrays(self) -> tuple:
         """``(MemoryGraph arrays, build s, save s, load s)``."""
-        out, _ = self.proc.communicate(timeout=1200)
-        if self.proc.returncode != 0:
-            raise AssertionError(f"the heavy-tail build exited "
-                                 f"{self.proc.returncode}:\n{out[-3000:]}")
-        build_s, save_s = (float(x) for x in out.split()[-2:])
+        times = self.result()
         t0 = time.perf_counter()
         with np.load(self.path) as z:
             data = {k: z[k] for k in z.files}
         data["dense_features"] = [data.pop("dense_0"), data.pop("dense_1")]
         os.unlink(self.path)
-        return data, build_s, save_s, time.perf_counter() - t0
-
-    def close(self) -> None:
-        if self.proc.poll() is None:
-            self.proc.kill()
-            self.proc.wait(30)
-        self._dir.cleanup()
+        return (data, times["build_s"], times["save_s"],
+                time.perf_counter() - t0)
 
 
 def train_reddit(reddit, seed: int, smi: str, heavy: HeavyTailBuild):
@@ -3557,7 +3621,8 @@ class Shard:
                                      + "\n".join(self.lines[-20:]))
         while True:
             for f in os.listdir(self.reg):
-                if f.startswith(f"{self.idx}#"):
+                # entries are written under a .tmp name, then renamed
+                if f.startswith(f"{self.idx}#") and not f.endswith(".tmp"):
                     host, port = f.split("#", 1)[1].rsplit("_", 1)
                     try:
                         with socket.create_connection((host, int(port)), 1):
@@ -5068,20 +5133,33 @@ MESH_SERVE_FLAGS = ["--device_sampling", "1", "--num_devices", "2",
                     "--model_parallel", "2"]
 
 
+def run_cmd(argv, where: str, env=None, cwd=None,
+            timeout: float = OPS_TIMEOUT_S) -> tuple:
+    """``argv`` from the checkout (or ``cwd``) with the checkout on
+    ``PYTHONPATH`` (or ``env``); ``(seconds, output)``, raising unless it
+    exits 0."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    p = subprocess.run(argv, cwd=cwd or root,
+                       env=env or dict(os.environ, PYTHONPATH=root),
+                       capture_output=True, text=True, timeout=timeout)
+    out = p.stdout + p.stderr
+    if p.returncode != 0:
+        raise AssertionError(f"{where}: {' '.join(argv)} exited "
+                             f"{p.returncode}:\n{out[-4000:]}")
+    return time.perf_counter() - t0, out
+
+
+def json_line(out: str) -> dict:
+    """The last line of a process's output that is a JSON object."""
+    return json.loads(re.findall(r"^\{.*\}$", out, re.M)[-1])
+
+
 def run_tool(tool: str, args, timeout: float = OPS_TIMEOUT_S) -> tuple:
     """``python -m euler_tpu_torch.scripts.<tool> args`` from the
     checkout; ``(seconds, output)``, raising unless it exits 0."""
-    root = os.path.dirname(os.path.abspath(__file__))
-    t0 = time.perf_counter()
-    p = subprocess.run(
-        [sys.executable, "-m", f"euler_tpu_torch.scripts.{tool}", *args],
-        cwd=root, env=dict(os.environ, PYTHONPATH=root),
-        capture_output=True, text=True, timeout=timeout)
-    out = p.stdout + p.stderr
-    if p.returncode != 0:
-        raise AssertionError(f"{tool} {' '.join(args)} exited "
-                             f"{p.returncode}:\n{out[-4000:]}")
-    return time.perf_counter() - t0, out
+    return run_cmd([sys.executable, "-m", f"euler_tpu_torch.scripts.{tool}",
+                    *args], tool, timeout=timeout)
 
 
 def tool_lines(out: str, *marks) -> str:
@@ -5090,12 +5168,14 @@ def tool_lines(out: str, *marks) -> str:
                       if any(m in x for m in marks))
 
 
-def launch_line(out: str, where: str) -> dict:
-    """The one ``kernel launches {...}`` line of a process's output."""
-    found = re.findall(r"kernel launches (\{.*\})", out)
-    if len(found) != 1:
-        raise AssertionError(f"{where}: {len(found)} launch lines")
-    return json.loads(found[0])
+def launch_line(out: str, where: str, n: int = 1) -> dict:
+    """The ``n`` ``kernel launches {...}`` lines of a process's output
+    (one a ``run_loop.main`` mode), summed by kernel."""
+    found = [json.loads(x) for x in
+             re.findall(r"kernel launches (\{.*\})", out)]
+    if len(found) != n:
+        raise AssertionError(f"{where}: {len(found)} launch lines, want {n}")
+    return {k: sum(f.get(k, 0) for f in found) for k in found[0]}
 
 
 def mesh_serve_after(work: str, seed: int, smi: str, device: str,
@@ -5330,6 +5410,343 @@ def phase_ops(work: str, seed: int, smi: str, device: str = "cuda",
     return runs
 
 
+# phase 14 (from install to a model that learns): the convergence gate's
+# cases that draw through B1 once a step, the examples' steps and log
+# window and dist_train.sh's shards. A window logs its last step's loss,
+# and the custom example's loss settles within its first 100 steps, so
+# the examples' own windows of 100 cannot show it fall (0.361, 0.356,
+# 0.411 on the card); windows of 10 catch the first steps
+GATE_DEVICE_SAMPLING = ("graphsage_device_sampling", "scan_train")
+EXAMPLE_STEPS = 300
+EXAMPLE_LOG_EVERY = 10
+DIST_SHARDS = 2
+# the custom example's graph (the replica's labels come from each node's
+# own features, which the example's neighbours-only aggregation never
+# reads): Reddit's node count, features and classes over planted
+# communities at noise 0.5, where nearest-centroid accuracy is 0.44 on a
+# node's features and 0.99 after one hop of averaging (at 20,000 nodes),
+# the regime of the convergence gate's graph (0.56 and 0.94)
+PLANTED_REDDIT = dict(num_nodes=232965, num_communities=41, feature_dim=602,
+                      noise=0.5, num_partitions=2)
+# pip offline: the checkout's own files, no index, no version check
+PIP_OFFLINE = ["--no-deps", "--no-index", "--disable-pip-version-check"]
+
+
+def reddit_replica(num_nodes: int | None = None) -> ChildData:
+    """The Reddit rehearsal's replica files and their preparation
+    (``reddit_dress_rehearsal.prepare`` at the script's defaults: 232,965
+    nodes x 602 features, 41 classes, average degree 25) into
+    ``workdir/dat``; its result is the prepare half of the summary."""
+    from euler_tpu_torch.scripts import reddit_dress_rehearsal as r
+
+    code = ("import json, sys\n"
+            "from euler_tpu_torch.scripts import reddit_dress_rehearsal as r\n"
+            "print(json.dumps(r.prepare(sys.argv[1], int(sys.argv[2]), "
+            "r.AVG_DEGREE)))\n")
+    child = ChildData("the Reddit replica's preparation", code,
+                      num_nodes or r.NUM_NODES)
+    child.num_nodes = num_nodes or r.NUM_NODES
+    return child
+
+
+def planted_reddit(num_nodes: int = PLANTED_REDDIT["num_nodes"]) -> ChildData:
+    """A planted-community graph of Reddit's shape (``build_planted``:
+    PLANTED_REDDIT's nodes, 602 features, 41 communities as one-hot
+    labels, 90% of edges inside a community) in ``workdir/dat``: the
+    graph on which a model that aggregates neighbours alone can learn."""
+    # without build_planted's done marker the files read as prepared
+    # data, which the example's build_reddit keeps
+    code = ("import json, os, sys, time\n"
+            "from euler_tpu_torch.datasets import build_planted\n"
+            "t0 = time.perf_counter()\n"
+            "out, _ = build_planted(sys.argv[1] + '/dat', "
+            "**json.loads(sys.argv[2]))\n"
+            "os.remove(os.path.join(out, 'done'))\n"
+            "print(json.dumps({'build_s': time.perf_counter() - t0}))\n")
+    return ChildData("the planted Reddit-shaped graph's build", code,
+                     json.dumps(dict(PLANTED_REDDIT, num_nodes=num_nodes)))
+
+
+def learn_gate(work: str, smi: str, device: str) -> dict:
+    """Phase 14 (a): the ten cases of the convergence gate
+    (``euler_tpu_torch.convergence``, the JAX ``tests/
+    test_convergence.py``'s) on ``device``, each with the launch counts
+    set to 0 just before it and read just after: B1 once a training step
+    on the two device-sampling cases, no other draw kernel. Prints each
+    figure beside its floor; raises after the last case if any missed."""
+    from euler_tpu_torch import convergence
+    from euler_tpu_torch.graph import sampling_kernels
+
+    p = convergence.planted(os.path.join(work, "planted"))
+    log(f"gate: planted graph {convergence.NUM_NODES} nodes, feat_acc "
+        f"{p.feat_acc:.4f}, hop1_acc {p.hop1_acc:.4f}")
+    runs, missed = {}, []
+    try:
+        for name in convergence.CASES:
+            for k in sampling_kernels.launches:
+                sampling_kernels.launches[k] = 0
+            t0 = time.perf_counter()
+            r = convergence.run_case(name, p, device)
+            dt = time.perf_counter() - t0
+            launches = dict(sampling_kernels.launches)
+            want = {"sample_fanout2": r["steps"] if device == "cuda"
+                    and name in GATE_DEVICE_SAMPLING else 0,
+                    "sample_neighbor": 0}
+            if r["launches"] != want:
+                raise AssertionError(f"gate {name}: launches while "
+                                     f"training {r['launches']}, want "
+                                     f"{want}")
+            missed += [name] if convergence.misses(r) else []
+            log(f"gate_{name}: {convergence.describe(name, r)}"
+                f"{' MISSED' if convergence.misses(r) else ''}; "
+                f"{r['steps']} steps, launches {launches} (training "
+                f"{r['launches']}), {dt:.2f} s (card: {smi})")
+            runs[f"gate_{name}"] = {"launches": launches,
+                                    "seconds": dt, **r["figures"]}
+    finally:
+        p.graph.close()
+    if missed:
+        raise AssertionError(f"convergence gate missed: {missed}")
+    return runs
+
+
+def ppi_rehearsal(work: str, smi: str, device: str = "cuda") -> tuple:
+    """Phase 14 (b): ``python -m euler_tpu_torch.scripts.
+    ppi_dress_rehearsal`` at its defaults (56,944 nodes, dim 256, batch
+    512, one epoch) in ``work/ppi_rehearsal``: exit 0 and val micro-F1
+    above the all-positive predictor's plus 0.1. Returns the run and the
+    prepared directory."""
+    workdir = os.path.join(work, "ppi_rehearsal")
+    os.makedirs(workdir)
+    dt, out = run_cmd([sys.executable, "-m",
+                       "euler_tpu_torch.scripts.ppi_dress_rehearsal",
+                       "--workdir", workdir, "--device", device],
+                      "ppi_rehearsal")
+    summary = json_line(out)
+    f1, base = summary["val_metrics"]["f1"], summary["splits"]["allpos_f1"]
+    if not f1 > base + 0.1:
+        raise AssertionError(f"ppi_rehearsal: val f1 {f1} vs all-positive "
+                             f"{base} + 0.1: {summary}")
+    launches = launch_line(out, "ppi_rehearsal", 2)
+    log(f"ppi_rehearsal: {json.dumps(summary)}; val f1 {f1:.4f} (floor "
+        f"{base + 0.1:.4f}), launches {launches}, {dt:.2f} s (card: {smi})")
+    return {"launches": launches, "seconds": dt,
+            "summary": summary}, os.path.join(workdir, "dat")
+
+
+def reddit_rehearsal(replica: ChildData, smi: str,
+                     device: str = "cuda") -> dict:
+    """Phase 14 (c): the Reddit rehearsal at its defaults (232,965 nodes x
+    602, average degree 25, one epoch at batch 1,000): its replica
+    prepared by the child from phase 3 on, then ``train_and_evaluate`` in
+    a process of its own: both modes exit 0 and the val accuracy clears
+    the majority class's plus 0.1."""
+    prep = replica.result()
+    code = ("import json, sys\n"
+            "from euler_tpu_torch.scripts import reddit_dress_rehearsal"
+            " as r\n"
+            "print(json.dumps(r.train_and_evaluate(sys.argv[1], "
+            "int(sys.argv[2]), r.EPOCHS, r.BATCH_SIZE, sys.argv[3])))\n")
+    dt, out = run_cmd([sys.executable, "-c", code, replica.workdir,
+                       str(replica.num_nodes), device], "reddit_rehearsal")
+    summary = {"num_nodes": replica.num_nodes, "card": smi, **prep,
+               **json_line(out)}
+    if not (summary["train_rc"] == 0 and summary.get("evaluate_rc") == 0):
+        raise AssertionError(f"reddit_rehearsal: {summary}")
+    acc, base = summary["val_metrics"]["f1"], summary["splits"][
+        "majority_acc"]
+    if not acc > base + 0.1:
+        raise AssertionError(f"reddit_rehearsal: val {acc} vs majority "
+                             f"{base} + 0.1: {summary}")
+    launches = launch_line(out, "reddit_rehearsal", 2)
+    log(f"reddit_rehearsal: {json.dumps(summary)}; val {acc:.4f} (floor "
+        f"{base + 0.1:.4f}), launches {launches}, train and evaluate "
+        f"{dt:.2f} s (card: {smi})")
+    return {"launches": launches, "seconds": dt, "summary": summary}
+
+
+def example_run(name: str, data_dir: str, smi: str,
+                device: str = "cuda") -> dict:
+    """Phase 14 (d): ``euler_tpu_torch.examples.<name>.main`` at its
+    widths in a process of its own for EXAMPLE_STEPS steps over
+    ``data_dir`` (prepared files, which the example's ``build_ppi`` or
+    ``build_reddit`` keeps as a real dataset), logging a window every
+    EXAMPLE_LOG_EVERY steps (the child sets ``train.train``'s
+    ``log_every``; the example's own is 100): every window's loss
+    finite, the mean of the last three below that of the first three,
+    and the draw kernels' launches."""
+    code = ("import importlib, json, sys\n"
+            "from euler_tpu_torch import train\n"
+            "from euler_tpu_torch.graph import sampling_kernels\n"
+            "fit = train.train\n"
+            "train.train = lambda *a, **k: fit(*a, **dict(k, log_every=int("
+            "sys.argv[2])))\n"
+            "mod = importlib.import_module('euler_tpu_torch.examples.' + "
+            "sys.argv[1])\n"
+            "history = mod.main(sys.argv[3:])\n"
+            "print('kernel launches', json.dumps(sampling_kernels.launches))\n"
+            "print('history', json.dumps(history))\n")
+    dt, out = run_cmd([sys.executable, "-c", code, name,
+                       str(EXAMPLE_LOG_EVERY), "--data_dir", data_dir,
+                       "--steps", str(EXAMPLE_STEPS), "--device", device],
+                      f"example_{name}")
+    history = json.loads(re.findall(r"^history (.*)$", out, re.M)[-1])
+    losses = np.array([h["loss"] for h in history])
+    head, tail = float(losses[:3].mean()), float(losses[-3:].mean())
+    if not (len(losses) == EXAMPLE_STEPS // EXAMPLE_LOG_EVERY
+            and np.isfinite(losses).all() and tail < head):
+        raise AssertionError(f"example {name}: window losses {losses}")
+    launches = launch_line(out, f"example_{name}", 1)
+    log(f"example_{name}: {EXAMPLE_STEPS} steps, loss {head:.5f} (first "
+        f"three windows of {EXAMPLE_LOG_EVERY}) -> {tail:.5f} (last three), "
+        f"f1 {history[-1]['f1']:.4f} (last window), steps/s "
+        f"{np.mean([h['steps_per_sec'] for h in history[1:]]):.2f}, "
+        f"launches {launches}, {dt:.2f} s (card: {smi})")
+    return {"launches": launches, "seconds": dt, "loss_head": head,
+            "loss_tail": tail}
+
+
+def dist_train(work: str, smi: str, max_id: int) -> dict:
+    """Phase 14 (d): ``euler_tpu_torch/examples/dist_train.sh`` over
+    DIST_SHARDS shards of phase 5's ppi files (one shard process, the
+    training process serving shard 0, ``--graph_mode shared``) for an
+    epoch at ppi's widths: every step's loss finite, no draw kernel (the
+    fanouts come over the wire)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    steps = (max_id + 1) // PPI_BATCH
+    dt, out = run_cmd(
+        ["bash", os.path.join(root, "euler_tpu_torch", "examples",
+                              "dist_train.sh"),
+         os.path.join(work, "ppi"), str(DIST_SHARDS), "--max_id",
+         str(max_id), "--model_dir", os.path.join(work, "dist_ck"),
+         *RUN_LOOP_ARGS],
+        "dist_train", env=dict(os.environ, PYTHONPATH=root,
+                               PYTHON=sys.executable))
+    losses = [float(m.group(2)) for m in _STEP_LINE.finditer(out)]
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"dist_train: {len(losses)} steps of {steps}"
+                             f":\n{out[-3000:]}")
+    launches = launch_line(out, "dist_train", 1)
+    if any(launches.values()):
+        raise AssertionError(f"dist_train: launches {launches}")
+    log(f"dist_train: {DIST_SHARDS} shards, {steps} steps, loss "
+        f"{np.mean(losses[:10]):.5f} (first 10) -> "
+        f"{np.mean(losses[-10:]):.5f} (last 10), launches {launches}, "
+        f"{dt:.2f} s (card: {smi})")
+    return {"launches": launches, "seconds": dt}
+
+
+def installed_run(work: str, smi: str, max_id: int) -> dict:
+    """Phase 14 (e): the package as a user installs it. ``pip wheel
+    --no-deps --no-build-isolation`` of the checkout, ``pip install
+    --no-deps --target``, then the installed ``euler-tpu-torch`` command
+    from a directory outside the checkout, with only the install on
+    ``PYTHONPATH``, trains an epoch of phase 12's prepared ppi files
+    drawn on the card: the engine and the kernels built under the
+    install from its own sources, B1 once a step."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    inst = os.path.join(work, "install")
+    wheels, target, outside = (os.path.join(inst, d)
+                               for d in ("wheel", "site", "cwd"))
+    os.makedirs(outside)
+    pip = [sys.executable, "-m", "pip"]
+    t_wheel, _ = run_cmd([*pip, "wheel", *PIP_OFFLINE,
+                          "--no-build-isolation", "-w", wheels, root],
+                         "pip wheel")
+    (wheel,) = [os.path.join(wheels, w) for w in os.listdir(wheels)]
+    import zipfile
+
+    with zipfile.ZipFile(wheel) as z:
+        shipped = [n for n in z.namelist()
+                   if "euler_tpu_torch/graph/_native/" in n
+                   or "euler_tpu_torch/csrc/" in n]
+    t_install, _ = run_cmd([*pip, "install", *PIP_OFFLINE, "--target",
+                            target, wheel], "pip install")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = target
+    _, where = run_cmd([sys.executable, "-c",
+                        "import euler_tpu_torch; "
+                        "print(euler_tpu_torch.__file__)"],
+                       "installed import", env=env, cwd=outside)
+    if not where.strip().startswith(target + os.sep):
+        raise AssertionError(f"installed import: {where.strip()}")
+    steps = (max_id + 1) // PPI_BATCH
+    t_run, out = run_cmd(
+        [os.path.join(target, "bin", "euler-tpu-torch"), "--data_dir",
+         os.path.join(work, "prepared_ppi"), "--model_dir",
+         os.path.join(inst, "ck"), "--max_id", str(max_id),
+         "--train_node_type", "0", "--device_sampling", "1",
+         *RUN_LOOP_ARGS], "euler-tpu-torch", env=env, cwd=outside)
+    losses = [float(m.group(2)) for m in _STEP_LINE.finditer(out)]
+    launches = launch_line(out, "euler-tpu-torch", 1)
+    if (len(losses) != steps or not np.isfinite(losses).all()
+            or launches.get("sample_fanout2") != steps):
+        raise AssertionError(f"euler-tpu-torch: {len(losses)} steps of "
+                             f"{steps}, launches {launches}:\n"
+                             f"{out[-3000:]}")
+    build = os.path.join(target, "build", "euler_tpu_torch")
+    built = sorted(os.path.relpath(os.path.join(d, n), target)
+                   for d, _, names in os.walk(build) for n in names
+                   if n.endswith(".so"))
+    if (len([b for b in built if "libeuler_graph_torch_" in b]) != 1
+            or len([b for b in built if "libeuler_tpu_torch_" in b]) != 1):
+        raise AssertionError(f"installed builds under {build}: {built}")
+    log(f"installed_run: pip wheel {t_wheel:.2f} s ({os.path.basename(wheel)}"
+        f", {len(shipped)} engine and kernel sources), pip install "
+        f"{t_install:.2f} s, euler-tpu-torch from {outside} {t_run:.2f} s: "
+        f"{steps} steps, loss {np.mean(losses[:10]):.5f} (first 10) -> "
+        f"{np.mean(losses[-10:]):.5f} (last 10), launches {launches}, "
+        f"built from the install's sources: {built} (card: {smi})")
+    return {"launches": launches, "seconds": t_wheel + t_install + t_run}
+
+
+def phase_learn(work: str, smi: str, replica: ChildData,
+                planted: ChildData, device: str = "cuda",
+                max_id: int = 56943) -> dict:
+    """Phase 14: from install to a model that learns. Four lanes of
+    processes run beside the gate, which trains in this process: the ppi
+    rehearsal then the ppi example on its prepared files; the Reddit
+    rehearsal on the child's replica, then ``sage_reddit`` on its
+    prepared files beside ``custom_sage_reddit`` on the other child's
+    planted Reddit-shaped graph; dist_train.sh; the wheel, its install
+    and the installed command. On the CPU (a rehearsal of the phase) the last two
+    lanes, whose commands run on the card only, are left out."""
+    log("== phase 14: from install to a model that learns")
+    t_phase = time.perf_counter()
+    runs = {}
+
+    def ppi_lane():
+        out, dat = ppi_rehearsal(work, smi, device)
+        return {"ppi_rehearsal": out,
+                "example_sage": example_run("sage", dat, smi, device)}
+
+    def reddit_lane():
+        out = {"reddit_rehearsal": reddit_rehearsal(replica, smi, device)}
+        log(f"planted Reddit-shaped graph: {planted.result()}")
+        with concurrent.futures.ThreadPoolExecutor(2) as ex:
+            done = {name: ex.submit(example_run, name,
+                                    os.path.join(d.workdir, "dat"), smi,
+                                    device)
+                    for name, d in (("sage_reddit", replica),
+                                    ("custom_sage_reddit", planted))}
+            out.update({f"example_{n}": f.result() for n, f in done.items()})
+        return out
+
+    jobs = [ppi_lane, reddit_lane]
+    if device == "cuda":
+        jobs += [lambda: {"dist_train": dist_train(work, smi, max_id)},
+                 lambda: {"installed_run": installed_run(work, smi, max_id)}]
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as lanes:
+        futures = [lanes.submit(job) for job in jobs]
+        add_runs(runs, learn_gate(work, smi, device))
+        for fut in futures:
+            add_runs(runs, fut.result())
+    log("phase 14 seconds by path (lanes at once): " + json.dumps(
+        {k: round(v["seconds"], 2) for k, v in runs.items()}))
+    log(f"phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
 def add_runs(runs: dict, new: dict) -> None:
     """``runs.update(new)``, raising where a path's name is taken: the
     kernels line counts launches by path name."""
@@ -5348,47 +5765,61 @@ def main() -> int:
     phase_build()
     t1 = time.perf_counter()
     log(f"phases 1-2: {t1 - t0:.1f} s")
+    replica, planted = reddit_replica(), planted_reddit()
+    try:
+        return run_phases(args.seed, smi, replica, planted, t1)
+    finally:
+        replica.close()
+        planted.close()
+
+
+def run_phases(seed: int, smi: str, replica: ChildData, planted: ChildData,
+               t1: float) -> int:
+    """Phases 3 to 15, phase 14's Reddit data made from the start."""
     heavy = HeavyTailBuild()
     try:
-        graph, hetero, reddit, k = phase_kernel(args.seed)
+        graph, hetero, reddit, k = phase_kernel(seed)
         t2 = time.perf_counter()
         log(f"phase 3: {t2 - t1:.1f} s")
-        runs = phase_train(graph, hetero, reddit, args.seed, smi, heavy)
+        runs = phase_train(graph, hetero, reddit, seed, smi, heavy)
     finally:
         heavy.close()
     t3 = time.perf_counter()
     log(f"phase 4: {t3 - t2:.1f} s")
     del graph, hetero, reddit
     with scratch_dir() as work:
-        add_runs(runs, phase_engine(args.seed, smi, workdir=work))
+        add_runs(runs, phase_engine(seed, smi, workdir=work))
         t4 = time.perf_counter()
         log(f"phase 5: {t4 - t3:.1f} s")
         add_runs(runs, phase_serve(os.path.join(work, "ppi"),
-                                   os.path.join(work, "m2"), args.seed, smi))
+                                   os.path.join(work, "m2"), seed, smi))
         t5 = time.perf_counter()
         log(f"phase 6: {t5 - t4:.1f} s")
-        add_runs(runs, phase_zoo(work, args.seed, smi))
+        add_runs(runs, phase_zoo(work, seed, smi))
         t6 = time.perf_counter()
         log(f"phase 7: {t6 - t5:.1f} s")
-        add_runs(runs, phase_remote(work, args.seed, smi))
+        add_runs(runs, phase_remote(work, seed, smi))
         t7 = time.perf_counter()
         log(f"phase 8: {t7 - t6:.1f} s")
-        add_runs(runs, phase_observe(work, args.seed, smi))
+        add_runs(runs, phase_observe(work, seed, smi))
         t8 = time.perf_counter()
         log(f"phase 9: {t8 - t7:.1f} s")
-        add_runs(runs, phase_serve_zoo(work, args.seed, smi))
+        add_runs(runs, phase_serve_zoo(work, seed, smi))
         t9 = time.perf_counter()
         log(f"phase 10: {t9 - t8:.1f} s")
-        mesh_runs, routes = phase_mesh(work, args.seed, smi)
+        mesh_runs, routes = phase_mesh(work, seed, smi)
         add_runs(runs, mesh_runs)
         t10 = time.perf_counter()
         log(f"phase 11: {t10 - t9:.1f} s")
-        add_runs(runs, phase_staged(work, args.seed, smi))
+        add_runs(runs, phase_staged(work, seed, smi))
         t11 = time.perf_counter()
         log(f"phase 12: {t11 - t10:.1f} s")
-        add_runs(runs, phase_ops(work, args.seed, smi))
-    log(f"phase 13: {time.perf_counter() - t11:.1f} s")
-    log("== phase 14: kernels")
+        add_runs(runs, phase_ops(work, seed, smi))
+        t12 = time.perf_counter()
+        log(f"phase 13: {t12 - t11:.1f} s")
+        add_runs(runs, phase_learn(work, smi, replica, planted))
+    log(f"phase 14: {time.perf_counter() - t12:.1f} s")
+    log("== phase 15: kernels")
     meta = {
         "sample_fanout2": dict(
             source="euler_tpu_torch/csrc/sample_fanout2.cu",

@@ -10,8 +10,10 @@ objects are linked into one library:
     nvcc -shared -o libeuler_tpu_torch_<hash>.so *.o
 
 The library is built at first use into ``build/euler_tpu_torch/`` beside
-the package, named by a hash of the sources (headers included) and flags
-(a changed source builds anew), and loaded with ``ctypes``. Pointers and
+the package (a checkout's root, or the directory an install put the
+package in), named by a hash of the sources (headers included) and flags
+(a changed source builds anew), and loaded with ``ctypes``. A build
+directory that cannot be written raises, naming it. Pointers and
 the stream pass as ``c_void_p``; each C entry returns
 ``cudaGetLastError()`` after its launch, which the wrapper raises on.
 A build (not a load of an earlier one) is a compile for the device
@@ -69,6 +71,21 @@ def _nvcc() -> str:
     return path
 
 
+def make_build_dir(path: str, what: str) -> None:
+    """Create ``path`` (where ``what`` is built) if needed and check that
+    it can be written, else raise ``RuntimeError`` naming it."""
+    try:
+        os.makedirs(path, exist_ok=True)
+        ok = os.access(path, os.W_OK | os.X_OK)
+    except OSError as e:
+        raise RuntimeError(f"cannot create {path}, where {what} is built "
+                           f"at first use: {e}") from e
+    if not ok:
+        raise RuntimeError(f"cannot write {path}, where {what} is built at "
+                           "first use: install euler_tpu_torch where it "
+                           "can write beside itself")
+
+
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
@@ -92,7 +109,7 @@ def set_compile_cache(enabled) -> None:
     if want_cache:
         _build_dir = BUILD_DIR
     else:
-        os.makedirs(BUILD_DIR, exist_ok=True)
+        make_build_dir(BUILD_DIR, "the CUDA kernels")
         _build_dir = tempfile.mkdtemp(prefix="launch-", dir=BUILD_DIR)
         atexit.register(shutil.rmtree, _build_dir, True)
     _lib = None
@@ -175,7 +192,7 @@ def load_library() -> ctypes.CDLL:
         return _lib
     out = library_path()
     if not os.path.exists(out):
-        os.makedirs(_build_dir, exist_ok=True)
+        make_build_dir(_build_dir, "the CUDA kernels")
         t0 = time.perf_counter()
         _compile_and_link(out)
         build_seconds = time.perf_counter() - t0

@@ -7,7 +7,9 @@ package's, unchanged). At first use they are built out of tree with
 
     build/euler_tpu_torch/native/libeuler_graph_torch_<hash>.so
 
-beside the package, named by a hash of the sources, the Makefile and
+beside the package (a checkout's root, or the directory an install put
+the package in; a directory that cannot be written raises, naming it),
+named by a hash of the sources, the Makefile and
 the host's CPU model (the Makefile builds with ``-march=native``), so a
 changed source or another machine builds anew. A file lock serialises
 concurrent builders (test workers, several processes of one run): the
@@ -29,6 +31,8 @@ import tempfile
 import time
 
 import numpy as np
+
+from euler_tpu_torch._build import make_build_dir
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NATIVE_DIR = os.path.join(_PKG, "graph", "_native")
@@ -80,7 +84,7 @@ def build_native() -> str:
         raise RuntimeError(
             f"{' and '.join(missing)} not found on PATH: the graph engine "
             "of euler_tpu_torch is built from graph/_native at first use")
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    make_build_dir(BUILD_DIR, "the graph engine")
     with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if os.path.exists(out):  # another process built it meanwhile

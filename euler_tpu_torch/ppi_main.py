@@ -19,9 +19,11 @@ PPI_DEFAULTS = [
 ]
 
 
-def run(argv=None) -> int:
+def run(argv=None, device=None) -> int:
+    """``run_loop.main`` with the preset's flags before ``argv``, on
+    ``device`` (the card unless ``"cpu"`` is asked for)."""
     argv = PPI_DEFAULTS + list(argv if argv is not None else sys.argv[1:])
-    return main(argv)
+    return main(argv, device)
 
 
 if __name__ == "__main__":

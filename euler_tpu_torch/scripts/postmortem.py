@@ -214,7 +214,8 @@ def run_smoke() -> int:
         deadline = time.monotonic() + timeout
         while time.monotonic() < deadline:
             for f in os.listdir(reg):
-                if not f.startswith(f"{idx}#"):
+                # a shard writes its entry under a .tmp name, then renames
+                if not f.startswith(f"{idx}#") or f.endswith(".tmp"):
                     continue
                 host, port = f.split("#", 1)[1].rsplit("_", 1)
                 try:

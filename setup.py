@@ -79,8 +79,16 @@ setuptools.setup(
             "_native/Makefile",
             "_native/*.supp",
         ],
-        # the PyTorch port's CUDA sources, built with nvcc at first use
+        # the PyTorch port's CUDA sources, built with nvcc at first use,
+        # and its copy of the engine's sources, built with make at first
+        # use (the port's build_py builds nothing)
         "euler_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
+        "euler_tpu_torch.graph": [
+            "_native/*.cc",
+            "_native/*.h",
+            "_native/Makefile",
+        ],
+        "euler_tpu_torch.examples": ["dist_train.sh"],
     },
     include_package_data=True,
     python_requires=">=3.10",
@@ -91,7 +99,7 @@ setuptools.setup(
         "orbax-checkpoint",
         "numpy",
     ],
-    extras_require={"remote-fs": ["fsspec"]},
+    extras_require={"remote-fs": ["fsspec"], "torch": ["torch"]},
     entry_points={
         "console_scripts": [
             # the reference's `python -m tf_euler` / console / converter /
@@ -100,6 +108,11 @@ setuptools.setup(
             "euler-tpu-console = euler_tpu.console:main",
             "euler-tpu-convert = euler_tpu.graph.convert:main",
             "euler-tpu-service = euler_tpu.graph.service:main",
+            # the PyTorch port's, the same four on the card
+            "euler-tpu-torch = euler_tpu_torch.run_loop:main",
+            "euler-tpu-torch-console = euler_tpu_torch.console:main",
+            "euler-tpu-torch-convert = euler_tpu_torch.graph.convert:main",
+            "euler-tpu-torch-service = euler_tpu_torch.graph.service:main",
         ]
     },
     cmdclass=cmdclass,

@@ -45,6 +45,8 @@ from euler_tpu_torch.graph import Graph  # noqa: E402
 from euler_tpu_torch.graph import native as tnative  # noqa: E402
 from euler_tpu_torch.models import base as tbase  # noqa: E402
 from euler_tpu_torch.run_loop import SavedEmbedding as TSaved  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
+
 
 PPI_SMALL = dict(num_nodes=200, avg_degree=5, feature_dim=6, label_dim=4,
                  max_degree=10, seed=3, num_partitions=2)

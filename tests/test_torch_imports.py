@@ -63,6 +63,17 @@ def test_source_imports_no_jax(path):
     assert bad == [], f"{path} imports {bad}"
 
 
+def test_scan_covers_the_examples_and_the_rehearsals():
+    """The user's way in is scanned too: the examples and the two dress
+    rehearsals are modules of the package, in the scan above."""
+    scanned = {p.relative_to(REPO).as_posix() for p in PKG.rglob("*.py")}
+    for path in ("examples/sage.py", "examples/sage_reddit.py",
+                 "examples/custom_sage_reddit.py",
+                 "scripts/ppi_dress_rehearsal.py",
+                 "scripts/reddit_dress_rehearsal.py", "convergence.py"):
+        assert f"euler_tpu_torch/{path}" in scanned
+
+
 def test_resolve_device_raises_without_a_card(monkeypatch):
     from euler_tpu_torch import resolve_device
 

@@ -49,6 +49,8 @@ from euler_tpu_torch.models import base as tbase  # noqa: E402
 from euler_tpu_torch.models import lshne as tlshne  # noqa: E402
 from euler_tpu_torch.nn import layers as tlayers  # noqa: E402
 from euler_tpu_torch.ops import feature as tfeature  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
+
 
 N = 150
 TYPES = 5  # node types 0-2 live, 3 of zero weight, 4 absent

@@ -42,6 +42,8 @@ from euler_tpu_torch import telemetry as TT  # noqa: E402
 from euler_tpu_torch import trace as TTR  # noqa: E402
 from euler_tpu_torch.graph import native as tnative  # noqa: E402
 from euler_tpu_torch.parallel import prefetch as tprefetch  # noqa: E402,E501
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STALL_S = 0.025

@@ -38,6 +38,8 @@ from euler_tpu_torch.models import GraphSage as TUnsup  # noqa: E402
 from euler_tpu_torch.models import SupervisedGraphSage as TSage  # noqa: E402
 from euler_tpu_torch.models import base as tbase  # noqa: E402
 from euler_tpu_torch.parallel import prefetch  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
+
 
 SYN = dict(num_nodes=200, avg_degree=5, feature_dim=6, label_dim=4,
            max_degree=10, seed=3)

@@ -361,11 +361,16 @@ SMOKES = {
 }
 
 
-def _start(tool, argv, tmp):
-    log = open(os.path.join(tmp, f"{tool}.log"), "w+")
+def _start(tool, argv, tmp, log_name=None):
+    """``python -m euler_tpu_torch.scripts.<tool> argv`` with its output
+    in ``<log_name or tool>.log``. Each process runs its torch ops on one
+    intra-op thread: the smokes all start at once, and more threads than
+    cores only contend."""
+    log = open(os.path.join(tmp, f"{log_name or tool}.log"), "w+")
     proc = subprocess.Popen(
         [sys.executable, "-m", f"euler_tpu_torch.scripts.{tool}", *argv],
-        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO, TMPDIR=tmp),
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO, TMPDIR=tmp,
+                           OMP_NUM_THREADS="1"),
         stdout=log, stderr=subprocess.STDOUT)
     return proc, log
 
@@ -385,7 +390,7 @@ def _finish(proc, log, timeout_s):
 def smoke_runs(tmp_path_factory):
     """Every smoke started at once, each in its own process."""
     tmp = str(tmp_path_factory.mktemp("smokes"))
-    procs = {name: _start(name.removesuffix("_ab"), argv, tmp)
+    procs = {name: _start(name.removesuffix("_ab"), argv, tmp, name)
              for name, argv in SMOKES.items()}
     yield procs
     for proc, log in procs.values():
