@@ -60,7 +60,19 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    the same kinds of odd roots, each timed as in (c); (o) ``sample_node_with_src`` (plain PyTorch, no kernel) on CUDA
    tensors equals the same draw on CPU tensors bit for bit at the lshne
    shape (6,144 sources x 5), every pick of its source's type and sources
-   of unknown type drawing type 0, and is timed. Each kernel time is
+   of unknown type drawing type 0, and is timed; (p) the wide path, on
+   synthetic slabs of 4,096 rows at W 2,048, 8,192 and 16,384 (random
+   degrees up to W, a quarter of the rows full): B1 at [512, 10, 10] and
+   [1,000, 4, 4] and B2 at [512, 1] and [512, 10] equal their plain
+   versions with injected and Philox uniforms on the same kinds of odd
+   roots, so does B1 at [512, 10, 10] over a slab of width 1,024 then
+   the wide one and the reverse (a metapath's two slabs), B1 equals two
+   chained B2 launches, each shape is timed as in (c)
+   with its bound counted over each row's degree, and at W 16,384 the
+   slot frequencies of 10^6 B2 draws from one full-width row pass a
+   chi-square test; (q) at W 2,048 the sharded routes at a rank's [256,
+   10, 10] and [256, 1] equal their plain versions at the rank's folded
+   seed words, one launch each. Each kernel time is
    taken warm (``ms``), with the L2 cache flushed by a 128 MiB write
    before each launch (``ms_cold``), and beside ``floor_ms``, an empty
    kernel at the kernel's grid under the same timer, and ``bound_ms``,
@@ -115,7 +127,11 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    bfloat16 feature table) and reddit_heavytail (the power-law graph at
    114.6M edges over alias tables: no kernel launch), each printing its
    build times, its tables' bytes on the card and the peak of allocated
-   device memory. Then the walk models (the JAX package's ``run_loop
+   device memory; then reddit_heavytail_slab: the same recipe on the
+   heavy-tail graph over its slab at max_degree 4,096 (7.63 GB on the
+   card, built by the same child process as the graph), after a CPU/CUDA
+   agreement on a power-law graph whose widest row passes 1,024: B1 once
+   a step on the wide path. Then the walk models (the JAX package's ``run_loop
    --model node2vec --device_sampling`` and ``--model line`` defaults:
    dim 256, id embeddings, combiner add, 5 negatives, sigmoid
    cross-entropy, Adam 0.01), Node2Vec and LINE each after a small
@@ -147,7 +163,13 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    fresh model gives the trained state's forward bit for bit. Each run
    prints its step ms (median of steps 11-111), edges/s, the batch build
    ms in a prefetch worker, the input stall and the steps that waited
-   on prefetch, and the peak of allocated device memory.
+   on prefetch, and the peak of allocated device memory; (h) ``python -m
+   euler_tpu_torch --device_sampling 1`` with ``--max_degree`` unset, at
+   ppi's widths for 8 epochs (312 steps), on a power-law graph of 20,000
+   nodes and 2M edges (widest row 5,000) written as ``.dat`` files:
+   cli_wide_supervised (``--model graphsage_supervised``, B1 once a step)
+   and cli_wide_graphsage (``--model graphsage``, B2 for the positives and
+   B1 thrice a step), the launches read from the processes' logs.
 6. serve_ppi: phase 5 (f)'s host-sampled checkpoint served at ppi's
    widths by ``serve.run_serve`` (``build_server``, max_batch 64,
    max_wait_us 2000, an ``EmbedFrontend``), the forward one CUDA graph
@@ -373,7 +395,9 @@ Phases, each of which raises on failure (nonzero exit, no result line):
     sources. The processes' launch counts are read from their ``kernel
     launches`` lines.
 15. The ``kernels`` line (the sharded routes beside the kernels, each
-    with its launches by path); then the final ``ok`` line. Each phase
+    with its launches by path; each kernel's wide-path shapes of phase 3
+    (p) under ``wide_slabs``, each sharded route's call of phase 3 (q)
+    under ``wide``); then the final ``ok`` line. Each phase
     prints its wall time.
 """
 
@@ -463,6 +487,38 @@ B1_ROOTS = (PPI_BATCH, PPI_BATCH * SAGE_NEGS)
 # staged draw of 4 slots a lane, and the widest, 32 slots a lane (64 KB
 # of shared memory a block, past the default 48 KB)
 WIDE_WIDTHS = (128, 1024)
+# the wide path (phase 3 (p)-(q)): synthetic slabs past the register
+# layout's 1,024 slots, at the main paths' counts (B1 at ppi's fanouts
+# at both of B1_ROOTS' root counts, as phase 5 (h)'s graphsage run sends
+# [2,560, 10, 10] to the wide path, and at reddit's; B2 at the positives'
+# and ScalableSage's), each shape
+# timed over WIDE_TIMED_RUNS; WIDE_FREQ_DRAWS draws of one full-width row
+# held to its probabilities by chi-square (the mean plus CHI2_SIGMAS
+# standard deviations)
+WIDE_DRAW_WIDTHS = (2048, 8192, 16384)
+WIDE_DRAW_ROWS = 4096
+WIDE_B1_SHAPES = ((PPI_BATCH, *PPI_FANOUTS), (PPI_BATCH * SAGE_NEGS,
+                                              *PPI_FANOUTS),
+                  (REDDIT_BATCH, *REDDIT_FANOUTS))
+WIDE_B2_SHAPES = ((PPI_BATCH, 1), (PPI_BATCH, SSAGE_FANOUT))
+WIDE_TIMED_RUNS = 20
+# the narrow slab of the mixed-width fanouts: the widest the register
+# layout takes
+WIDE_MIXED_NARROW = 1024
+WIDE_FREQ_DRAWS = 1_000_000
+CHI2_SIGMAS = 6
+# warps a block of the draw kernels (csrc/draw.cuh kWarpsPerBlock): the
+# wide path's block a row is this many warps of the empty kernel's grid
+KERNEL_WARPS = 8
+# reddit_heavytail_slab: the heavy-tail graph's slab at this max_degree
+# (7.63 GB, 50.1% of its edges kept; 1,024 keeps 32.9%)
+HEAVY_SLAB_DEGREE = 4096
+# (nodes, edges) of build_powerlaw graphs whose widest rows pass 1,024:
+# the agreement graph of reddit_heavytail_slab (widest row 1,226) and the
+# CLI's files of phase 5 (h) (20,000 nodes, widest row 5,000)
+WIDE_SMALL_GRAPH = (5000, 200_000)
+WIDE_CLI_GRAPH = (20_000, 2_000_000)
+WIDE_CLI_EPOCHS = 8
 # a write of this many bytes evicts the slab from the H100's 50 MB L2
 FLUSH_BYTES = 128 << 20
 # the host-sampled export against a second export of the same restored
@@ -688,7 +744,7 @@ def check_members(adj: dict, rows, picks) -> None:
             f"{int((~ok).sum())} picks are not neighbors of their rows")
 
 
-def phase_kernel(seed: int):
+def phase_kernel(seed: int, smi: str):
     log("== phase 3: kernel vs plain")
     from euler_tpu_torch.datasets import PPI, build_synthetic
     from euler_tpu_torch.graph import MemoryGraph, sampling_kernels
@@ -793,13 +849,18 @@ def phase_kernel(seed: int):
                           bound_by=b["bound_by"]))
     b2 = check_single_hop(adj, adj_w, roots, roots_c, zero_rows, seed, flush)
     wide = check_wide(seed)
+    wide_slabs, wide_routes, wide_err = check_wide_draws(seed, flush, smi)
     reddit, reddit_timed, reddit_err = check_reddit_fanout(seed, flush)
     timed.append(reddit_timed)
-    max_err = max(max_err, reddit_err)
+    max_err = max(max_err, reddit_err, wide_err)
     b1 = dict(max_abs_err=max_err, exact_vs_plain=max_err == 0,
               **{k: v for k, v in timed[0].items() if k != "shape"},
               shapes=timed)
     b1["wide"], b2["wide"] = wide
+    b2["max_abs_err"] = max(b2["max_abs_err"], wide_err)
+    b2["exact_vs_plain"] = b2["max_abs_err"] == 0
+    b1["wide_slabs"] = wide_slabs["sample_fanout2"]
+    b2["wide_slabs"] = wide_slabs["sample_neighbor"]
     pl_graph = check_alias(seed)
     b2["shapes"].append(check_walks(adj, adj_w, sampler, zero_rows, seed,
                                     flush))
@@ -817,7 +878,8 @@ def phase_kernel(seed: int):
         b["max_abs_err"] = max(b["max_abs_err"], err_h)
         b["exact_vs_plain"] = b["max_abs_err"] == 0
     check_typed_negatives(hetero, seed)
-    return graph, hetero, reddit, {"sample_fanout2": b1, "sample_neighbor": b2}
+    return graph, hetero, reddit, {"sample_fanout2": b1, "sample_neighbor": b2,
+                                   "wide_routes": wide_routes}
 
 
 def het_slabs(graph, dev) -> dict:
@@ -1404,6 +1466,219 @@ def check_wide(seed: int):
     return out
 
 
+def neighbor_exact(adj, nodes, words, count: int, hop: int, n_default: int,
+                   gen, tag: str) -> int:
+    """B2 equals its plain version bit for bit on ``nodes``, with uniforms
+    drawn from ``gen`` and with Philox; the first ``n_default`` nodes draw
+    the default id and every pick is a neighbor of its row. Returns the
+    max |diff| (0)."""
+    from euler_tpu_torch.graph import sampling_kernels
+
+    m = nodes.shape[0]
+    default = adj["nbr"].shape[0] - 1
+    max_err = 0
+    for mode, u in (("injected", torch.rand((m, count), generator=gen,
+                                             device="cuda")),
+                    ("philox", None)):
+        k = sampling_kernels.sample_neighbor(adj, nodes, words, count,
+                                             hop=hop, u=u)
+        p = sampling_kernels.sample_neighbor_reference(adj, nodes, words,
+                                                       count, hop=hop, u=u)
+        torch.cuda.synchronize()
+        err = int((k - p).abs().max())
+        max_err = max(max_err, err)
+        if not torch.equal(k, p):
+            raise AssertionError(f"({tag}) sample_neighbor != plain at [{m}, "
+                                 f"{count}] ({mode}): max |diff| {err}")
+        if not bool((k[:n_default] == default).all()):
+            raise AssertionError("unknown, default and zero-weight rows "
+                                 "must draw the default id")
+        check_members(adj, nodes, k)
+        log(f"({tag}) {mode} uniforms: sample_neighbor == plain at [{m}, "
+            f"{count}], hop {hop}, W={adj['nbr'].shape[1]}, max |diff| {err}")
+    return max_err
+
+
+def check_wide_draws(seed: int, flush, smi: str):
+    """Phase 3 (p)-(q): the wide path (slabs past the register layout's
+    1,024 slots). (p) On synthetic slabs of ``WIDE_DRAW_ROWS`` rows at each
+    width of ``WIDE_DRAW_WIDTHS`` (``wide_slab``: random degrees up to the
+    width, a quarter of the rows full), B1 at ``WIDE_B1_SHAPES`` and B2 at
+    ``WIDE_B2_SHAPES`` equal their plain versions bit for bit with injected
+    and Philox uniforms on odd roots, so does B1 at [512, 10, 10] over
+    two slabs of mixed width (a ``WIDE_MIXED_NARROW`` slab, then the wide
+    one, and the reverse), B1 equals two chained B2 launches, and each
+    shape is timed as ``time_draw`` does (a median of
+    ``WIDE_TIMED_RUNS``), with the bound counted over each row's degree
+    (``draw_bound(by_deg=True)``); at the widest, the slot frequencies of
+    ``WIDE_FREQ_DRAWS`` B2 draws from one full-width row pass a chi-square
+    test against its ``cum`` probabilities. (q) At the narrowest width the
+    sharded routes (a rank's [256, 10, 10] and [256, 1], data row 1 of 2)
+    equal their plain versions at the rank's folded words. Returns
+    ({kernel: [records]}, {route: record}, the max |diff| (0))."""
+    from euler_tpu_torch.graph import sampling_kernels
+    from euler_tpu_torch.graph import device as device_graph
+    from euler_tpu_torch.parallel import mesh as mesh_mod
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 19)
+    words = device_graph.seed_words(seed + 1919)
+    out = {"sample_fanout2": [], "sample_neighbor": []}
+    routes = {}
+    max_err = 0
+    for width in WIDE_DRAW_WIDTHS:
+        t0 = time.perf_counter()
+        adj = wide_slab(WIDE_DRAW_ROWS, width, seed + width)
+        n_rows = adj["nbr"].shape[0]
+        max_id = n_rows - 2
+        log(f"(p) synthetic slab [{n_rows}, {width}] ({table_bytes(adj)} B, "
+            f"mean degree {float(adj['deg'].float().mean()):.1f}) built in "
+            f"{time.perf_counter() - t0:.2f} s")
+        for m, f1, f2 in WIDE_B1_SHAPES:
+            max_err = max(max_err, fanout2_exact(
+                adj, odd_nodes(m, max_id, [1], gen), words, f1, f2, 4, gen,
+                "p"))
+        for hop, (m, count) in enumerate(WIDE_B2_SHAPES):
+            max_err = max(max_err, neighbor_exact(
+                adj, odd_nodes(m, max_id, [1], gen), words, count, hop, 4,
+                gen, "p"))
+        m, f1, f2 = WIDE_B1_SHAPES[0]
+        # a metapath's two slabs of one id space, one within the register
+        # layout and one past it, in both orders
+        narrow = wide_slab(WIDE_DRAW_ROWS, WIDE_MIXED_NARROW, seed + 1)
+        for a1, a2 in ((narrow, adj), (adj, narrow)):
+            max_err = max(max_err, fanout2_exact(
+                a1, odd_nodes(m, max_id, [1], gen), words, f1, f2, 4, gen,
+                "p", adj2=a2))
+        del narrow
+        roots = odd_nodes(m, max_id, [1], gen)
+        h1, h2 = sampling_kernels.sample_fanout2(adj, adj, roots, words, f1,
+                                                 f2)
+        s1 = sampling_kernels.sample_neighbor(adj, roots, words, f1, hop=0)
+        s2 = sampling_kernels.sample_neighbor(adj, s1.reshape(-1), words, f2,
+                                              hop=1)
+        if not (torch.equal(h1, s1) and torch.equal(h2, s2)):
+            raise AssertionError(f"(p) W={width}: sample_fanout2 != two "
+                                 "chained sample_neighbor launches")
+        log(f"(p) W={width}: sample_fanout2 == sample_neighbor at hop 0 then "
+            f"hop 1, [{m}, {f1}] + [{m * f1}, {f2}] bit for bit")
+
+        probs = torch.diff(adj["cum"], dim=1,
+                           prepend=adj["cum"].new_zeros(n_rows, 1))
+
+        def multinomial(rows, count):  # over the gathered rows
+            idx = torch.multinomial(probs[rows], count, replacement=True)
+            return adj["nbr"][rows].gather(1, idx)
+
+        for m, f1, f2 in WIDE_B1_SHAPES:
+            r = torch.randint(0, max_id + 1, (m,), generator=gen,
+                              device="cuda", dtype=torch.int32)
+            kern = lambda: sampling_kernels.sample_fanout2(  # noqa: E731
+                adj, adj, r, words, f1, f2)
+            plain = lambda: sampling_kernels.sample_fanout2_reference(  # noqa: E731
+                adj, adj, r, words, f1, f2)
+            library = lambda: multinomial(  # noqa: E731
+                multinomial(r.long(), f1).reshape(-1).long(), f2)
+            t = time_draw(kern, plain, library, m * KERNEL_WARPS, flush,
+                          WIDE_TIMED_RUNS)
+            h1, h2 = kern()
+            b = draw_bound(adj, ((r, h1), (h1, h2)), m, by_deg=True)
+            log(f"(p) sample_fanout2 at [{m}, {f1}, {f2}], W={width}: "
+                f"{describe(t)}, {describe_bound(b)} (card: {smi})")
+            out["sample_fanout2"].append(dict(
+                width=width, shape=[m, f1, f2], **t, bound_ms=b["bound_ms"],
+                bound_by=b["bound_by"]))
+        for hop, (m, count) in enumerate(WIDE_B2_SHAPES):
+            r = torch.randint(0, max_id + 1, (m,), generator=gen,
+                              device="cuda", dtype=torch.int32)
+            kern = lambda: sampling_kernels.sample_neighbor(  # noqa: E731
+                adj, r, words, count, hop=hop)
+            plain = lambda: sampling_kernels.sample_neighbor_reference(  # noqa: E731
+                adj, r, words, count, hop=hop)
+            library = lambda: multinomial(r.long(), count)  # noqa: E731
+            t = time_draw(kern, plain, library, m * KERNEL_WARPS, flush,
+                          WIDE_TIMED_RUNS)
+            b = draw_bound(adj, ((r, kern()),), m, by_deg=True)
+            log(f"(p) sample_neighbor at [{m}, {count}], W={width}: "
+                f"{describe(t)}, {describe_bound(b)} (card: {smi})")
+            out["sample_neighbor"].append(dict(
+                width=width, shape=[m, count], **t, bound_ms=b["bound_ms"],
+                bound_by=b["bound_by"]))
+        del probs
+
+        if width == WIDE_DRAW_WIDTHS[-1]:
+            # slot frequencies of one full-width row, its slots named by
+            # their index so that a pick says which slot it came from
+            row = int(torch.nonzero(adj["deg"] == width)[0])
+            freq_adj = dict(adj, nbr=adj["nbr"].clone())
+            freq_adj["nbr"][row] = torch.arange(width, dtype=torch.int32,
+                                                device="cuda")
+            count = 10
+            nodes = torch.full((WIDE_FREQ_DRAWS // count,), row,
+                               dtype=torch.int32, device="cuda")
+            picks = sampling_kernels.sample_neighbor(
+                freq_adj, nodes, device_graph.stream_words(seed + 77, 1),
+                count)
+            hits = torch.bincount(picks.reshape(-1).long(),
+                                  minlength=width).double()
+            cum = adj["cum"][row].double()
+            p_slot = torch.diff(cum, prepend=cum.new_zeros(1))
+            expect = p_slot * picks.numel()
+            live = p_slot > 0
+            chi2 = float((((hits - expect) ** 2)[live] / expect[live]).sum())
+            dof = int(live.sum()) - 1
+            bound = dof + CHI2_SIGMAS * (2 * dof) ** 0.5
+            log(f"(p) W={width}: {picks.numel()} draws from full-width row "
+                f"{row}: chi-square {chi2:.1f} over {dof} degrees of freedom "
+                f"(bound {bound:.1f}, the mean plus {CHI2_SIGMAS} standard "
+                f"deviations); picks of zero-probability slots "
+                f"{int(hits[~live].sum())}")
+            if not (chi2 < bound and int(hits[~live].sum()) == 0
+                    and hits.numel() == width):
+                raise AssertionError(f"(p) W={width}: slot frequencies off")
+            del freq_adj, picks
+
+        if width == WIDE_DRAW_WIDTHS[0]:
+            # (q) the sharded routes at a rank's shapes, data row 1 of 2
+            mesh = mesh_mod.Mesh(2, rank=1)
+            per = PPI_BATCH // 2
+            r = torch.randint(0, max_id + 1, (per,), generator=gen,
+                              device="cuda", dtype=torch.int32)
+            fold = sampling_kernels.folded_words(words, 1)
+            f1, f2 = PPI_FANOUTS
+            for name, kern, plain in (
+                    ("sample_fanout2_sharded",
+                     lambda: sampling_kernels.sample_fanout2_sharded(
+                         adj, adj, r, words, f1, f2, mesh),
+                     lambda: sampling_kernels.sample_fanout2_reference(
+                         adj, adj, r, fold, f1, f2)),
+                    ("sample_neighbor_sharded",
+                     lambda: sampling_kernels.sample_neighbor_sharded(
+                         adj, r, words, 1, mesh),
+                     lambda: sampling_kernels.sample_neighbor_reference(
+                         adj, r, fold, 1))):
+                before = dict(sampling_kernels.sharded_launches)
+                got, want = kern(), plain()
+                if name == "sample_fanout2_sharded":
+                    err = max(int((got[0] - want[0]).abs().max()),
+                              int((got[1] - want[1]).abs().max()))
+                    shape = [per, f1, f2]
+                else:
+                    err, shape = int((got - want).abs().max()), [per, 1]
+                launched = sampling_kernels.sharded_launches[name] - before[
+                    name]
+                if err or launched != int(r.is_cuda):
+                    raise AssertionError(f"(q) {name} at W={width}: max "
+                                         f"|diff| {err}, launches "
+                                         f"{sampling_kernels.sharded_launches}")
+                routes[name] = dict(width=width, shape=shape, max_abs_err=err,
+                                    ms=cuda_ms(kern, WIDE_TIMED_RUNS))
+                log(f"(q) {name} at a rank's {shape} (data row 1 of 2), "
+                    f"W={width}: == plain at the folded words, one launch, "
+                    f"{routes[name]['ms']:.5f} ms warm (card: {smi})")
+        del adj
+    return out, routes, max_err
+
+
 def odd_nodes(m: int, max_id: int, zero_rows, gen) -> torch.Tensor:
     """[m] int32 ids on the card: random real ids, led by a negative id,
     one past the slab, the default row and the zero-weight rows."""
@@ -1415,7 +1690,7 @@ def odd_nodes(m: int, max_id: int, zero_rows, gen) -> torch.Tensor:
     return nodes
 
 
-def draw_bound(adj, hops, ids: int, adjs=None) -> dict:
+def draw_bound(adj, hops, ids: int, adjs=None, by_deg: bool = False) -> dict:
     """The least time the card could take for weighted draws over the slab
     ``adj`` (or hop h over ``adjs[h]``), from this run's picks; ``hops``
     holds one (rows, picks [len(rows), count]) pair per hop. Bytes: the
@@ -1423,7 +1698,10 @@ def draw_bound(adj, hops, ids: int, adjs=None) -> dict:
     row of each slab read once, one 4-byte nbr entry per distinct (row,
     picked id) of a sampleable row of each slab (the draw counts on cum,
     then reads only the slot it chose), every pick written. Operations:
-    one u >= cum compare per slot of its slab and draw."""
+    one u >= cum compare per slot of its slab and draw. ``by_deg`` (the
+    wide path over a slab with ``deg``) counts a row's first deg[row]
+    slots and its 4-byte deg instead of the slab's width: the slots a
+    draw of that row needs."""
     adjs = list(adjs) if adjs is not None else [adj] * len(hops)
     by_slab = {}
     for a, hop in zip(adjs, hops):
@@ -1435,15 +1713,22 @@ def draw_bound(adj, hops, ids: int, adjs=None) -> dict:
         rows = [torch.where(r.reshape(-1) < 0, default,
                             r.reshape(-1).clamp(max=default)).long()
                 for r, _ in slab_hops]
-        uniq = int(torch.unique(torch.cat(rows)).numel())
+        uniq_ids = torch.unique(torch.cat(rows))
+        uniq = int(uniq_ids.numel())
         uniq_rows += uniq
-        row_bytes += uniq * (4 * width + 1)
+        if by_deg:
+            slots = a["deg"].long().clamp(0, width)
+            row_bytes += int(4 * slots[uniq_ids].sum()) + uniq * (4 + 1)
+            ops += sum(int(slots[r].sum()) * p.shape[-1]
+                       for r, (_, p) in zip(rows, slab_hops))
+        else:
+            row_bytes += uniq * (4 * width + 1)
+            ops += sum(p.numel() for _, p in slab_hops) * width
         keys = []
         for r, (_, p) in zip(rows, slab_hops):
             key = r[:, None] * n_rows + p.long()
             keys.append(key[a["sampleable"][r]])
         reads += int(torch.unique(torch.cat(keys)).numel())
-        ops += sum(p.numel() for _, p in slab_hops) * width
     picks = sum(p.numel() for _, p in hops)
     bytes_moved = 4 * ids + row_bytes + 4 * reads + 4 * picks
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
@@ -1473,15 +1758,17 @@ def floor_launch(warps: int):
     return launch
 
 
-def time_draw(kern, plain, library, warps: int, flush) -> dict:
+def time_draw(kern, plain, library, warps: int, flush,
+              runs: int = 40) -> dict:
     """A draw kernel warm (``ms``), with ``flush()`` evicting the L2 cache
     before each launch (``ms_cold``), the empty kernel at its grid
-    (``floor_ms``), its plain version and its library yardstick."""
+    (``floor_ms``), its plain version and its library yardstick, each the
+    median of ``runs``."""
     return dict(
-        ms=cuda_ms(kern), ms_cold=cuda_ms(kern, before=flush),
-        floor_ms=cuda_ms(floor_launch(warps)),
-        plain_ms=cuda_ms(plain, batch=1),  # some 300-600 launches per run
-        library_ms=cuda_ms(library))
+        ms=cuda_ms(kern, runs), ms_cold=cuda_ms(kern, runs, before=flush),
+        floor_ms=cuda_ms(floor_launch(warps), runs),
+        plain_ms=cuda_ms(plain, runs, batch=1),  # 300-600 launches a run
+        library_ms=cuda_ms(library, runs))
 
 
 def describe(t: dict) -> str:
@@ -1501,31 +1788,14 @@ def check_single_hop(adj, adj_w, roots, roots_c, zero_rows, seed, flush):
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     max_id = adj["nbr"].shape[0] - 2
-    default = max_id + 1
     words = device_graph.stream_words(seed + 555, 1)
 
     # (d) exactness at both shapes, injected and Philox uniforms
     max_err = 0
     for hop, (m, count) in enumerate(B2_SHAPES):
-        nodes = odd_nodes(m, max_id, zero_rows, gen)
-        u = torch.rand((m, count), generator=gen, device="cuda")
-        for mode, uu in (("injected", u), ("philox", None)):
-            k = sampling_kernels.sample_neighbor(adj_w, nodes, words, count,
-                                                 hop=hop, u=uu)
-            p = sampling_kernels.sample_neighbor_reference(
-                adj_w, nodes, words, count, hop=hop, u=uu)
-            torch.cuda.synchronize()
-            err = int((k - p).abs().max())
-            max_err = max(max_err, err)
-            if not torch.equal(k, p):
-                raise AssertionError(f"sample_neighbor != plain at [{m}, "
-                                     f"{count}] ({mode}): max |diff| {err}")
-            if not bool((k[:3 + len(zero_rows)] == default).all()):
-                raise AssertionError("unknown, default and zero-weight rows "
-                                     "must draw the default id")
-            check_members(adj_w, nodes, k)
-            log(f"(d) {mode} uniforms: sample_neighbor == plain at [{m}, "
-                f"{count}], hop {hop}, max |diff| {err}")
+        max_err = max(max_err, neighbor_exact(
+            adj_w, odd_nodes(m, max_id, zero_rows, gen), words, count, hop,
+            3 + len(zero_rows), gen, "d"))
 
     # (e) the chained kernel is two single-hop launches
     f1, f2 = PPI_FANOUTS
@@ -1804,6 +2074,7 @@ def phase_train(graph, hetero, reddit, seed: int, smi: str,
     runs.update(train_walks(graph, small, seed, smi))
     reddit_runs, heavy_graph = train_reddit(reddit, seed, smi, heavy)
     runs.update(reddit_runs)
+    runs.update(train_heavytail_slab(heavy_graph, heavy, seed, smi))
     runs.update(train_walk_heavytail(heavy_graph, seed, smi))
     return runs
 
@@ -2340,27 +2611,57 @@ class ChildData:
 class HeavyTailBuild(ChildData):
     """reddit_heavytail's graph arrays, ``build_powerlaw(
     **REDDIT_HEAVYTAIL)`` (113.7M edges: a minute or more of host work),
+    and its slab at ``max_degree=HEAVY_SLAB_DEGREE`` (7.63 GB at 4,096),
     built by a child process from the start of phase 3 on, so that the
-    build overlaps phase 3's spins on the card; ``arrays()`` waits for
-    them and loads them here."""
+    builds overlap phase 3's spins on the card; ``arrays()`` waits for
+    them and loads the graph here, ``slab()`` the slab."""
 
     def __init__(self):
         from euler_tpu_torch.datasets import REDDIT_HEAVYTAIL
 
-        code = ("import json, os, sys, time\n"
+        code = ("import json, os, sys, time, warnings\n"
                 "import numpy as np\n"
                 "from euler_tpu_torch.datasets import build_powerlaw\n"
+                "from euler_tpu_torch.graph import MemoryGraph\n"
+                "from euler_tpu_torch.graph import device\n"
                 "t0 = time.perf_counter()\n"
                 "d = build_powerlaw(**json.loads(sys.argv[2]))\n"
                 "t1 = time.perf_counter()\n"
                 "feats = d.pop('dense_features')\n"
                 "np.savez(os.path.join(sys.argv[1], 'heavytail.npz'), "
                 "dense_0=feats[0], dense_1=feats[1], **d)\n"
-                "print(json.dumps({'build_s': t1 - t0, "
-                "'save_s': time.perf_counter() - t1}))\n")
+                "t2 = time.perf_counter()\n"
+                "del feats\n"
+                "g = MemoryGraph(**d)\n"
+                "with warnings.catch_warnings():\n"
+                "    warnings.simplefilter('ignore')\n"
+                "    slab = device.build_adjacency(g, [0], "
+                "len(d['node_weights']) - 1, max_degree=int(sys.argv[3]))\n"
+                "t3 = time.perf_counter()\n"
+                "deg = np.diff(d['indptr'])\n"
+                "info = {'truncated': int((deg > slab['nbr'].shape[1]).sum()),"
+                " 'kept': int(slab['deg'].sum()), 'edges': int(deg.sum())}\n"
+                "del g, d\n"
+                "for k, v in slab.items():\n"
+                "    np.save(os.path.join(sys.argv[1], 'slab_' + k + "
+                "'.npy'), v)\n"
+                "print(json.dumps({'build_s': t1 - t0, 'save_s': t2 - t1, "
+                "'slab_s': t3 - t2, 'slab_save_s': time.perf_counter() - t3,"
+                " **info}))\n")
         super().__init__("the heavy-tail build", code,
-                         json.dumps(REDDIT_HEAVYTAIL), timeout=1200.0)
+                         json.dumps(REDDIT_HEAVYTAIL), HEAVY_SLAB_DEGREE,
+                         timeout=1200.0)
         self.path = os.path.join(self.workdir, "heavytail.npz")
+
+    def slab(self) -> tuple:
+        """``(the slab's arrays, the child's JSON line, load s)``, after
+        ``arrays()``."""
+        t0 = time.perf_counter()
+        slab = {k: np.load(os.path.join(self.workdir, f"slab_{k}.npy"))
+                for k in ("nbr", "cum", "deg", "sampleable")}
+        for k in slab:
+            os.unlink(os.path.join(self.workdir, f"slab_{k}.npy"))
+        return slab, self.result(), time.perf_counter() - t0
 
     def arrays(self) -> tuple:
         """``(MemoryGraph arrays, build s, save s, load s)``."""
@@ -2430,6 +2731,78 @@ def train_reddit(reddit, seed: int, smi: str, heavy: HeavyTailBuild):
                                  f"expected {expect}")
         log(f"{name} path: {time.perf_counter() - t_path:.1f} s")
     return runs, graph
+
+
+def train_heavytail_slab(graph, heavy: HeavyTailBuild, seed: int,
+                         smi: str) -> dict:
+    """reddit_heavytail_slab: bench.py's reddit recipe on reddit_heavytail's
+    graph (``graph``) over its slab at ``max_degree=HEAVY_SLAB_DEGREE``,
+    built by ``heavy``'s child: B1 once a step on the wide path, after a
+    CPU/CUDA agreement on a power-law graph whose widest rows pass 1,024.
+    The entry's own slab build is skipped on this path: the model's
+    ``add_sampling_consts`` is wrapped to put the child's slab, built by
+    the same ``build_adjacency`` call (edge type 0, the graph's max id,
+    the same cap), under its key first, and ``add_sampling_consts`` keeps
+    an adjacency it is handed, so ``init_state`` builds only the rest.
+    That moves the slab's 34-41 s of host work into the child, where it
+    overlaps phases 3 and 4 instead of adding to the script's time; the
+    in-process build at this cap on this graph is not run on the card."""
+    from euler_tpu_torch.datasets import REDDIT, build_powerlaw
+    from euler_tpu_torch.graph import MemoryGraph
+    from euler_tpu_torch.graph import device as device_graph
+
+    name = "reddit_heavytail_slab"
+    t_path = time.perf_counter()
+    slab, info, load_s = heavy.slab()
+    width = slab["nbr"].shape[1]
+    log(f"{name}: slab {tuple(slab['nbr'].shape)} at max_degree "
+        f"{HEAVY_SLAB_DEGREE} built by the child in {info['slab_s']:.2f} s "
+        f"(saved in {info['slab_save_s']:.2f} s, loaded here in "
+        f"{load_s:.2f} s): {sum(v.nbytes for v in slab.values())} B, "
+        f"{info['truncated']} rows truncated, {info['kept']} of "
+        f"{info['edges']} edges kept ({info['kept'] / info['edges']:.4f}; "
+        f"card: {smi})")
+    t0 = time.perf_counter()
+    adj = device_graph.tensors(slab, "cuda")
+    torch.cuda.synchronize()
+    del slab
+    log(f"{name}: slab on the card in {time.perf_counter() - t0:.2f} s")
+
+    def with_slab(model):
+        model.set_sampling_options(max_degree=HEAVY_SLAB_DEGREE)
+        add = model.add_sampling_consts
+
+        def add_sampling_consts(consts, *args, **kwargs):
+            consts.setdefault("adj", {})[model.adj_key([0])] = adj
+            return add(consts, *args, **kwargs)
+        model.add_sampling_consts = add_sampling_consts
+        return model
+
+    data = build_powerlaw(*WIDE_SMALL_GRAPH,
+                          feature_dim=REDDIT["feature_dim"],
+                          label_dim=REDDIT["label_dim"], seed=seed + 4)
+    small_width = int(np.diff(data["indptr"]).max())
+    small = MemoryGraph(**data)
+    if not small_width > 1024:
+        raise AssertionError(f"{name}: the agreement graph's widest row "
+                             f"{small_width} does not pass 1,024")
+    agree_cpu_cuda(reddit_sage(small.max_node_id), small, seed, name,
+                   REDDIT_LR)
+    log(f"{name}: CPU/CUDA agreement on a power-law graph of "
+        f"{small.num_nodes} nodes, widest row {small_width} (B1 on the wide "
+        "path)")
+    f1, f2 = REDDIT_FANOUTS
+    run = train_full(
+        with_slab(reddit_sage(graph.max_node_id)), graph, seed, smi, name,
+        REDDIT_BATCH * (f1 + f1 * f2),
+        f"{REDDIT_BATCH} * ({f1} + {f1}*{f2}) sampled edges/step, W={width}",
+        REDDIT_LR, REDDIT_BATCH)
+    expect = {"sample_fanout2": run["steps"], "sample_neighbor": 0}
+    if run["launches"] != expect:
+        raise AssertionError(f"{name} launches {run['launches']}, expected "
+                             f"{expect}")
+    log(f"{name} path: {time.perf_counter() - t_path:.1f} s")
+    return {name: run}
 
 
 class _LogLines(logging.Handler):
@@ -2764,6 +3137,69 @@ def phase_engine(seed: int, smi: str, device: str = "cuda",
                                                    host_run)):
         runs[name] = {k: r[k] for k in ("launches", "steps", "step_ms",
                                         "peak_bytes")}
+    return runs
+
+
+def cli_wide(work: str, seed: int, smi: str) -> dict:
+    """Phase 5 (h): ``python -m euler_tpu_torch --device_sampling 1`` with
+    ``--max_degree`` unset, as the JAX CLI runs it, on a power-law graph
+    whose widest row passes 1,024 (``build_powerlaw(*WIDE_CLI_GRAPH)``,
+    ppi's widths, written as ``.dat`` files by ``datasets.write_dat``):
+    cli_wide_supervised (``--model graphsage_supervised``: B1 once a step
+    at the slab's width) and cli_wide_graphsage (``--model graphsage``: B2
+    for the positives, B1 for the fanouts), each for WIDE_CLI_EPOCHS
+    epochs in a process of its own. On the parent commit both raised:
+    the kernels' wrappers refused a slab wider than 1,024. Their launches
+    are read from the processes' ``kernel launches`` lines."""
+    from euler_tpu_torch import datasets
+
+    t0 = time.perf_counter()
+    data = datasets.build_powerlaw(
+        *WIDE_CLI_GRAPH, feature_dim=PPI_FEATURE_DIM, label_dim=PPI_LABEL_DIM,
+        multilabel=True, seed=seed + 5)
+    deg = np.diff(data["indptr"])
+    data_dir = os.path.join(work, "wide")
+    datasets.write_dat(data, data_dir)
+    del data
+    log(f"(h) power-law graph {WIDE_CLI_GRAPH[0]} nodes, {int(deg.sum())} "
+        f"edges, widest row {int(deg.max())} ({int((deg > 1024).sum())} rows "
+        f"past 1,024), written in {time.perf_counter() - t0:.2f} s")
+    if not deg.max() > 1024:
+        raise AssertionError("(h) no row passes 1,024")
+    runs = {}
+    steps = WIDE_CLI_EPOCHS * (WIDE_CLI_GRAPH[0] // PPI_BATCH)
+    for name, model in (("cli_wide_supervised", "graphsage_supervised"),
+                        ("cli_wide_graphsage", "graphsage")):
+        argv = list(RUN_LOOP_ARGS)
+        argv[argv.index("--num_epochs") + 1] = str(WIDE_CLI_EPOCHS)
+        argv[argv.index("--model") + 1] = model
+        argv += ["--data_dir", data_dir, "--model_dir",
+                 os.path.join(work, name), "--max_id",
+                 str(WIDE_CLI_GRAPH[0] - 1), "--seed", str(seed),
+                 "--device_sampling", "1"]
+        secs, out = run_cmd([sys.executable, "-m", "euler_tpu_torch", *argv],
+                            name)
+        launches = launch_line(out, name)
+        losses = [float(x) for x in re.findall(r"step=\d+ loss=(\S+)", out)]
+        log(f"(h) {name}: {secs:.2f} s, {len(losses)} steps, loss "
+            f"{np.mean(losses[:10]):.5f} (first 10) -> "
+            f"{np.mean(losses[-10:]):.5f} (last 10), launches {launches} "
+            f"(card: {smi})")
+        if len(losses) != steps or not np.isfinite(losses).all():
+            raise AssertionError(f"(h) {name}: {len(losses)} steps (want "
+                                 f"{steps}), losses finite: "
+                                 f"{np.isfinite(losses).all()}")
+        want = {"sample_fanout2": 1 if model == "graphsage_supervised" else 3,
+                "sample_neighbor": 0 if model == "graphsage_supervised"
+                else 1}
+        for k, per in want.items():
+            if launches[k] < per * steps or (per == 0 and launches[k]):
+                raise AssertionError(f"(h) {name}: {k} launched "
+                                     f"{launches[k]} times in {steps} steps")
+        if model == "graphsage_supervised" and not (
+                np.mean(losses[-10:]) < np.mean(losses[:10])):
+            raise AssertionError(f"(h) {name}: the loss did not fall")
+        runs[name] = {"launches": launches, "steps": steps}
     return runs
 
 
@@ -5778,7 +6214,7 @@ def run_phases(seed: int, smi: str, replica: ChildData, planted: ChildData,
     """Phases 3 to 15, phase 14's Reddit data made from the start."""
     heavy = HeavyTailBuild()
     try:
-        graph, hetero, reddit, k = phase_kernel(seed)
+        graph, hetero, reddit, k = phase_kernel(seed, smi)
         t2 = time.perf_counter()
         log(f"phase 3: {t2 - t1:.1f} s")
         runs = phase_train(graph, hetero, reddit, seed, smi, heavy)
@@ -5789,6 +6225,7 @@ def run_phases(seed: int, smi: str, replica: ChildData, planted: ChildData,
     del graph, hetero, reddit
     with scratch_dir() as work:
         add_runs(runs, phase_engine(seed, smi, workdir=work))
+        add_runs(runs, cli_wide(work, seed, smi))
         t4 = time.perf_counter()
         log(f"phase 5: {t4 - t3:.1f} s")
         add_runs(runs, phase_serve(os.path.join(work, "ppi"),
@@ -5841,7 +6278,10 @@ def run_phases(seed: int, smi: str, replica: ChildData, planted: ChildData,
             replaces="euler_tpu/graph/pallas_sampling.py:757",
             tpu_kernel="sample_neighbor_sharded (via draw_fn: _kernel)"),
     }
+    wide_routes = k.pop("wide_routes")
     k = {**k, **routes}
+    for name, r in wide_routes.items():  # phase 3 (q): W = 2,048
+        k[name]["wide"] = r
     kernels = []
     for name, m in meta.items():
         # the sharded routes' counts are read on phase 11's paths only

@@ -119,8 +119,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     lib.etpu_sample_fanout2.argtypes = [
         p, i,            # roots, m
-        p, p, p,         # nbr1, cum1, sampleable1
-        p, p, p,         # nbr2, cum2, sampleable2
+        p, p, p, p,      # nbr1, cum1, sampleable1, deg1 (null: W1 slots)
+        p, p, p, p,      # nbr2, cum2, sampleable2, deg2 (null: W2 slots)
         i, i, i, i, i,   # R, W1, W2, f1, f2
         u32, u32,        # seed words
         p, p,            # u1, u2 (null: Philox)
@@ -130,7 +130,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.etpu_sample_fanout2.restype = ctypes.c_int
     lib.etpu_sample_neighbor.argtypes = [
         p, i,            # nodes, m
-        p, p, p,         # nbr, cum, sampleable
+        p, p, p, p,      # nbr, cum, sampleable, deg (null: W slots)
         i, i, i, i,      # R, W, count, hop
         u32, u32,        # seed words
         p,               # u (null: Philox)

@@ -33,6 +33,42 @@
 // exact in float32, independent of the launch geometry. The plain
 // version computes the same numbers (graph/device.py philox_uniform).
 // Build without --use_fast_math.
+//
+// The wide path: a slab wider than kMaxWidth (1,024 slots) has no room
+// in the register layout. The TPU kernels stop at MAX_W = 512 and the
+// JAX package draws wider slabs through its XLA chain
+// (euler_tpu/graph/device.py sample_neighbor :454-500 and
+// _sample_fanout2_route returning None, :959-1001); here wide_draws
+// stands for that chain. A block of kWideThreads threads takes one row
+// at a time: each thread streams its float4s t, t + 256, ... of the
+// row's cum through its own slots of a kWideStages-deep shared-memory
+// ring with cp.async (kWideStages - 1 copies in flight, so the loads of
+// later tiles overlap the counting of earlier ones; a thread reads back
+// only what it copied, so the stream needs no barrier), counts u >= cum
+// for up to kWideDraws draws at once with their uniforms in registers,
+// and the counts are summed by a warp reduction and across the block's
+// warps in shared memory. Draw j's pick is then one read of
+// nbr[row, min(count_j, W - 1)]: a count, not a search, as above.
+// A row's float4s are read at 16-byte-aligned addresses; the first and
+// last may hold slots of the next or previous row, which are masked to
+// NaN (no u reaches it) and never leave the 16-byte block, so never the
+// page, of an in-bounds slot.
+//
+// Bound of the wide path: the bytes of the rows it reads. Its work is
+// one compare per (slot, draw) and a row's slots are read once for up to
+// kWideDraws draws, so at the main paths' counts (<= 10) a row is read
+// at HBM rate and compared in registers. Its design answers the bytes
+// in two ways. (1) A row is counted over its first deg[row] slots only
+// (deg is the slab's "deg" column, which every slab carries).
+// Precondition: every slot at or past deg[row] holds a cum that no
+// uniform reaches (cum >= 1 or NaN, and u < 1), so the count over deg
+// slots equals the count over W; build_adjacency pins padding cum to
+// 1.0 and each row's last real slot to exactly 1.0, so every slab it
+// makes, and the sharded routes' replicated slabs, meet it. On the
+// heavy-tailed graphs a wide slab is for, that reads a median row of
+// tens of slots instead of W.
+// (2) The ring keeps three tiles of a row in flight per thread, 12 KB a
+// block, so a few blocks an SM hold the card's memory pipe full.
 
 #pragma once
 
@@ -45,10 +81,17 @@
 namespace etpu {
 
 constexpr unsigned kFull = 0xffffffffu;
-// Widest slab the register layout holds: 32 slots per lane.
+// Widest slab the register layout holds: 32 slots per lane. Wider slabs
+// take the wide path (wide_draws).
 constexpr int kMaxWidth = 32 * 32;
 // Warps in a block of either kernel (256 threads).
 constexpr int kWarpsPerBlock = 8;
+// The wide path: threads of the block that draws from one row, depth of
+// each thread's cp.async ring, and the most draws one pass over a row
+// counts (more draws take more passes).
+constexpr int kWideThreads = 32 * kWarpsPerBlock;
+constexpr int kWideStages = 4;
+constexpr int kWideDraws = 32;
 
 // Dynamic shared memory of a block at T slots a lane: each warp's staged
 // row, 32T cum then 32T nbr (64 KB at T = 32).
@@ -220,6 +263,151 @@ cudaError_t launch_warps(Kernel* kernel, long long warps, cudaStream_t s,
   }
   kernel<<<static_cast<unsigned>(blocks), 32 * kWarpsPerBlock, bytes, s>>>(
       args...);
+  return cudaGetLastError();
+}
+
+// ---- the wide path ----
+
+// A block's shared memory on the wide path: each thread's ring slots
+// (ring[s][thread]), a pass's uniforms and each warp's partial counts.
+struct WideSmem {
+  float4 ring[kWideStages][kWideThreads];
+  float u[kWideDraws];
+  int part[kWarpsPerBlock][kWideDraws];
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// This thread's counts c[j] = #(u[j] >= cum[k]) over its slots k < len of
+// the row at row_cum: float4s t, t + kWideThreads, ... of the row,
+// streamed through ring[.][t] kWideStages - 1 copies ahead. Slots outside
+// [0, len) read as NaN.
+template <int D>
+__device__ __forceinline__ void wide_count(const float* row_cum, int len,
+                                           const float (&u)[D],
+                                           int (&c)[D],
+                                           float4 (*ring)[kWideThreads]) {
+  const int t = threadIdx.x;
+  const uintptr_t a = reinterpret_cast<uintptr_t>(row_cum);
+  const float4* q = reinterpret_cast<const float4*>(a & ~uintptr_t(15));
+  const int lead = static_cast<int>((a & 15) >> 2);  // slots before the row
+  const long long nq = (static_cast<long long>(lead) + len + 3) >> 2;
+  const int mine =
+      t < nq ? static_cast<int>((nq - 1 - t) / kWideThreads) + 1 : 0;
+#pragma unroll
+  for (int j = 0; j < D; ++j) c[j] = 0;
+#pragma unroll
+  for (int s = 0; s < kWideStages - 1; ++s) {
+    if (s < mine)
+      cp_async16(&ring[s][t], q + t + static_cast<long long>(s) * kWideThreads);
+    cp_async_commit();
+  }
+  const float nan = __int_as_float(0x7fc00000);
+  for (int k = 0; k < mine; ++k) {
+    const int nk = k + kWideStages - 1;
+    if (nk < mine)
+      cp_async16(&ring[nk % kWideStages][t],
+                 q + t + static_cast<long long>(nk) * kWideThreads);
+    cp_async_commit();
+    cp_async_wait<kWideStages - 1>();  // copy k has landed
+    float4 x = ring[k % kWideStages][t];
+    const long long s0 =
+        4 * (t + static_cast<long long>(k) * kWideThreads) - lead;
+    const auto in = [&](int e) {
+      return static_cast<unsigned long long>(s0 + e) <
+             static_cast<unsigned long long>(len);
+    };
+    x.x = in(0) ? x.x : nan;
+    x.y = in(1) ? x.y : nan;
+    x.z = in(2) ? x.z : nan;
+    x.w = in(3) ? x.w : nan;
+#pragma unroll
+    for (int j = 0; j < D; ++j)
+      c[j] += (u[j] >= x.x) + (u[j] >= x.y) + (u[j] >= x.z) + (u[j] >= x.w);
+  }
+  cp_async_wait<0>();  // the ring is free for the next pass
+}
+
+// Draws c0 .. c0 + min(D, count - c0) - 1 of global row grow at hop `hop`
+// from slab row `row`, by the whole block: out[grow * count + c] =
+// ok[row] ? nbr[row, min(#(u >= cum[row, :len]), W - 1)] : R - 1, with
+// len = deg[row] clamped to [0, W]. Draw c's
+// uniform is u[grow * count + c] or Philox (grow, c, hop, 0). Every thread
+// of the block must call it; it ends on a barrier, so a caller may read
+// the picks it wrote.
+template <int D>
+__device__ __forceinline__ void wide_draws(
+    const int* __restrict__ nbr, const float* __restrict__ cum,
+    const uint8_t* __restrict__ ok, const int* __restrict__ deg, int row,
+    int W, int R, long long grow, int count, int c0, int hop, uint32_t k0,
+    uint32_t k1, const float* __restrict__ u, int* __restrict__ out,
+    WideSmem& sm) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int cnt = min(D, count - c0);
+  if (t < cnt)
+    sm.u[t] = uniform_at(u, grow * count + c0 + t, k0, k1,
+                         static_cast<uint32_t>(grow),
+                         static_cast<uint32_t>(c0 + t),
+                         static_cast<uint32_t>(hop));
+  const size_t base = static_cast<size_t>(row) * W;
+  const int len = min(max(deg[row], 0), W);
+  __syncthreads();
+  float uj[D];
+  int c[D];
+#pragma unroll
+  for (int j = 0; j < D; ++j)
+    uj[j] = j < cnt ? sm.u[j] : __int_as_float(0x7fc00000);
+  wide_count<D>(cum + base, len, uj, c, sm.ring);
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    const int s = __reduce_add_sync(kFull, c[j]);
+    if (lane == 0) sm.part[warp][j] = s;
+  }
+  __syncthreads();
+  if (t < cnt) {
+    int idx = 0;
+#pragma unroll
+    for (int w = 0; w < kWarpsPerBlock; ++w) idx += sm.part[w][t];
+    out[grow * count + c0 + t] =
+        ok[row] != 0 ? nbr[base + min(idx, W - 1)] : R - 1;
+  }
+  __syncthreads();  // sm is free, and the picks are visible to the block
+}
+
+// Calls launch(std::integral_constant<int, D>{}) with the fewest draws a
+// pass D in {1, 2, 4, 8, 16, 32} that cover `count` draws in one pass
+// (32 when count is larger: more passes).
+template <class Launch>
+cudaError_t with_draws(int count, Launch&& launch) {
+  if (count <= 1) return launch(std::integral_constant<int, 1>{});
+  if (count <= 2) return launch(std::integral_constant<int, 2>{});
+  if (count <= 4) return launch(std::integral_constant<int, 4>{});
+  if (count <= 8) return launch(std::integral_constant<int, 8>{});
+  if (count <= 16) return launch(std::integral_constant<int, 16>{});
+  return launch(std::integral_constant<int, kWideDraws>{});
+}
+
+// Launches `kernel` with one block of kWideThreads threads per work item
+// (the wide path). Returns the first error: a refused launch never runs.
+template <class Kernel, class... Args>
+cudaError_t launch_wide(Kernel* kernel, long long blocks, cudaStream_t s,
+                        Args... args) {
+  if (blocks <= 0 || blocks > INT_MAX) return cudaErrorInvalidValue;
+  kernel<<<static_cast<unsigned>(blocks), kWideThreads, 0, s>>>(args...);
   return cudaGetLastError();
 }
 

@@ -46,6 +46,20 @@
 // plain version. Draw routine and uniforms: draw.cuh, shared with
 // sample_neighbor.cu. Build without --use_fast_math.
 //
+// Wide slabs. When either slab is wider than kMaxWidth (1,024) the
+// launch takes the wide path, which stands for the JAX package's XLA
+// chain beyond the TPU kernel's MAX_W = 512 (_sample_fanout2_route
+// returns None there, euler_tpu/graph/device.py:959-1001, and the per-hop
+// loop runs): one block of 256 threads per root makes the root's f1
+// hop-1 draws from one pass over its row, then the f2 hop-2 draws of each
+// hop-1 pick from one pass over that pick's row, in turn, both hops in
+// one launch as the TPU kernel chains them, with the counters above
+// (draw.cuh wide_draws: the row's cum streamed through a cp.async ring,
+// counted over deg[row] slots). Slabs of mixed width take it whole.
+// What bounds it is the bytes of the rows read;
+// a root's chain is 1 + f1 row passes, and the card runs every root's
+// chain at once (a block a root, several blocks an SM).
+//
 // Launch discipline: runs on the caller's stream, allocates nothing,
 // does not synchronise; the C entry returns the launch's error.
 
@@ -112,22 +126,61 @@ fanout2_kernel(const int* __restrict__ roots, int m,
                         etpu::warp_stage<T>(stage, warp));
 }
 
+// The wide path (either slab wider than kMaxWidth): one block per root
+// makes the root's f1 hop-1 draws from one pass over its row, then the
+// f2 hop-2 draws of each hop-1 pick from one pass over that pick's row,
+// in turn, D draws a pass.
+template <int D>
+__global__ void __launch_bounds__(etpu::kWideThreads)
+fanout2_wide(const int* __restrict__ roots, const int* __restrict__ nbr1,
+             const float* __restrict__ cum1, const uint8_t* __restrict__ ok1,
+             const int* __restrict__ deg1, const int* __restrict__ nbr2,
+             const float* __restrict__ cum2, const uint8_t* __restrict__ ok2,
+             const int* __restrict__ deg2, int R, int W1, int W2, int f1,
+             int f2, uint32_t k0, uint32_t k1, const float* __restrict__ u1,
+             const float* __restrict__ u2, int* out1, int* __restrict__ out2) {
+  __shared__ etpu::WideSmem sm;
+  const int r = blockIdx.x;
+  const int row1 = clamp_row(roots[r], R);
+  for (int c0 = 0; c0 < f1; c0 += D)
+    etpu::wide_draws<D>(nbr1, cum1, ok1, deg1, row1, W1, R, r, f1, c0, 0, k0,
+                        k1, u1, out1, sm);
+  // wide_draws ends on a barrier: the block's hop-1 picks are visible
+  for (int c = 0; c < f1; ++c) {
+    const long long p = static_cast<long long>(r) * f1 + c;
+    const int row2 = clamp_row(out1[p], R);
+    for (int c0 = 0; c0 < f2; c0 += D)
+      etpu::wide_draws<D>(nbr2, cum2, ok2, deg2, row2, W2, R, p, f2, c0, 1,
+                          k0, k1, u2, out2, sm);
+  }
+}
+
 }  // namespace
 
+// The widest slab of the register path; wider slabs take the wide path.
 extern "C" int etpu_draw_max_width() { return etpu::kMaxWidth; }
 
 extern "C" int etpu_sample_fanout2(const int* roots, int m, const int* nbr1,
                                    const float* cum1, const uint8_t* ok1,
-                                   const int* nbr2, const float* cum2,
-                                   const uint8_t* ok2, int R, int W1, int W2,
+                                   const int* deg1, const int* nbr2,
+                                   const float* cum2, const uint8_t* ok2,
+                                   const int* deg2, int R, int W1, int W2,
                                    int f1, int f2, uint32_t k0, uint32_t k1,
                                    const float* u1, const float* u2,
                                    int* out1, int* out2, void* stream) {
-  const int w = W1 > W2 ? W1 : W2;
   if (m <= 0 || R <= 0 || W1 <= 0 || W2 <= 0 || f1 <= 0 || f2 <= 0 ||
-      w > etpu::kMaxWidth)
+      !deg1 || !deg2)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
+  const int w = W1 > W2 ? W1 : W2;
+  if (w > etpu::kMaxWidth)
+    return static_cast<int>(
+        etpu::with_draws(f1 > f2 ? f1 : f2, [&](auto draws) {
+          constexpr int D = decltype(draws)::value;
+          return etpu::launch_wide(fanout2_wide<D>, m, s, roots, nbr1, cum1,
+                                   ok1, deg1, nbr2, cum2, ok2, deg2, R, W1,
+                                   W2, f1, f2, k0, k1, u1, u2, out1, out2);
+        }));
   return static_cast<int>(etpu::with_slots(w, [&](auto slots) {
     constexpr int T = decltype(slots)::value;
     return etpu::launch_warps<T>(

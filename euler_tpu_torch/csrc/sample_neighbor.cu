@@ -17,6 +17,16 @@
 // DMAs follow the TPU's tiling; here the unpacked nbr/cum/sampleable
 // slabs are read directly.
 //
+// Wide slabs. A slab wider than kMaxWidth (1,024) takes the wide path,
+// which stands for the JAX package's XLA chain beyond the TPU kernel's
+// MAX_W = 512 (euler_tpu/graph/device.py sample_neighbor, :454-500): one
+// block of 256 threads per node makes the node's `count` draws from one
+// pass over its row (32 draws a pass; more take more passes), the row's
+// cum streamed through a cp.async ring and counted over deg[row] slots
+// (draw.cuh wide_draws, its precondition and
+// its bound: the bytes of the rows read). Slabs up to kMaxWidth keep the
+// warp-per-node path above unchanged.
+//
 // Uniforms: Philox counter (r, c, hop, 0) for draw c of node r, with the
 // hop given by the caller, so a launch at hop h draws what
 // graph/device.py philox_uniform(seed_words, h, m, count) gives. Optional
@@ -64,17 +74,41 @@ sample_neighbor_kernel(const int* __restrict__ nodes, int m,
                         k1, u, u0, out, etpu::warp_stage<T>(stage, warp));
 }
 
+// The wide path (W > kMaxWidth): one block per node, D draws a pass.
+template <int D>
+__global__ void __launch_bounds__(etpu::kWideThreads)
+sample_neighbor_wide(const int* __restrict__ nodes,
+                     const int* __restrict__ nbr,
+                     const float* __restrict__ cum,
+                     const uint8_t* __restrict__ ok,
+                     const int* __restrict__ deg, int R, int W, int count,
+                     int hop, uint32_t k0, uint32_t k1,
+                     const float* __restrict__ u, int* __restrict__ out) {
+  __shared__ etpu::WideSmem sm;
+  const int r = blockIdx.x;
+  const int row = etpu::clamp_row(nodes[r], R);
+  for (int c0 = 0; c0 < count; c0 += D)
+    etpu::wide_draws<D>(nbr, cum, ok, deg, row, W, R, r, count, c0, hop, k0,
+                        k1, u, out, sm);
+}
+
 }  // namespace
 
 extern "C" int etpu_sample_neighbor(const int* nodes, int m, const int* nbr,
                                     const float* cum, const uint8_t* ok,
-                                    int R, int W, int count, int hop,
-                                    uint32_t k0, uint32_t k1, const float* u,
-                                    int* out, void* stream) {
-  if (m <= 0 || R <= 0 || W <= 0 || count <= 0 || hop < 0 ||
-      W > etpu::kMaxWidth)
+                                    const int* deg, int R, int W, int count,
+                                    int hop, uint32_t k0, uint32_t k1,
+                                    const float* u, int* out, void* stream) {
+  if (m <= 0 || R <= 0 || W <= 0 || count <= 0 || hop < 0 || !deg)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
+  if (W > etpu::kMaxWidth)
+    return static_cast<int>(etpu::with_draws(count, [&](auto draws) {
+      constexpr int D = decltype(draws)::value;
+      return etpu::launch_wide(sample_neighbor_wide<D>, m, s, nodes, nbr,
+                               cum, ok, deg, R, W, count, hop, k0, k1, u,
+                               out);
+    }));
   return static_cast<int>(etpu::with_slots(W, [&](auto slots) {
     constexpr int T = decltype(slots)::value;
     return etpu::launch_warps<T>(sample_neighbor_kernel<T>, m, s, nodes, m,

@@ -11,8 +11,18 @@
   ``sample_fanout2_reference``, is two chained plain draws.
 
 Both kernels run one draw routine (``csrc/draw.cuh``), as the TPU kernels
-share ``_stage_draw``. Both take slabs only: an alias table has no kernel,
-and ``device.sample_fanout`` / ``device.neighbor_draw`` route it to the
+share ``_stage_draw``. They take a slab of any width: up to
+``etpu_draw_max_width()`` (1,024) slots a warp holds a row in registers,
+and a wider slab takes the wide path, a block a row streaming its ``cum``
+through shared memory, where the JAX package keeps its XLA chain past the
+TPU kernels' ``MAX_W``; the C entry chooses the path. The wide path
+counts a row over its first ``deg[row]`` slots, which equals the count
+over W on every slab ``device.build_adjacency`` makes (its padding ``cum``
+is 1.0, which no uniform reaches), so a slab on the card carries ``deg``.
+The kernels' one limit is their C interface's int: rows, width, nodes and
+counts up to 2^31 - 1, which is also as many rows as int32 ids can name.
+Both take slabs only: an alias table has no kernel, and
+``device.sample_fanout`` / ``device.neighbor_draw`` route it to the
 plain alias draw before any wrapper here. Routing is by where the tensors lie, and nothing
 else: CPU tensors run the plain version, CUDA tensors launch the kernel
 or raise. ``launches`` counts each kernel's launches, so a run can show
@@ -61,21 +71,26 @@ def sample_fanout2_reference(adj1: dict, adj2: dict, roots, seed_words,
 
 
 def _check_slab(adj: dict, n_rows: int, dev: torch.device, name: str):
-    nbr, cum, ok = adj["nbr"], adj["cum"], adj["sampleable"]
-    for t, dtype in ((nbr, torch.int32), (cum, torch.float32),
-                     (ok, torch.bool)):
+    if "deg" not in adj:
+        raise ValueError(f"{name}: the kernel reads the slab's deg [R] int32, "
+                         "as device.build_adjacency makes it")
+    nbr, cum, ok, deg = adj["nbr"], adj["cum"], adj["sampleable"], adj["deg"]
+    for key, t, dtype in (("nbr", nbr, torch.int32),
+                          ("cum", cum, torch.float32),
+                          ("sampleable", ok, torch.bool),
+                          ("deg", deg, torch.int32)):
         if t.device != dev or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(
-                f"{name}: the kernel takes contiguous {dtype} tensors on "
-                f"{dev}; got {t.dtype} on {t.device}"
+                f"{name}: the kernel takes {key} as a contiguous {dtype} "
+                f"tensor on {dev}; got {t.dtype} on {t.device}"
             )
     if nbr.shape != cum.shape or nbr.shape[0] != n_rows or (
-        ok.shape != (n_rows,)
+        ok.shape != (n_rows,) or deg.shape != (n_rows,)
     ):
         raise ValueError(
-            f"{name}: nbr/cum must be [R, W] and sampleable [R] over one id "
-            f"space of {n_rows} rows; got {tuple(nbr.shape)}, "
-            f"{tuple(cum.shape)}, {tuple(ok.shape)}"
+            f"{name}: nbr/cum must be [R, W] and sampleable/deg [R] over one "
+            f"id space of {n_rows} rows; got {tuple(nbr.shape)}, "
+            f"{tuple(cum.shape)}, {tuple(ok.shape)}, {tuple(deg.shape)}"
         )
 
 
@@ -96,19 +111,21 @@ def _device_of(t, name: str):
     return t.device
 
 
-def _library_for(widths):
-    """The kernels' library, after checking that every slab width fits
-    the draw routine's register layout."""
+_INT_MAX = 2**31 - 1
+
+
+def _library_for(**dims):
+    """The kernels' library, after checking that every dimension fits the
+    kernels' C interface (int: up to 2^31 - 1)."""
     from euler_tpu_torch import _build
 
-    lib = _build.load_library()
-    if max(widths) > lib.etpu_draw_max_width():
+    big = {k: v for k, v in dims.items() if v > _INT_MAX}
+    if big:
         raise ValueError(
-            f"slab width {max(widths)} exceeds the kernels' register layout "
-            f"({lib.etpu_draw_max_width()}); cap it with "
-            "build_adjacency(max_degree=...)"
+            f"{big} exceed the kernels' limit of 2^31 - 1 (their C "
+            "interface's int) for rows, width, nodes and counts"
         )
-    return lib
+    return _build.load_library()
 
 
 def sample_neighbor(adj: dict, nodes, seed_words, count: int, hop: int = 0,
@@ -117,9 +134,11 @@ def sample_neighbor(adj: dict, nodes, seed_words, count: int, hop: int = 0,
     kernel launch on CUDA tensors.
 
     ``adj`` is a slab dict (``nbr`` int32 [R, W], ``cum`` float32 [R, W],
-    ``sampleable`` bool [R]); the default id is R-1. ``seed_words`` is two
-    32-bit ints keying the Philox uniforms at counter (node index, draw,
-    ``hop``, 0); ``u`` [len(nodes), count] float32 replaces them."""
+    ``sampleable`` bool [R], ``deg`` int32 [R], as
+    ``device.build_adjacency`` makes it); the default id is R-1.
+    ``seed_words`` is two 32-bit ints keying the Philox uniforms at
+    counter (node index, draw, ``hop``, 0); ``u`` [len(nodes), count]
+    float32 replaces them."""
     shape = tuple(nodes.shape)
     m = nodes.numel()
     if u is not None:
@@ -143,14 +162,14 @@ def sample_neighbor(adj: dict, nodes, seed_words, count: int, hop: int = 0,
     if m == 0:
         return out.reshape(*shape, count)
     width = adj["nbr"].shape[1]
-    lib = _library_for([width])
+    lib = _library_for(rows=n_rows, width=width, nodes=m, count=count)
     flat = nodes.reshape(-1).contiguous()
     u = _injected(u, (m, count), dev)
     k0, k1 = seed_words
     rc = lib.etpu_sample_neighbor(
         flat.data_ptr(), m,
         adj["nbr"].data_ptr(), adj["cum"].data_ptr(),
-        adj["sampleable"].data_ptr(),
+        adj["sampleable"].data_ptr(), adj["deg"].data_ptr(),
         n_rows, width, count, hop, ctypes.c_uint32(k0), ctypes.c_uint32(k1),
         None if u is None else u.data_ptr(),
         out.data_ptr(),
@@ -169,7 +188,8 @@ def sample_fanout2(adj1: dict, adj2: dict, roots, seed_words, f1: int,
     replacement, both hops in one kernel launch on CUDA tensors.
 
     ``adj1``/``adj2`` are slab dicts (``nbr`` int32 [R, W], ``cum``
-    float32 [R, W], ``sampleable`` bool [R]) over one id space of R rows;
+    float32 [R, W], ``sampleable`` bool [R], ``deg`` int32 [R], as
+    ``sample_neighbor``'s) over one id space of R rows, of any widths;
     the default id is R-1. ``seed_words`` is two 32-bit ints keying the
     Philox uniforms; ``u1`` [m, f1] and ``u2`` [m*f1, f2] float32 replace
     them (inject both or neither)."""
@@ -193,7 +213,8 @@ def sample_fanout2(adj1: dict, adj2: dict, roots, seed_words, f1: int,
     if m == 0:
         return out1, out2
     w1, w2 = adj1["nbr"].shape[1], adj2["nbr"].shape[1]
-    lib = _library_for([w1, w2])
+    lib = _library_for(rows=n_rows, width=max(w1, w2), roots=m, f1=f1,
+                       f2=f2)
     roots = roots.contiguous()
     u1 = _injected(u1, (m, f1), dev)
     u2 = _injected(u2, (m * f1, f2), dev)
@@ -201,9 +222,9 @@ def sample_fanout2(adj1: dict, adj2: dict, roots, seed_words, f1: int,
     rc = lib.etpu_sample_fanout2(
         roots.data_ptr(), m,
         adj1["nbr"].data_ptr(), adj1["cum"].data_ptr(),
-        adj1["sampleable"].data_ptr(),
+        adj1["sampleable"].data_ptr(), adj1["deg"].data_ptr(),
         adj2["nbr"].data_ptr(), adj2["cum"].data_ptr(),
-        adj2["sampleable"].data_ptr(),
+        adj2["sampleable"].data_ptr(), adj2["deg"].data_ptr(),
         n_rows, w1, w2, f1, f2, ctypes.c_uint32(k0), ctypes.c_uint32(k1),
         None if u1 is None else u1.data_ptr(),
         None if u2 is None else u2.data_ptr(),

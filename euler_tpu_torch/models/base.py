@@ -625,7 +625,9 @@ class Model:
         read directly, capped at ``max_degree`` or else
         ``sampling_max_degree``; or alias tables), and the typed node
         samplers for negatives (``negs_type``) and roots
-        (``roots_type``), one shared table when the types match.
+        (``roots_type``), one shared table when the types match. An
+        adjacency already in ``consts["adj"]`` under its key is kept as
+        given, so a caller may hand in a slab it built itself.
 
         ``sorted`` builds id-sorted tables under their own keys
         (``adj_key(et, sorted=True)``) for the biased walks. A sorted slab
